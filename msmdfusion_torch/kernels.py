@@ -1,0 +1,147 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by its
+own ``nvcc`` process for ``sm_90a`` into a shared library under
+``msmdfusion_torch/_build/`` at first use (the processes of one ``build()``
+run in parallel). The library file name carries a hash of the source and
+the flags, so an edited source is rebuilt. Libraries are loaded with
+``ctypes``; pointer and stream arguments are ``c_void_p``.
+
+Nothing here runs when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / 'csrc'
+BUILD_DIR = _HERE / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point and argument types of each kernel's library
+ENTRY_POINTS = {
+    'rows_affine': ('msmd_rows_affine',
+                    (_P, _I, _P, _I, _P, _I, _P, _P, _P)),
+    'gather_gemm_conv': ('msmd_gather_gemm_conv',
+                         (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
+                          _P)),
+}
+
+_LOADED: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then $PATH."""
+    for home in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if home and os.path.isfile(os.path.join(home, 'bin', 'nvcc')):
+            return os.path.join(home, 'bin', 'nvcc')
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f'{name}.cu').read_bytes()
+    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f'lib{name}_{digest[:16]}.so'
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:
+    """Compile the named kernels (default: all) that are not built yet.
+
+    One nvcc process per source, all started together. Returns {name:
+    (seconds, compiler log)} for the kernels built by this call; raises
+    with the compiler's output if any build fails.
+    """
+    names = list(ENTRY_POINTS if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
+    if not todo:
+        return {}
+    exe = nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [exe, *NVCC_FLAGS, '-o', tmp, str(CSRC / f'{name}.cu')]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    done, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'--- {name} (nvcc exit {proc.returncode})\n{log}')
+            os.unlink(tmp)
+            continue
+        os.replace(tmp, out)    # atomic: a reader never sees half a file
+        done[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError('CUDA kernel build failed:\n' + '\n'.join(failed))
+    return done
+
+
+def entry_point(name: str):
+    """The loaded C entry point of kernel ``name`` (built if needed)."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        symbol, argtypes = ENTRY_POINTS[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn
+
+
+def check(name: str, status: int) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if status != 0:
+        raise RuntimeError(
+            f'CUDA kernel {name} failed to launch: cudaError_t {status}')
+
+
+# launches of each kernel by its wrapper (plain-version runs not counted)
+launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+_FORCE_PLAIN = [False]
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+class plain_kernels:
+    """Scope in which the wrappers run their plain PyTorch versions on CUDA
+    tensors too: the yardstick that ``chip_smoke.py`` and the tests hold
+    the kernels against. Outside it a CUDA tensor always goes to the
+    kernel."""
+
+    def __enter__(self):
+        self._prev = _FORCE_PLAIN[0]
+        _FORCE_PLAIN[0] = True
+        return self
+
+    def __exit__(self, *exc):
+        _FORCE_PLAIN[0] = self._prev
+        return False
+
+
+def use_kernel(t) -> bool:
+    """True when a tensor on ``t``'s device goes to the CUDA kernel: it
+    lies on the card and no ``plain_kernels`` scope is open. A CPU tensor
+    takes the plain version."""
+    return t.is_cuda and not _FORCE_PLAIN[0]

@@ -1,0 +1,282 @@
+"""TransFusion detection head (transformer decoder over BEV features).
+
+Counterpart of the JAX package's ``models/heads/transfusion_head.py``
+(reference mmdet3d/models/dense_heads/transfusion_head.py): heatmap query
+initialisation with per-class local-maximum NMS, a transformer decoder
+with learned position embeddings, the FFN prediction branches, and the
+decode of ``get_bboxes``. Inference only: loss and targets are not ported
+yet.
+
+Module and parameter names are the reference's (``shared_conv``,
+``heatmap_head``, ``class_encoding``, ``decoder.{i}``,
+``prediction_heads.{i}``; pointwise convs are Conv1d with kernel 1), while
+the decoder runs channels-last like the JAX package and applies the Conv1d
+weights as linear maps.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...registry import BBOX_CODERS, HEADS
+from ..layers import ConvModule, batch_norm_last, get_activation, pointwise
+
+
+class PositionEmbeddingLearned(nn.Module):
+    """Two-layer pointwise MLP with batch norm (reference :25-41)."""
+
+    def __init__(self, input_channel: int, num_pos_feats: int = 288):
+        super().__init__()
+        self.position_embedding_head = nn.Sequential(
+            nn.Conv1d(input_channel, num_pos_feats, 1),
+            nn.BatchNorm1d(num_pos_feats),
+            nn.ReLU(inplace=True),
+            nn.Conv1d(num_pos_feats, num_pos_feats, 1))
+
+    def forward(self, xyz):
+        """xyz [B, P, D] -> [B, P, num_pos_feats]."""
+        head = self.position_embedding_head
+        x = batch_norm_last(head[1], pointwise(head[0], xyz))
+        return pointwise(head[3], F.relu(x))
+
+
+class MultiheadAttention(nn.Module):
+    """Multi-head attention, channels-last, with ``nn.MultiheadAttention``'s
+    parameter names (``in_proj_weight`` [3E, E], ``out_proj``)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
+                                                       embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(self, query, key, value, attn_mask=None):
+        """query [B, P, C], key/value [B, S, C] -> [B, P, C]."""
+        b, p, c = query.shape
+        s = key.shape[1]
+        h = self.num_heads
+        hd = c // h
+        wq, wk, wv = self.in_proj_weight.chunk(3)
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+        q = F.linear(query, wq, bq).reshape(b, p, h, hd).transpose(1, 2)
+        k = F.linear(key, wk, bk).reshape(b, s, h, hd).transpose(1, 2)
+        v = F.linear(value, wv, bv).reshape(b, s, h, hd).transpose(1, 2)
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        if attn_mask is not None:
+            logits = logits + attn_mask
+        out = torch.matmul(torch.softmax(logits, dim=-1), v)
+        return self.out_proj(out.transpose(1, 2).reshape(b, p, c))
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self-attention, cross-attention and FFN with learned position
+    embeddings (reference :44-122). Dropout is off: inference only."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.1, activation: str = 'relu',
+                 cross_only: bool = False, pos_dim: int = 2):
+        super().__init__()
+        self.cross_only = cross_only
+        if not cross_only:
+            self.self_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model)
+        self.norm2 = nn.LayerNorm(d_model)
+        self.norm3 = nn.LayerNorm(d_model)
+        self.activation = get_activation(activation)
+        self.self_posembed = PositionEmbeddingLearned(pos_dim, d_model)
+        self.cross_posembed = PositionEmbeddingLearned(pos_dim, d_model)
+
+    def forward(self, query, key, query_pos, key_pos, attn_mask=None):
+        """query [B, P, C], key [B, S, C], query_pos [B, P, D],
+        key_pos [B, S, D] -> [B, P, C]."""
+        qpe = self.self_posembed(query_pos)
+        kpe = self.cross_posembed(key_pos)
+        if not self.cross_only:
+            q = query + qpe
+            query = self.norm1(query + self.self_attn(q, q, q))
+        k = key + kpe
+        query = self.norm2(query + self.multihead_attn(
+            query + qpe, k, k, attn_mask=attn_mask))
+        ff = self.linear2(self.activation(self.linear1(query)))
+        return self.norm3(query + ff)
+
+
+class FFN(nn.Module):
+    """Multi-branch pointwise prediction head (reference FFN, :507-590):
+    per branch ``num_conv - 1`` ConvModules (Conv1d + BN1d + ReLU) and a
+    final Conv1d."""
+
+    def __init__(self, in_channels: int, heads: Dict[str, Tuple[int, int]],
+                 head_conv: int = 64, init_bias: float = -2.19):
+        super().__init__()
+        self.heads = dict(heads)
+        for head, (classes, num_conv) in self.heads.items():
+            layers = []
+            c = in_channels
+            for _ in range(num_conv - 1):
+                layers.append(ConvModule(c, head_conv, 1, bias=True,
+                                         conv_dim=1))
+                c = head_conv
+            layers.append(nn.Conv1d(c, classes, 1, bias=True))
+            if head == 'heatmap':
+                nn.init.constant_(layers[-1].bias, init_bias)
+            setattr(self, head, nn.Sequential(*layers))
+
+    def forward(self, x):
+        """x [B, P, C] -> dict of [B, P, out_ch]."""
+        out = {}
+        for head in self.heads:
+            layers = getattr(self, head)
+            y = x
+            for cm in layers[:-1]:
+                y = F.relu(batch_norm_last(cm.bn, pointwise(cm.conv, y)))
+            out[head] = pointwise(layers[-1], y)
+        return out
+
+
+def local_maximum_nms(heatmap, kernel_size: int,
+                      flat_classes: Sequence[int] = ()):
+    """Keep local maxima of ``heatmap`` [B, C, H, W] (reference :847-859).
+
+    The pooled map fills only the interior of a zero canvas, so border
+    cells survive only where they equal 0 (as the JAX package's VALID
+    ``reduce_window``); the ``flat_classes`` use kernel 1 (every cell its
+    own maximum).
+    """
+    if kernel_size <= 1:
+        return heatmap
+    pad = kernel_size // 2
+    pooled = F.max_pool2d(heatmap, kernel_size, stride=1, padding=0)
+    local_max = torch.zeros_like(heatmap)
+    local_max[:, :, pad:-pad, pad:-pad] = pooled
+    if flat_classes:
+        cls = list(flat_classes)
+        local_max[:, cls] = heatmap[:, cls]
+    return torch.where(heatmap == local_max, heatmap, 0.0)
+
+
+def topk_lower_index_first(x, k: int):
+    """Top ``k`` of the last axis, ties broken by the lower index first
+    (``jax.lax.top_k``'s order; ``torch.topk`` promises no tie order)."""
+    values, index = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], index[..., :k]
+
+
+@HEADS.register('TransFusionHead')
+class TransFusionHead(nn.Module):
+
+    def __init__(self, num_proposals: int = 128, auxiliary: bool = True,
+                 in_channels: int = 128 * 3, hidden_channel: int = 128,
+                 num_classes: int = 4, num_decoder_layers: int = 3,
+                 num_heads: int = 8, nms_kernel_size: int = 1,
+                 ffn_channel: int = 256, dropout: float = 0.1,
+                 bn_momentum: float = 0.1, activation: str = 'relu',
+                 common_heads: Optional[Dict[str, Any]] = None,
+                 num_heatmap_convs: int = 2, bbox_coder: Any = None,
+                 test_cfg: Any = None, fuse_img: bool = False, **unused):
+        super().__init__()
+        if fuse_img:
+            raise NotImplementedError('image fusion is not ported yet')
+        # loss, target and training settings wait for the training port
+        del unused
+        self.num_proposals = num_proposals
+        self.num_classes = num_classes
+        self.nms_kernel_size = nms_kernel_size
+        self.test_cfg = test_cfg
+        self.coder = BBOX_CODERS.build(dict(bbox_coder))
+        self.shared_conv = nn.Conv2d(in_channels, hidden_channel, 3,
+                                     padding=1, bias=True)
+        self.heatmap_head = nn.Sequential(
+            ConvModule(hidden_channel, hidden_channel, 3, padding=1,
+                       bias=True),
+            nn.Conv2d(hidden_channel, num_classes, 3, padding=1, bias=True))
+        self.class_encoding = nn.Conv1d(num_classes, hidden_channel, 1)
+        self.decoder = nn.ModuleList([
+            TransformerDecoderLayer(hidden_channel, num_heads, ffn_channel,
+                                    dropout, activation)
+            for _ in range(num_decoder_layers)])
+        heads = {k: tuple(v) for k, v in (common_heads or {}).items()}
+        heads['heatmap'] = (num_classes, num_heatmap_convs)
+        self.prediction_heads = nn.ModuleList([
+            FFN(hidden_channel, heads) for _ in range(num_decoder_layers)])
+
+    def _flat_classes(self) -> Tuple[int, ...]:
+        dataset = (self.test_cfg or {}).get('dataset')
+        return {'nuScenes': (8, 9), 'Waymo': (1, 2)}.get(dataset, ())
+
+    def forward(self, inputs):
+        """inputs [B, C_in, H, W] BEV -> dict of [B, C, P * layers]
+        predictions, 'dense_heatmap' [B, C, H, W], 'query_heatmap_score'
+        [B, C, P], 'query_labels' [B, P] and 'query_spatial' [B, P] (the
+        BEV cell index ``y * W + x`` of each proposal)."""
+        b, _, h, w = inputs.shape
+        lidar_feat = self.shared_conv(inputs)                 # [B, hid, H, W]
+        lidar_flat = lidar_feat.flatten(2).transpose(1, 2)    # [B, HW, hid]
+        ys, xs = torch.meshgrid(
+            torch.arange(h, dtype=inputs.dtype, device=inputs.device) + 0.5,
+            torch.arange(w, dtype=inputs.dtype, device=inputs.device) + 0.5,
+            indexing='ij')
+        bev_pos = torch.stack([xs, ys], dim=-1).reshape(1, h * w, 2)
+        bev_pos = bev_pos.expand(b, -1, -1)
+
+        dense_heatmap = self.heatmap_head(lidar_feat)         # [B, C, H, W]
+        heatmap = torch.sigmoid(dense_heatmap.detach())
+        heatmap = local_maximum_nms(heatmap, self.nms_kernel_size,
+                                    self._flat_classes())
+        heatmap = heatmap.reshape(b, self.num_classes, h * w)
+        _, top_idx = topk_lower_index_first(heatmap.reshape(b, -1),
+                                            self.num_proposals)
+        top_classes = top_idx // (h * w)
+        top_spatial = top_idx % (h * w)
+
+        index = top_spatial[:, :, None]
+        query_feat = torch.gather(
+            lidar_flat, 1, index.expand(-1, -1, lidar_flat.shape[-1]))
+        one_hot = F.one_hot(top_classes, self.num_classes).to(inputs.dtype)
+        query_feat = query_feat + pointwise(self.class_encoding, one_hot)
+        query_pos = torch.gather(bev_pos, 1, index.expand(-1, -1, 2))
+
+        ret_layers = []
+        for decoder, pred_head in zip(self.decoder, self.prediction_heads):
+            query_feat = decoder(query_feat, lidar_flat, query_pos, bev_pos)
+            res = pred_head(query_feat)
+            res['center'] = res['center'] + query_pos
+            query_pos = res['center'].detach()
+            ret_layers.append(res)
+
+        out = {key: torch.cat([r[key].transpose(1, 2) for r in ret_layers],
+                              dim=-1)
+               for key in ret_layers[0]}
+        out['dense_heatmap'] = dense_heatmap
+        out['query_heatmap_score'] = torch.gather(
+            heatmap, 2, top_spatial[:, None, :].expand(
+                -1, self.num_classes, -1))
+        out['query_labels'] = top_classes
+        out['query_spatial'] = top_spatial
+        return out
+
+    def get_bboxes(self, preds):
+        """Decode the last layer's proposals (reference :1288-1379) into
+        fixed-size [B, P] 'bboxes'/'scores'/'labels'/'valid' (no NMS: the
+        configuration's ``nms_type`` is None)."""
+        p = self.num_proposals
+        score = torch.sigmoid(preds['heatmap'][..., -p:])
+        one_hot = F.one_hot(preds['query_labels'], self.num_classes)
+        score = score * preds['query_heatmap_score'] * \
+            one_hot.transpose(1, 2).to(score.dtype)
+        vel = preds.get('vel')
+        return self.coder.decode(
+            score, preds['rot'][..., -p:], preds['dim'][..., -p:],
+            preds['center'][..., -p:], preds['height'][..., -p:],
+            None if vel is None else vel[..., -p:], filter=True)

@@ -1,0 +1,101 @@
+"""Shared building blocks: masked batch norm over sparse rows, ConvModule.
+
+Counterpart of the JAX package's ``models/layers.py``. The port is
+inference-only in this slice: batch norms use their running statistics,
+and asking for training mode raises. Parameter and buffer names are the
+reference mmdet3d/mmcv ones (``weight``, ``bias``, ``running_mean``,
+``running_var``; ConvModule's ``conv``/``bn``), so a reference checkpoint
+and the JAX package's converter both read a port ``state_dict()`` as is.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def get_activation(name: Optional[str]) -> Optional[Callable]:
+    if name is None:
+        return None
+    return {
+        'relu': F.relu,
+        'gelu': F.gelu,
+        'silu': F.silu,
+        'sigmoid': torch.sigmoid,
+    }[name.lower()]
+
+
+def _check_eval(module: nn.Module) -> None:
+    if module.training:
+        raise NotImplementedError(
+            f'{type(module).__name__}: the port runs inference only; '
+            'call .eval() first')
+
+
+def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x):
+    """Eval-mode batch norm over the last axis of ``x`` (any rank)."""
+    _check_eval(bn)
+    c = x.shape[-1]
+    y = F.batch_norm(x.reshape(-1, c), bn.running_mean, bn.running_var,
+                     bn.weight, bn.bias, False, 0.0, bn.eps)
+    return y.reshape(x.shape)
+
+
+class MaskedBatchNorm(nn.BatchNorm1d):
+    """Batch norm over channels-last rows with an optional validity mask.
+
+    Eval mode only: ``y = (x - mean) * rsqrt(var + eps) * weight + bias``,
+    rows outside ``mask`` zeroed. ``fold()`` returns the same affine as
+    ``(scale, shift)`` for fusion into a conv kernel's epilogue.
+    """
+
+    def forward(self, x, mask=None):
+        y = batch_norm_last(self, x)
+        if mask is not None:
+            y = torch.where(mask[:, None], y, 0.0)
+        return y
+
+    def fold(self):
+        """(scale, shift) with ``bn(x) == x * scale + shift``."""
+        _check_eval(self)
+        s = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return s, self.bias - self.running_mean * s
+
+
+class ConvModule(nn.Module):
+    """conv (1-D or 2-D, channels-first) + batch norm + activation.
+
+    mmcv ConvModule naming (``conv``, ``bn``); reference semantics
+    mmcv/cnn/bricks/conv_module.py, JAX counterpart ``layers.ConvModule``.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 1, stride: int = 1, padding: int = 0,
+                 bias: bool = False, conv_dim: int = 2, norm: bool = True,
+                 norm_eps: float = 1e-5, norm_momentum: float = 0.1,
+                 act: Optional[str] = 'relu'):
+        super().__init__()
+        conv = nn.Conv2d if conv_dim == 2 else nn.Conv1d
+        bn = nn.BatchNorm2d if conv_dim == 2 else nn.BatchNorm1d
+        self.conv = conv(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding, bias=bias)
+        self.bn = (bn(out_channels, eps=norm_eps, momentum=norm_momentum)
+                   if norm else None)
+        self.act = get_activation(act)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            _check_eval(self.bn)
+            x = self.bn(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x
+
+
+def pointwise(conv: nn.Module, x):
+    """A kernel-1 Conv1d applied to channels-last ``x`` [..., Cin]."""
+    w = conv.weight
+    return F.linear(x, w.reshape(w.shape[0], w.shape[1]), conv.bias)
