@@ -35,6 +35,9 @@ ENTRY_POINTS = {
     'gather_gemm_conv': ('msmd_gather_gemm_conv',
                          (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                           _P)),
+    'masked_nn': ('msmd_masked_nn',
+                  (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P)),
+    'merge_take': ('msmd_merge_take', (_P, _I, _I, _P, _P, _P, _I, _P, _P)),
 }
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
@@ -105,6 +108,18 @@ def entry_point(name: str):
         fn.restype = ctypes.c_int
         _LOADED[name] = fn
     return fn
+
+
+def check_tensor(name: str, t, dtype, ndim: int, device) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-d ``dtype`` tensor on
+    ``device``: what a kernel's C entry point takes."""
+    if t.dtype != dtype or t.dim() != ndim:
+        raise TypeError(f'{name}: expected {ndim}-d {dtype}, got '
+                        f'{t.dim()}-d {t.dtype}')
+    if t.device != device:
+        raise ValueError(f'{name} on {t.device}, expected {device}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
 
 
 def check(name: str, status: int) -> None:

@@ -11,10 +11,10 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import torch
 from torch import nn
 
 from ...registry import BACKBONES
+from ..layers import cudnn_enabled
 
 
 @BACKBONES.register('SECOND')
@@ -52,12 +52,8 @@ class SECOND(nn.Module):
         if self.training:
             raise NotImplementedError('the port runs inference only')
         outs = []
-        cudnn_was = torch.backends.cudnn.enabled
-        torch.backends.cudnn.enabled = False
-        try:
+        with cudnn_enabled(False):
             for block in self.blocks:
                 x = block(x)
                 outs.append(x)
-        finally:
-            torch.backends.cudnn.enabled = cudnn_was
         return tuple(outs)

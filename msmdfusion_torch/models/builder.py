@@ -35,8 +35,8 @@ def init_random_weights(model: nn.Module, generator: torch.Generator,
     transposed conv's is [I, O, kh, kw]). Biases: normal, std 0.01. Batch
     norms: weight and running var in 1 +- ``bn_spread``, bias and running
     mean normal with std ``bn_spread`` / 10, so every folded epilogue is a
-    real affine. Draws run on the CPU, so one seed gives the same weights
-    on every device.
+    real affine. GMA dummy embeddings: uniform in [0, 1). Draws run on the
+    CPU, so one seed gives the same weights on every device.
     """
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
@@ -55,7 +55,9 @@ def init_random_weights(model: nn.Module, generator: torch.Generator,
             continue
         for name, p in module.named_parameters(recurse=False):
             if p.dim() == 1:
-                if name == 'bias' and isinstance(module, nn.LayerNorm):
+                if name.startswith('dummy_embedding'):
+                    p.copy_(uniform(p.shape, 0.0, 1.0))   # as the JAX init
+                elif name == 'bias' and isinstance(module, nn.LayerNorm):
                     p.zero_()
                 elif isinstance(module, nn.LayerNorm):
                     p.fill_(1.0)

@@ -157,9 +157,10 @@ def local_maximum_nms(heatmap, kernel_size: int,
     if kernel_size <= 1:
         return heatmap
     pad = kernel_size // 2
-    pooled = F.max_pool2d(heatmap, kernel_size, stride=1, padding=0)
     local_max = torch.zeros_like(heatmap)
-    local_max[:, :, pad:-pad, pad:-pad] = pooled
+    if min(heatmap.shape[-2:]) >= kernel_size:     # else no interior
+        local_max[:, :, pad:-pad, pad:-pad] = F.max_pool2d(
+            heatmap, kernel_size, stride=1, padding=0)
     if flat_classes:
         cls = list(flat_classes)
         local_max[:, cls] = heatmap[:, cls]

@@ -9,6 +9,7 @@ and the JAX package's converter both read a port ``state_dict()`` as is.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -27,6 +28,26 @@ def get_activation(name: Optional[str]) -> Optional[Callable]:
     }[name.lower()]
 
 
+@contextlib.contextmanager
+def cudnn_enabled(enabled: bool):
+    """Run the convolutions of the scope on cuDNN or, with ``enabled``
+    False, on PyTorch's own kernels (im2col + cuBLAS, or its dilated conv).
+    The flag is global; it is restored on exit.
+
+    The layers whose fp32 cuDNN engine (TF32 off) measured slower on an
+    H100 than PyTorch's own path run with it off: SECOND (its first conv,
+    256 -> 128 3x3 at 180 x 180, two orders of magnitude slower on cuDNN),
+    ResNet-50 on six 448 x 800 images (1.2x) and SPP's two dilated 3x3
+    convs at 180 x 180 (1.5-1.7x). ``chip_smoke.py``'s dense-engine lines
+    time these and the other new dense shapes both ways on every run."""
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = was
+
+
 def _check_eval(module: nn.Module) -> None:
     if module.training:
         raise NotImplementedError(
@@ -35,12 +56,11 @@ def _check_eval(module: nn.Module) -> None:
 
 
 def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x):
-    """Eval-mode batch norm over the last axis of ``x`` (any rank)."""
+    """Eval-mode batch norm over the last axis of ``x`` (any rank), as a
+    call of the module on [rows, C] (so its hooks run)."""
     _check_eval(bn)
     c = x.shape[-1]
-    y = F.batch_norm(x.reshape(-1, c), bn.running_mean, bn.running_var,
-                     bn.weight, bn.bias, False, 0.0, bn.eps)
-    return y.reshape(x.shape)
+    return bn(x.reshape(-1, c)).reshape(x.shape)
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
@@ -52,7 +72,9 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     """
 
     def forward(self, x, mask=None):
-        y = batch_norm_last(self, x)
+        _check_eval(self)
+        c = x.shape[-1]
+        y = super().forward(x.reshape(-1, c)).reshape(x.shape)
         if mask is not None:
             y = torch.where(mask[:, None], y, 0.0)
         return y
@@ -99,3 +121,21 @@ def pointwise(conv: nn.Module, x):
     """A kernel-1 Conv1d applied to channels-last ``x`` [..., Cin]."""
     w = conv.weight
     return F.linear(x, w.reshape(w.shape[0], w.shape[1]), conv.bias)
+
+
+class MLP(nn.Sequential):
+    """Linear layers with a ReLU between them and, with ``final_act``,
+    after the last (JAX counterpart ``layers.MLP``). A one-layer MLP's
+    Linear is module ``0``, the reference's ``score_net.0`` and
+    ``gate_control.{i}.0``."""
+
+    def __init__(self, in_channels: int, features, final_act: bool = False,
+                 bias: bool = True):
+        layers = []
+        c = in_channels
+        for i, f in enumerate(features):
+            layers.append(nn.Linear(c, f, bias=bias))
+            if i < len(features) - 1 or final_act:
+                layers.append(nn.ReLU())
+            c = f
+        super().__init__(*layers)

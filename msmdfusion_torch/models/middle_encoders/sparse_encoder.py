@@ -76,12 +76,15 @@ class SparseEncoder(nn.Module):
             out_capacity=caps[-1] if caps is not None else None, **kw)
 
     def forward(self, voxel_features, coors, valid, batch_size: int,
-                assume_sorted: bool = False):
+                assume_sorted: bool = False, return_cache: bool = False):
         """voxel_features [K, C], coors [K, 4] (b, z, y, x), valid [K] ->
         (BEV [B, C*D, H, W] channels-first, per-stage sparse tensors).
 
         ``assume_sorted``: rows already ascend in packed key (the fused
-        voxelizer's order), so no sort runs.
+        voxelizer's order), so no sort runs. ``return_cache``: also return
+        the plan cache, keyed ``('subm', 'subm{i}')`` and so on, so that
+        convs on the same coordinate sets (the GMA grouped convs) reuse its
+        rulebooks.
         """
         st = make_sparse_tensor(voxel_features, coors, valid,
                                 self.sparse_shape, batch_size,
@@ -96,4 +99,6 @@ class SparseEncoder(nn.Module):
         out, cache = self.conv_out(st, cache)
         with section('bev'):
             bev = to_dense_bev(out).permute(0, 3, 1, 2).contiguous()
+        if return_cache:
+            return bev, encode_features, cache
         return bev, encode_features

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ... import kernels
+from ...kernels import check_tensor
 from ...utils import overflow
 from .conv import kernel_offsets, triple
 from .tensor import INT_MAX, SparseTensor
@@ -126,25 +127,15 @@ def rows_affine_plain(in_keys, okeys, dkey, inb) -> torch.Tensor:
     return torch.where(hit, pos, -1).to(torch.int32)
 
 
-def _check(name, t, dtype, ndim, device):
-    if t.dtype != dtype or t.dim() != ndim:
-        raise TypeError(f'{name}: expected {ndim}-d {dtype}, got '
-                        f'{t.dim()}-d {t.dtype}')
-    if t.device != device:
-        raise ValueError(f'{name} on {t.device}, expected {device}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name} must be contiguous')
-
-
 def rows_affine(in_keys, okeys, dkey, inb) -> torch.Tensor:
     """rows [K_out, Ta] int32: the row i with ``in_keys[i] == okeys[r] +
     dkey[t]`` where ``inb[r, t]`` holds and ``okeys[r] != INT_MAX``, else
     -1. ``in_keys`` [K_in] int32 ascending with an INT_MAX tail."""
     dev = in_keys.device
-    _check('in_keys', in_keys, torch.int32, 1, dev)
-    _check('okeys', okeys, torch.int32, 1, dev)
-    _check('dkey', dkey, torch.int32, 1, dev)
-    _check('inb', inb, torch.bool, 2, dev)
+    check_tensor('in_keys', in_keys, torch.int32, 1, dev)
+    check_tensor('okeys', okeys, torch.int32, 1, dev)
+    check_tensor('dkey', dkey, torch.int32, 1, dev)
+    check_tensor('inb', inb, torch.bool, 2, dev)
     k_out, ta = inb.shape
     if okeys.shape[0] != k_out or dkey.shape[0] != ta:
         raise ValueError(f'shape mismatch: okeys {tuple(okeys.shape)}, '
@@ -212,9 +203,9 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     [Ta, Cin, Cout] f32; scale/shift [Cout] f32; out_valid [K_out] bool.
     """
     dev = feats.device
-    _check('feats', feats, torch.float32, 2, dev)
-    _check('rows', rows, torch.int32, 2, dev)
-    _check('weights', weights, torch.float32, 3, dev)
+    check_tensor('feats', feats, torch.float32, 2, dev)
+    check_tensor('rows', rows, torch.int32, 2, dev)
+    check_tensor('weights', weights, torch.float32, 3, dev)
     k_out, ta = rows.shape
     cin, cout = weights.shape[1], weights.shape[2]
     if weights.shape[0] != ta or feats.shape[1] != cin:
@@ -222,11 +213,11 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
                          f'{tuple(rows.shape)}, weights {tuple(weights.shape)}')
     for name, v in (('scale', scale), ('shift', shift)):
         if v is not None:
-            _check(name, v, torch.float32, 1, dev)
+            check_tensor(name, v, torch.float32, 1, dev)
             if v.shape[0] != cout:
                 raise ValueError(f'{name}: expected [{cout}]')
     if out_valid is not None:
-        _check('out_valid', out_valid, torch.bool, 1, dev)
+        check_tensor('out_valid', out_valid, torch.bool, 1, dev)
         if out_valid.shape[0] != k_out:
             raise ValueError(f'out_valid: expected [{k_out}]')
     if not kernels.use_kernel(feats):

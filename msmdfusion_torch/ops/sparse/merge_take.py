@@ -1,0 +1,85 @@
+"""Row gather with an optional duplicate-row add (the ``sparse_add`` rows).
+
+Counterpart of the JAX package's ``ops/sparse/merge_take.py``
+(``merge_take_rows``):
+
+    out[r] = table[idx[r]] + (dup[r] ? table[idx2[r]] : 0)
+
+with an index outside ``[0, len(table))`` (INT_MAX on the callers' inactive
+rows) contributing zero. The hand-written CUDA kernel
+``csrc/merge_take.cu`` replaces ``_kernel``; the wrapper launches it for
+CUDA tensors (raising if the build or the launch fails) and runs the plain
+PyTorch version for CPU tensors or inside ``kernels.plain_kernels()``.
+
+The TPU kernel's sliding windows and bf16 hi/lo split have no counterpart:
+the gather is exact fp32 and never drops a row, so ``merge_take.win[site]``
+is recorded as 0 to keep the overflow sites' names.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ... import kernels
+from ...utils import overflow
+from ...kernels import check_tensor
+
+
+def merge_take_rows_plain(table, idx, idx2=None, dup=None):
+    """Plain version of ``merge_take_rows``: masked index_select."""
+    n = table.shape[0]
+
+    def take(i, active):
+        ok = active & (i >= 0) & (i < n)
+        rows = table.index_select(0, torch.where(ok, i, 0).to(torch.int64))
+        return torch.where(ok[:, None], rows, 0.0)
+
+    out = take(idx, torch.ones_like(idx, dtype=torch.bool))
+    if idx2 is not None:
+        out = out + take(idx2, dup)
+    return out
+
+
+def merge_take_rows(table, idx, idx2: Optional[torch.Tensor] = None,
+                    dup: Optional[torch.Tensor] = None,
+                    site: str = '') -> torch.Tensor:
+    """``table[idx] (+ table[idx2] where dup)`` -> [M, C] fp32.
+
+    table [N, C] f32; idx, idx2 [M] int32; dup [M] bool (with idx2). On
+    the card C is a multiple of 4 and the table 16-byte aligned.
+    """
+    dev = table.device
+    check_tensor('table', table, torch.float32, 2, dev)
+    check_tensor('idx', idx, torch.int32, 1, dev)
+    m = idx.shape[0]
+    if (idx2 is None) != (dup is None):
+        raise ValueError('idx2 and dup come together')
+    if idx2 is not None:
+        check_tensor('idx2', idx2, torch.int32, 1, dev)
+        check_tensor('dup', dup, torch.bool, 1, dev)
+        if idx2.shape[0] != m or dup.shape[0] != m:
+            raise ValueError(f'shape mismatch: idx {tuple(idx.shape)}, idx2 '
+                             f'{tuple(idx2.shape)}, dup {tuple(dup.shape)}')
+    tag = f'[{site}]' if site else ''
+    overflow.record(f'merge_take.win{tag}', 0)
+    if not kernels.use_kernel(table):
+        return merge_take_rows_plain(table, idx, idx2, dup)
+    n, c = table.shape
+    out = torch.empty((m, c), dtype=torch.float32, device=dev)
+    # the kernel moves float4 slices of rows
+    if c % 4 or table.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f'merge_take kernel: C ({c}) must be a multiple of '
+                         '4 and the table 16-byte aligned')
+    fn = kernels.entry_point('merge_take')
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernels.check('merge_take', fn(
+            table.data_ptr(), n, c, idx.data_ptr(), ptr(idx2), ptr(dup), m,
+            out.data_ptr(), stream))
+    kernels.launches['merge_take'] += 1
+    return out

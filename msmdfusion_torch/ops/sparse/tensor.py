@@ -10,7 +10,9 @@ Counterpart of the JAX package's ``ops/sparse/tensor.py``. A
                       on empty slots
 
 with rows in ascending key order and the empty rows at the end. The sorted
-key array is the hash table: a neighbour lookup is a binary search.
+key array is the hash table: a neighbour lookup is a binary search, and the
+coordinate-set operations (``sparse_add``'s union, ``lookup_sorted_pair``'s
+intersection) are sorts and binary searches.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Tuple
 import torch
 
 from ...utils import overflow
+from .merge_take import merge_take_rows
 
 INT_MAX = 2 ** 31 - 1
 
@@ -103,6 +106,66 @@ def make_sparse_tensor(features, coords, valid,
     return SparseTensor(features=features, coords=coords, valid=valid,
                         keys=keys, spatial_shape=tuple(spatial_shape),
                         batch_size=batch_size)
+
+
+def sparse_add(a: SparseTensor, b: SparseTensor,
+               capacity: int) -> SparseTensor:
+    """Coordinate-union elementwise add of two sparse tensors (spconv's
+    ``Fsp.sparse_add``), ``capacity`` output rows.
+
+    The union keeps the smallest keys; rows past ``capacity`` are counted
+    at ``sparse.sparse_add.union_cap``. Each input's valid keys must be
+    unique (the sorted-key invariant), so every output row is one input
+    row or the sum of two adjacent rows of the stable key sort; kernel
+    ``merge_take`` gathers (and adds) them.
+    """
+    if a.spatial_shape != b.spatial_shape or \
+            a.num_channels != b.num_channels:
+        raise ValueError('sparse_add: spatial shapes and widths must match')
+    n = a.capacity + b.capacity
+    if capacity > n:
+        raise ValueError(f'sparse_add capacity {capacity} exceeds input row '
+                         f'budget {a.capacity}+{b.capacity}')
+    keys = torch.cat([a.keys, b.keys])
+    feats = torch.cat([a.features, b.features])
+    skey, order = torch.sort(keys, stable=True)
+    svalid = skey != INT_MAX
+    head = torch.cat([svalid[:1], (skey[1:] != skey[:-1]) & svalid[1:]])
+    n_head = head.sum()
+    overflow.record('sparse.sparse_add.union_cap',
+                    torch.clamp(n_head - capacity, min=0))
+    overflow.gauge('occ.sparse_add_union', n_head)
+    # sorted positions of the group heads (n past the last one)
+    iota = torch.arange(n, device=keys.device)
+    hp = torch.sort(torch.where(head, iota, n)).values[:capacity]
+    out_valid = hp < n
+    here = torch.clamp(hp, max=n - 1)
+    nxt = torch.clamp(hp + 1, max=n - 1)
+    out_keys = torch.where(out_valid, skey[here], INT_MAX)
+    dup = out_valid & (hp + 1 < n) & (skey[nxt] == skey[here])
+    idx0 = torch.where(out_valid, order[here], INT_MAX).to(torch.int32)
+    idx1 = order[nxt].to(torch.int32)
+    merged = merge_take_rows(feats, idx0, idx1, dup, site='sparse_add')
+    coords = unpack_keys(torch.where(out_valid, out_keys, 0),
+                         a.spatial_shape)
+    return SparseTensor(
+        features=torch.where(out_valid[:, None], merged, 0.0),
+        coords=torch.where(out_valid[:, None], coords, -1),
+        valid=out_valid, keys=out_keys, spatial_shape=a.spatial_shape,
+        batch_size=max(a.batch_size, b.batch_size))
+
+
+def lookup_sorted_pair(a_keys, b_keys):
+    """Mutual row lookup between two sorted key arrays with unique valid
+    keys: (row in b of each a key, row in a of each b key), -1 where the
+    key is absent or INT_MAX. Two binary searches over the sorted-key
+    invariant."""
+    def find(keys, queries):
+        pos = torch.searchsorted(keys, queries)
+        pos = torch.clamp(pos, max=keys.shape[0] - 1)
+        hit = (keys[pos] == queries) & (queries != INT_MAX)
+        return torch.where(hit, pos, -1).to(torch.int32)
+    return find(b_keys, a_keys), find(a_keys, b_keys)
 
 
 def to_dense_bev(st: SparseTensor) -> torch.Tensor:

@@ -3,8 +3,9 @@
 The port's parameters carry the reference mmdet3d torch names and layouts,
 which the JAX package's checkpoint converter (``utils/torch_convert.py``,
 ``convert_transfusion_l``) maps onto its flax tree. This module holds a
-private copy of that converter's TransFusion-L table (``_pts_trunk_rules``)
-and reads it backwards: a flax variable tree (as numpy arrays) becomes a
+private copy of that converter's TransFusion-L and MSMDFusion tables
+(``_pts_trunk_rules``, ``resnet_rules``, ``fpn_rules``, ``msmdfusion_rules``)
+and reads them backwards: a flax variable tree (as numpy arrays) becomes a
 state dict the port loads with ``load_state_dict``.
 
 | flax                               | torch (port)                        |
@@ -18,7 +19,7 @@ state dict the port loads with ``load_state_dict``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,16 +28,11 @@ import torch
 Rule = Tuple[str, str, str, Tuple[int, int, int]]
 
 
-def transfusion_l_rules() -> List[Rule]:
-    """The TransFusion-L mapping: SparseEncoder (basic blocks, four stages)
-    + SECOND (5, 5) + SECONDFPN + TransFusionHead with one decoder layer,
-    the layout of ``configs/transfusion_nusc_voxel_L.py``."""
-    rules: List[Rule] = []
-    cube = (3, 3, 3)
-
-    def add(t, f, kind, ks=cube):
-        rules.append((t, f, kind, ks))
-
+def _pts_trunk_rules(add, backbone_f: str, neck_f: str,
+                     layer_nums: Sequence[int] = (5, 5)) -> None:
+    """SparseEncoder (basic blocks, four stages) + SECOND + SECONDFPN +
+    TransFusionHead with one decoder layer: the torch keys TransFusion-L and
+    MSMDFusion share."""
     me_t, me_f = 'pts_middle_encoder', 'middle_encoder'
     add(f'{me_t}.conv_input.0', f'{me_f}/SparseConvBlock_0/SubMConv3d_0',
         'spconv')
@@ -64,19 +60,19 @@ def transfusion_l_rules() -> List[Rule]:
         f'{me_f}/SparseConvBlock_{down}/MaskedBatchNorm_0', 'bn')
 
     cm = 0
-    for s, num in enumerate((5, 5)):
+    for s, num in enumerate(layer_nums):
         for li in range(num + 1):
             base = f'pts_backbone.blocks.{s}'
-            add(f'{base}.{li * 3}', f'backbone/ConvModule_{cm}/Conv_0',
+            add(f'{base}.{li * 3}', f'{backbone_f}/ConvModule_{cm}/Conv_0',
                 'conv2d')
             add(f'{base}.{li * 3 + 1}',
-                f'backbone/ConvModule_{cm}/MaskedBatchNorm_0', 'bn')
+                f'{backbone_f}/ConvModule_{cm}/MaskedBatchNorm_0', 'bn')
             cm += 1
 
-    add('pts_neck.deblocks.0.0', 'neck/Conv_0', 'conv2d')
-    add('pts_neck.deblocks.0.1', 'neck/MaskedBatchNorm_0', 'bn')
-    add('pts_neck.deblocks.1.0', 'neck/ConvTranspose_0', 'deconv2d')
-    add('pts_neck.deblocks.1.1', 'neck/MaskedBatchNorm_1', 'bn')
+    add('pts_neck.deblocks.0.0', f'{neck_f}/Conv_0', 'conv2d')
+    add('pts_neck.deblocks.0.1', f'{neck_f}/MaskedBatchNorm_0', 'bn')
+    add('pts_neck.deblocks.1.0', f'{neck_f}/ConvTranspose_0', 'deconv2d')
+    add('pts_neck.deblocks.1.1', f'{neck_f}/MaskedBatchNorm_1', 'bn')
 
     h_t, h_f = 'pts_bbox_head', 'bbox_head'
     add(f'{h_t}.shared_conv', f'{h_f}/shared_conv', 'conv2d')
@@ -105,6 +101,94 @@ def transfusion_l_rules() -> List[Rule]:
         add(f'{t}.0.conv', f + f'/{head}_0', 'conv1d')
         add(f'{t}.0.bn', f + f'/{head}_0_bn', 'bn')
         add(f'{t}.1', f + f'/{head}_out', 'conv1d')
+
+
+def new_rules():
+    """(an empty rule list, its ``add(torch, flax, kind, ks)``)."""
+    rules: List[Rule] = []
+
+    def add(t, f, kind, ks=(3, 3, 3)):
+        rules.append((t, f, kind, ks))
+    return rules, add
+
+
+def transfusion_l_rules(layer_nums: Sequence[int] = (5, 5)) -> List[Rule]:
+    """The TransFusion-L mapping, the layout of
+    ``configs/transfusion_nusc_voxel_L.py``."""
+    rules, add = new_rules()
+    _pts_trunk_rules(add, 'backbone', 'neck', layer_nums)
+    return rules
+
+
+def resnet_rules(add, t: str, f: str, depth: int = 50) -> None:
+    """torchvision/mmdet ResNet -> flax ResNet (``layer{s}_{b}`` blocks)."""
+    blocks = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+              101: (3, 4, 23, 3)}[depth]
+    bottleneck = depth >= 50
+    add(f'{t}.conv1', f'{f}/conv1', 'conv2d')
+    add(f'{t}.bn1', f'{f}/bn1', 'bn')
+    for s, nb in enumerate(blocks):
+        for b in range(nb):
+            tb, fb = f'{t}.layer{s + 1}.{b}', f'{f}/layer{s + 1}_{b}'
+            for c in range(1, (3 if bottleneck else 2) + 1):
+                add(f'{tb}.conv{c}', f'{fb}/conv{c}', 'conv2d')
+                add(f'{tb}.bn{c}', f'{fb}/bn{c}', 'bn')
+            if b == 0 and (bottleneck or s > 0):
+                add(f'{tb}.downsample.0', f'{fb}/downsample_conv', 'conv2d')
+                add(f'{tb}.downsample.1', f'{fb}/downsample_bn', 'bn')
+
+
+def fpn_rules(add, t: str, f: str, num_ins: int = 4) -> None:
+    """mmdet FPN -> flax FPN (``lateral_{i}`` / ``fpn_conv_{i}``)."""
+    for i in range(num_ins):
+        add(f'{t}.lateral_convs.{i}.conv', f'{f}/lateral_{i}', 'conv2d')
+        add(f'{t}.fpn_convs.{i}.conv', f'{f}/fpn_conv_{i}', 'conv2d')
+
+
+def msmdfusion_rules(depth: int = 50, layer_nums: Sequence[int] = (5, 5),
+                     num_stages: int = 4) -> List[Rule]:
+    """The MSMDFusion mapping (``msmdfusion_rules`` of the JAX converter):
+    the shared LiDAR trunk, ResNet + FPN, the compression convs,
+    ``score_net``, SPP and the GMA encoder, whose last downscale is
+    (3, 1, 1). ``dummy_embedding_{i}`` has no reference key; it is carried
+    under the port's own ``multimodal_middle_encoder.dummy_embedding_{i}``."""
+    rules, add = new_rules()
+    _pts_trunk_rules(add, 'backbone_pts', 'neck_pts', layer_nums)
+    resnet_rules(add, 'img_backbone', 'backbone_img', depth)
+    fpn_rules(add, 'img_neck', 'neck_img')
+    for i in range(3):
+        add(f'conv1x1_blocks.{i}.0', f'compress_{i}/Conv_0', 'conv2d')
+        add(f'conv1x1_blocks.{i}.1', f'compress_{i}/MaskedBatchNorm_0', 'bn')
+    add('score_net.0', 'score_net/Dense_0', 'linear')
+    for i, name in enumerate(('conv1x1', 'conv3x3', 'dilated_conv3x3_rate6',
+                              'dilated_conv3x3_rate12', 'fuse')):
+        add(f'bev_fusion.{name}.0', f'bev_fusion/ConvModule_{i}/Conv_0',
+            'conv2d')
+        add(f'bev_fusion.{name}.1',
+            f'bev_fusion/ConvModule_{i}/MaskedBatchNorm_0', 'bn')
+    g_t, g_f = 'multimodal_middle_encoder', 'mm_encoder'
+    for i in range(num_stages):
+        st = f'stage_{i + 1}'
+        add(f'{g_t}.grouped_sp_conv_blocks_3D.{st}.0',
+            f'{g_f}/grouped_3d_{i}/SubMConv3d_0', 'spconv')
+        add(f'{g_t}.grouped_sp_conv_blocks_3D.{st}.1',
+            f'{g_f}/grouped_3d_{i}/MaskedBatchNorm_0', 'bn')
+        add(f'{g_t}.gate_control.{i}.0', f'{g_f}/gate_{i}/Dense_0', 'linear')
+        add(f'{g_t}.cross_gate_control.{i}.0',
+            f'{g_f}/cross_gate_{i}/Dense_0', 'linear')
+        agg_t, agg_f = f'{g_t}.aggregation_blocks.{st}', \
+            f'{g_f}/aggregation_{i}'
+        add(f'{agg_t}.conv1', f'{agg_f}/SubMConv3d_0', 'spconv')
+        add(f'{agg_t}.bn1', f'{agg_f}/MaskedBatchNorm_0', 'bn')
+        add(f'{agg_t}.conv2', f'{agg_f}/SubMConv3d_1', 'spconv')
+        add(f'{agg_t}.bn2', f'{agg_f}/MaskedBatchNorm_1', 'bn')
+        add(f'{g_t}.downscale_blocks.{st}.0',
+            f'{g_f}/downscale_{i}/SparseConv3d_0', 'spconv',
+            (3, 1, 1) if i == num_stages - 1 else (3, 3, 3))
+        add(f'{g_t}.downscale_blocks.{st}.1',
+            f'{g_f}/downscale_{i}/MaskedBatchNorm_0', 'bn')
+        add(f'{g_t}.dummy_embedding_{i}', f'{g_f}/dummy_embedding_{i}',
+            'param')
     return rules
 
 
@@ -119,11 +203,12 @@ def _flatten(tree, prefix: str = '') -> Dict[str, np.ndarray]:
     return out
 
 
-def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
+def from_jax_variables(variables, rules: Optional[List[Rule]] = None
+                       ) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} flax tree of numpy arrays (a
-    JAX TransFusion-L's variables) -> port ``state_dict`` (float32 CPU
-    tensors). Raises if the tree lacks a mapped leaf or holds one the
-    table does not map."""
+    JAX model's variables) -> port ``state_dict`` (float32 CPU tensors),
+    through ``rules`` (default: ``transfusion_l_rules()``). Raises if the
+    tree lacks a mapped leaf or holds one the table does not map."""
     params = _flatten(variables['params'])
     stats = _flatten(variables.get('batch_stats', {}))
     used = set()
@@ -146,7 +231,8 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
         if f + '/bias' in params:
             put(t + '.bias', p(f + '/bias'))
 
-    for t, f, kind, ks in transfusion_l_rules():
+    for t, f, kind, ks in (transfusion_l_rules() if rules is None
+                           else rules):
         if kind == 'spconv':
             k = p(f + '/kernel')                        # [T, I, O]
             put(t + '.weight', k.reshape(*ks, *k.shape[1:]).transpose(
@@ -167,6 +253,8 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
                 put(t + '.running_mean', s(f + '/mean'))
                 put(t + '.running_var', s(f + '/var'))
                 sd[t + '.num_batches_tracked'] = np.zeros((), np.int64)
+        elif kind == 'param':
+            put(t, p(f))
         elif kind == 'mha':
             put(t + '.in_proj_weight', np.concatenate(
                 [p(f'{f}/Dense_{i}/kernel').T for i in range(3)]))

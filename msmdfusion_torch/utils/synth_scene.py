@@ -1,15 +1,26 @@
-"""Synthetic nuScenes-like LiDAR frames (numpy only).
+"""Synthetic nuScenes-like LiDAR + camera frames (numpy only).
 
-Private copy of ``lidar_scene`` from the JAX package's
-``utils/synth_scene.py``: a spinning 32-beam model with ground rings, walls
-with 1/r^2 return density and car-sized object clusters, accumulated over
-10 sweeps. The same seed gives the same points as the JAX package's copy.
+Private copies of the JAX package's ``utils/synth_scene.py``
+(``lidar_scene``, ``camera_rig``, ``realistic_batch``), of the virtual-point
+generator they run (``tools/generate_virtual_points.py``: per-instance 2D
+boxes -> virtual pixels -> 6NN depth lifting -> unprojection) and of the
+foreground packing (``datasets/pipelines/foreground.py``:
+``LoadForeground2D._organize``, ``PadForeground2D``). A spinning 32-beam
+model with ground rings, walls with 1/r^2 return density and car-sized
+object clusters, accumulated over 10 sweeps; a 6-camera ring; foreground
+virtual points on the objects' surfaces. The same seed gives the same
+arrays as the JAX package's copies: the flagship's capacities were
+measured on that scene.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+from . import overflow
+
+NUM_LABEL_SLOTS = 11   # 10 nuScenes classes + 1 background/ignore slot
 
 
 def _box_surface_points(rng, center, dims, yaw, count):
@@ -124,3 +135,211 @@ def lidar_scene(rng: np.random.RandomState, n_points: int,
         [pts, rng.uniform(0, 1, (n_points, 1)),
          np.zeros((n_points, 1))], 1).astype(np.float32)
     return feats, objects
+
+
+# ---------------------------------------------------------------------------
+# Camera rig
+# ---------------------------------------------------------------------------
+
+def camera_rig(img_hw, num_cams: int = 6, seed: int = 0) -> np.ndarray:
+    """[V, 4, 4] lidar2img of a nuScenes-like ring of outward cameras at
+    60-degree yaw steps, ~70-degree horizontal FOV."""
+    h, w = img_hw
+    rng = np.random.RandomState(seed)
+    fx = w / (2.0 * np.tan(np.deg2rad(35.0)))        # 70 deg hFOV
+    fy = fx
+    cx, cy = w / 2.0, h / 2.0
+    intr = np.array([[fx, 0, cx, 0], [0, fy, cy, 0],
+                     [0, 0, 1, 0], [0, 0, 0, 1]], np.float64)
+    yaws = np.deg2rad([0.0, -60.0, 60.0, 180.0, 120.0, -120.0])
+    mats = []
+    for i in range(num_cams):
+        psi = yaws[i % 6] + rng.uniform(-0.02, 0.02)
+        c, s = np.cos(psi), np.sin(psi)
+        fwd = np.array([c, s, 0.0])                  # camera z (lidar frame)
+        right = np.array([s, -c, 0.0])               # camera x
+        down = np.array([0.0, 0.0, -1.0])            # camera y
+        rot = np.stack([right, down, fwd])           # R: lidar -> cam
+        t = fwd * 0.7 + np.array([0, 0, -0.3])       # mount offset
+        ext = np.eye(4)
+        ext[:3, :3] = rot
+        ext[:3, 3] = -rot @ t
+        mats.append(intr @ ext)
+    return np.stack(mats).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Virtual points (the bounding-box path of generate_virtual_points.py)
+# ---------------------------------------------------------------------------
+
+def project_points(points: np.ndarray, lidar2img: np.ndarray,
+                   img_hw) -> Dict[str, np.ndarray]:
+    """uvd [N, 3] (pixel u, v and depth) and in_img [N] of lidar points in
+    one camera: in front of it and inside the image."""
+    n = points.shape[0]
+    hom = np.concatenate([points[:, :3], np.ones((n, 1), points.dtype)], 1)
+    proj = hom @ lidar2img.T                       # [N, 4]
+    depth = proj[:, 2]
+    safe = np.where(np.abs(depth) > 1e-6, depth, 1e-6)
+    u = proj[:, 0] / safe
+    v = proj[:, 1] / safe
+    h, w = img_hw
+    in_img = (depth > 0.1) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    return dict(uvd=np.stack([u, v, depth], 1), in_img=in_img)
+
+
+def unproject(uv: np.ndarray, depth: np.ndarray,
+              lidar2img: np.ndarray) -> np.ndarray:
+    """(u, v, depth) -> lidar-frame xyz via the inverse projection."""
+    n = uv.shape[0]
+    img_pts = np.concatenate(
+        [uv * depth[:, None], depth[:, None], np.ones((n, 1))], 1)
+    out = img_pts @ np.linalg.inv(lidar2img).T
+    return out[:, :3] / np.where(np.abs(out[:, 3:4]) > 1e-9, out[:, 3:4], 1)
+
+
+def generate_camera_foreground(points, lidar2img, img_hw, instances,
+                               num_virtual: int = 50, k: int = 6,
+                               seed: int = 0):
+    """One camera's (virtual_pixel_indices [M, 14], real_pixel_indices
+    [Mr, 14], virtual_points [M, 3], real_points [Mr, 3]) for instances
+    given as 'bbox' [x1, y1, x2, y2] and 'label'."""
+    rng = np.random.RandomState(seed)
+    proj = project_points(points, lidar2img, img_hw)
+    uvd, in_img = proj['uvd'], proj['in_img']
+    vpx, rpx, vpt, rpt = [], [], [], []
+    for inst in instances:
+        x1, y1, x2, y2 = inst['bbox']
+        member = in_img & ((uvd[:, 0] >= x1) & (uvd[:, 0] <= x2)
+                           & (uvd[:, 1] >= y1) & (uvd[:, 1] <= y2))
+        idx = np.nonzero(member)[0]
+        onehot = np.zeros((NUM_LABEL_SLOTS,), np.float32)
+        onehot[int(inst['label'])] = 1.0
+        if len(idx) == 0:
+            continue
+        real_uvd = uvd[idx].astype(np.float32)
+        rpx.append(np.concatenate(
+            [real_uvd, np.tile(onehot, (len(idx), 1))], 1))
+        rpt.append(points[idx, :3].astype(np.float32))
+
+        vuv = np.stack([rng.uniform(x1, x2, num_virtual),
+                        rng.uniform(y1, y2, num_virtual)],
+                       1).astype(np.float32)
+        # inverse-distance-weighted depth of the 6 nearest real pixels
+        d2 = ((vuv[:, None, :] - real_uvd[None, :, :2]) ** 2).sum(-1)
+        kk = min(k, d2.shape[1])
+        nn = np.argpartition(d2, kk - 1, axis=1)[:, :kk]
+        nd = np.take_along_axis(d2, nn, axis=1)
+        wgt = 1.0 / np.sqrt(nd + 1e-6)
+        wgt /= wgt.sum(1, keepdims=True)
+        depth = (np.take_along_axis(
+            np.broadcast_to(real_uvd[None, :, 2], d2.shape), nn, axis=1)
+            * wgt).sum(1)
+        vpx.append(np.concatenate(
+            [vuv, depth[:, None].astype(np.float32),
+             np.tile(onehot, (len(vuv), 1))], 1))
+        vpt.append(unproject(vuv, depth, lidar2img).astype(np.float32))
+
+    def cat(chunks, width):
+        if chunks:
+            return np.concatenate(chunks, 0).astype(np.float32)
+        return np.zeros((0, width), np.float32)
+
+    return (cat(vpx, 3 + NUM_LABEL_SLOTS), cat(rpx, 3 + NUM_LABEL_SLOTS),
+            cat(vpt, 3), cat(rpt, 3))
+
+
+def _instances_for_camera(objects, lidar2img, img_hw):
+    """2D box instances: each visible object's projected extent."""
+    instances = []
+    for obj in objects:
+        corners = _box_surface_points(
+            np.random.RandomState(0), obj['center'], obj['dims'],
+            obj['yaw'], 64)
+        proj = project_points(corners, lidar2img.astype(np.float64), img_hw)
+        vis = proj['in_img']
+        if vis.sum() < 8:
+            continue
+        uv = proj['uvd'][vis, :2]
+        x1, y1 = uv.min(0)
+        x2, y2 = uv.max(0)
+        instances.append(dict(bbox=[x1, y1, x2, y2], label=obj['label']))
+    return instances
+
+
+# ---------------------------------------------------------------------------
+# Foreground packing (LoadForeground2D._organize + PadForeground2D)
+# ---------------------------------------------------------------------------
+
+def _organize(vpx_list, rpx_list, vpt_list, rpt_list):
+    """Per camera: pixels [virtual; real] (u, v, depth) and points [virtual;
+    real] (xyz, 11 label slots, timestamp 0), and the real pixels."""
+    fg_pixels, fg_points, fg_real_pixels = [], [], []
+    for vp, rp, vpts, rpts in zip(vpx_list, rpx_list, vpt_list, rpt_list):
+        fg_pixels.append(np.concatenate([vp[:, :3], rp[:, :3]], axis=0))
+        vpts = np.concatenate([vpts, vp[:, -11:]], axis=1)
+        rpts = np.concatenate([rpts, rp[:, -11:]], axis=1)
+        pts = np.concatenate([vpts, rpts], axis=0)
+        fg_points.append(np.concatenate(
+            [pts, np.zeros((pts.shape[0], 1), pts.dtype)], axis=1))
+        fg_real_pixels.append(rp[:, :3])
+    return fg_pixels, fg_points, fg_real_pixels
+
+
+def _pad(arrays, num_cams: int, cap: int, dim: int, site: str):
+    """[V, cap, dim] zero-padded rows and their [V, cap] mask; rows past
+    ``cap`` are dropped and counted at ``site``."""
+    out = np.zeros((num_cams, cap, dim), np.float32)
+    mask = np.zeros((num_cams, cap), bool)
+    for cam, arr in enumerate(arrays[:num_cams]):
+        n = min(len(arr), cap)
+        if len(arr) > cap:
+            overflow.record(site, len(arr) - cap)
+        if n:
+            out[cam, :n, :min(arr.shape[1], dim)] = \
+                arr[:n, :dim].astype(np.float32)
+            mask[cam, :n] = True
+    return out, mask
+
+
+def realistic_batch(shape: Dict, b: int, seed: int = 0,
+                    num_virtual: int = 200) -> Dict:
+    """The flagship's input batch: dict(points [B, N, 5], points_mask,
+    img [B, V, H, W, 3], fg=dict(fg_pixels [B, V, M, 3], fg_points
+    [B, V, M, 15], fg_mask, fg_real_pixels [B, V, Mr, 3], fg_real_mask,
+    lidar2img [B, V, 4, 4])) as numpy arrays.
+
+    shape: dict(n, v, m, mr, img_hw, pcr), the JAX package's
+    ``_flagship_model`` shape contract.
+    """
+    n, v, m, mr = shape['n'], shape['v'], shape['m'], shape['mr']
+    img_hw = shape['img_hw']
+    pcr = shape['pcr']
+    rng = np.random.RandomState(seed)
+
+    points = np.zeros((b, n, 5), np.float32)
+    imgs = rng.randn(b, v, img_hw[0], img_hw[1], 3).astype(np.float32)
+    fg_batches: List[Dict[str, np.ndarray]] = []
+    l2i_batches = []
+    for bi in range(b):
+        pts, objects = lidar_scene(rng, n, pcr)
+        points[bi] = pts
+        l2i = camera_rig(img_hw, num_cams=v, seed=seed + 17 * bi)
+        per_cam = [generate_camera_foreground(
+            pts, np.asarray(l2i[ci], np.float64), img_hw,
+            _instances_for_camera(objects, l2i[ci], img_hw),
+            num_virtual=num_virtual, seed=seed + 31 * bi + ci)
+            for ci in range(v)]
+        pix, pts_fg, real_pix = _organize(*zip(*per_cam))
+        fg_points, fg_mask = _pad(pts_fg, v, m, 15, 'foreground.points_cap')
+        fg_pixels, _ = _pad(pix, v, m, 3, 'foreground.pixels_cap')
+        fg_real, real_mask = _pad(real_pix, v, mr, 3,
+                                  'foreground.real_pixels_cap')
+        fg_batches.append(dict(fg_pixels=fg_pixels, fg_points=fg_points,
+                               fg_mask=fg_mask, fg_real_pixels=fg_real,
+                               fg_real_mask=real_mask))
+        l2i_batches.append(l2i)
+    fg = {k: np.stack([fb[k] for fb in fg_batches]) for k in fg_batches[0]}
+    fg['lidar2img'] = np.stack(l2i_batches)
+    return dict(points=points, points_mask=np.ones((b, n), bool), img=imgs,
+                fg=fg)
