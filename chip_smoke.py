@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port once on one NVIDIA card: TransFusion-L, then
-the full MSMDFusion flagship.
+"""Drive the PyTorch/CUDA port once on one NVIDIA card: TransFusion-L, the
+full MSMDFusion flagship, then the flagship's train step.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,29 @@ Phases (any failure raises and ends the run with a non-zero exit):
    a seed, and the JAX package's realistic scene (``realistic_batch``:
    250k points, six 448 x 800 cameras, 20000 foreground points and 15000
    real pixels per camera). The same path runs on it, and then the dense
-   layers new to this model are timed on and off cuDNN.
+   layers new to this model are timed on and off cuDNN;
+5. the MSMDFusion train step on the same model and scene, with the
+   scene's ground truth: the reference's stage-2 recipe (frozen
+   ``img_backbone``/``img_neck``, AdamW lr 1e-4 and weight decay 0.05,
+   global-norm clip 10, step schedule with linear warmup), dropout from a
+   seeded generator. One step records the arguments of every
+   ``rows_queries``, ``conv_dw`` and backward ``gather_gemm_conv`` call;
+   each is held against its plain version (rows equal; ``dw`` and
+   ``d_feats`` elements within 1e-4 of the magnitude of their sums) and
+   timed alone. The same step on the plain versions, on the kernel path's
+   proposals, assignment, dropout masks, head-input gradient and ReLU
+   masks (at full scale every layer has ReLU inputs within rounding of 0,
+   and a free ReLU there moves a gradient by up to a few percent of its
+   largest value, the kernel path against itself included): the
+   dense-heatmap loss and every parameter gradient below the head within
+   1e-4 of their largest value, the decoder's losses, the head-input
+   gradient and the head's parameter gradients within 10 times the plain
+   path's own spread under reordered sums. Then one counted step through
+   ``apis.train.make_train_step`` (launches of all six kernels asserted,
+   no row dropped), five timed AdamW steps after a warm-up (forward with
+   the auction timed apart, backward, optimizer; finite losses; the
+   trainable parameters move, the frozen image branch does not), the
+   backward on and off cuDNN, and a profile with the idle share.
 
 Batch norms are calibrated on each model's frame first
 (``utils/calibrate.py``: running statistics set to those of each norm's
@@ -47,10 +69,13 @@ decoder's attention amplifies rounding; then per-stage CUDA-event times,
 ms/frame, frames/s, peak memory and a profile with the device's idle
 share.
 
-The line before the last is ``{"kernels": [...]}`` for the flagship path:
-per kernel its launches, its largest error against the plain version, its
-time, the plain version's, its bound and a library call's, each time the
-sum over the path's calls (ms per frame). The last line is
+The line before the last is ``{"kernels": [...]}``: per kernel its
+launches, its largest error against the plain version, its time, the
+plain version's, its bound and a library call's, each time the sum over
+the path's calls; the flagship's inference path for ``rows_affine``,
+``gather_gemm_conv``, ``masked_nn`` and ``merge_take`` (ms per frame), its
+train step for ``rows_queries`` and ``conv_dw`` (ms per step). The last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -97,12 +122,33 @@ FLAGSHIP = dict(
               'merge_take': 3},
     widths={(16, 16), (32, 32), (64, 64), (128, 128), (80, 80), (96, 96),
             (192, 192), (80, 96), (96, 128), (128, 192)})
+# the flagship train step: the reference's stage-2 recipe as the JAX
+# package's bench runs it (bench.py:258-285)
+TRAIN = dict(
+    optimizer=dict(type='AdamW', lr=1e-4, weight_decay=0.05),
+    optimizer_config=dict(grad_clip=dict(max_norm=10)),
+    lr_config=dict(policy='step', warmup='linear', warmup_iters=1000,
+                   warmup_ratio=0.001, step=[4, 5]),
+    total_steps=10000, steps_per_epoch=1000,
+    frozen=('img_backbone', 'img_neck'),
+    # forward as in inference plus 8 dual plans (encoder spconv1-3 and
+    # conv_out, GMA downscales 1-4); backward: d_feats for every conv but
+    # conv_input (whose input needs no gradient), dw for all 37
+    launches={'rows_affine': 16, 'rows_queries': 8, 'gather_gemm_conv': 73,
+              'conv_dw': 37, 'masked_nn': 8, 'merge_take': 3},
+    steps=5)
 KERNEL_INFO = {
     'rows_affine': dict(
         route='cuda', source='msmdfusion_torch/csrc/rows_affine.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:1759'),
+    'rows_queries': dict(
+        route='cuda', source='msmdfusion_torch/csrc/rows_affine.cu',
+        replaces='msmdfusion_tpu/ops/sparse/matchconv.py:1696'),
     'gather_gemm_conv': dict(
         route='cuda', source='msmdfusion_torch/csrc/gather_gemm_conv.cu',
+        replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
+    'conv_dw': dict(
+        route='cuda', source='msmdfusion_torch/csrc/conv_dw.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
     'masked_nn': dict(
         route='cuda', source='msmdfusion_torch/csrc/masked_nn.cu',
@@ -148,18 +194,27 @@ def wrapper_sites():
     from msmdfusion_torch.models.middle_encoders import gma_encoder
     from msmdfusion_torch.ops.sparse import matchconv, tensor
     return {'rows_affine': (matchconv, 'rows_affine'),
+            'rows_queries': (matchconv, 'rows_queries'),
             'gather_gemm_conv': (matchconv, 'gather_gemm_conv'),
+            'conv_dw': (matchconv, 'conv_dw'),
             'masked_nn': (gma_encoder, 'masked_nn'),
             'merge_take': (tensor, 'merge_take_rows')}
 
 
 class Recorder:
     """Keep the arguments of every kernel-wrapper call made inside the
-    scope (the wrappers themselves still run)."""
+    scope (the wrappers themselves still run). ``phase`` labels the calls
+    recorded while it is set (e.g. 'backward'): ``calls_in(name, phase)``."""
 
     def __init__(self):
         self.sites = wrapper_sites()
         self.calls = {name: [] for name in self.sites}
+        self.phase = 'forward'
+        self.phases = {name: [] for name in self.sites}
+
+    def calls_in(self, name, phase):
+        return [c for c, p in zip(self.calls[name], self.phases[name])
+                if p == phase]
 
     def __enter__(self):
         self._orig = {}
@@ -169,6 +224,7 @@ class Recorder:
 
             def wrapper(*args, _name=name, _orig=orig, **kwargs):
                 self.calls[_name].append((args, kwargs))
+                self.phases[_name].append(self.phase)
                 return _orig(*args, **kwargs)
             setattr(module, attr, wrapper)
         return self
@@ -220,17 +276,20 @@ def make_points(model, n_points, device):
 
 
 def make_scene(model, shape, device):
-    """Flagship inputs: (points, mask, img, fg) of ``realistic_batch``."""
+    """Flagship inputs (points, mask, img, fg) of ``realistic_batch`` and
+    the scene's ground truth (gt_bboxes, gt_labels, gt_valid)."""
     import torch
     from msmdfusion_torch.utils.synth_scene import realistic_batch
     batch = realistic_batch(
         dict(shape, pcr=model.pts_voxel_layer['point_cloud_range']), b=1,
-        seed=SEED)
+        seed=SEED, return_gt=True)
 
     def dev(x):
         return torch.from_numpy(x).to(device)
-    return (dev(batch['points']), dev(batch['points_mask']),
-            dev(batch['img']), {k: dev(v) for k, v in batch['fg'].items()})
+    gt = batch['gt']
+    return ((dev(batch['points']), dev(batch['points_mask']),
+             dev(batch['img']), {k: dev(v) for k, v in batch['fg'].items()}),
+            (dev(gt['gt_bboxes']), dev(gt['gt_labels']), dev(gt['gt_valid'])))
 
 
 def forward(model, inputs):
@@ -277,7 +336,96 @@ def rows_calls(calls, reps, card):
     return out
 
 
-def conv_calls(calls, widths, reps, card, plain_reps=3):
+def rows_queries_calls(calls, reps, card):
+    """Kernel rows_queries vs its plain version and torch.searchsorted."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    out = []
+    for i, (args, kwargs) in enumerate(calls):
+        in_keys, queries, inb = args
+        got = mc.rows_queries(*args, **kwargs)
+        want = mc.rows_queries_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f'rows_queries call {i}: {int((got != want).sum())} rows differ '
+              'from the plain version')
+        nbytes = (in_keys.numel() + queries.numel() + got.numel()) * 4 + \
+            inb.numel()
+        rec = dict(
+            k_in=in_keys.numel(), k_out=queries.shape[0],
+            ta=queries.shape[1], hits=int((got >= 0).sum()), err=0.0,
+            ms=cuda_ms(lambda: mc.rows_queries(*args), reps),
+            plain_ms=cuda_ms(lambda: mc.rows_queries_plain(*args), reps),
+            library_ms=cuda_ms(lambda: torch.searchsorted(in_keys, queries),
+                               reps),
+            bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=0.0)
+        out.append(rec)
+        print(f"rows_queries[{i}] K_in={rec['k_in']} K={rec['k_out']} "
+              f"Ta={rec['ta']} hits={rec['hits']} exact ms={rec['ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f} "
+              f"searchsorted_ms={rec['library_ms']:.4f} "
+              f"bound_ms={rec['bytes_ms']:.4f} [{card}]", flush=True)
+    return out
+
+
+def held_to_sums(name, got, want, magnitude):
+    """Each element of ``got`` within TOL of the magnitude of its own sum
+    and the whole within TOL of the largest |want|; returns (max abs
+    error, that over max |want|, the worst element error over its sum's
+    magnitude)."""
+    import torch
+    check(bool(torch.isfinite(got).all()), f'{name}: non-finite output')
+    diff = (got - want).abs()
+    bad = int((diff > TOL * magnitude).sum())
+    check(bad == 0, f'{name}: {bad} elements differ by more than {TOL} of '
+          'the magnitude of their sum')
+    err, rel = rel_err(got, want)
+    check(rel <= TOL, f'{name}: error {err:.3g} is {rel:.3g} of max |ref|, '
+          f'above {TOL}')
+    return err, rel, float((diff / magnitude.clamp_min(1e-30)).max()) \
+        if diff.numel() else 0.0
+
+
+def dw_calls(calls, reps, card, plain_reps=3):
+    """Kernel conv_dw vs its plain version per call: each element held to
+    TOL of the magnitude of its sum (the plain dw of |feats| and |g|)."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    out = []
+    for i, (args, kwargs) in enumerate(calls):
+        feats, rows, g = args
+        k_out, ta = rows.shape
+        cin, cout = feats.shape[1], g.shape[1]
+        got = mc.conv_dw(*args, **kwargs)
+        again = mc.conv_dw(*args, **kwargs)
+        want = mc.conv_dw_plain(*args)
+        magnitude = mc.conv_dw_plain(feats.abs(), rows, g.abs())
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f'conv_dw call {i}: two calls differ')
+        err, rel, elem = held_to_sums(f'conv_dw call {i} ({cin}x{cout})',
+                                      got, want, magnitude)
+        hits = int((rows >= 0).sum())
+        nbytes = 4 * (feats.numel() + rows.numel() + g.numel() + got.numel())
+        rec = dict(
+            cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
+            hits=hits, err=err, rel=rel, elem=elem,
+            ms=cuda_ms(lambda: mc.conv_dw(*args), reps),
+            plain_ms=cuda_ms(lambda: mc.conv_dw_plain(*args), plain_reps),
+            library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+            ops_ms=2.0 * hits * cin * cout / PEAK_FP32 * 1e3)
+        out.append(rec)
+        print(f"conv_dw[{i}] {cin}x{cout} K_in={rec['k_in']} K_out={k_out} "
+              f"Ta={ta} hits={hits} deterministic max_abs_err={err:.3g} "
+              f"({rel:.3g} of max |ref|) worst |err|/|sum| {elem:.3g} "
+              f"(limit {TOL}) ms={rec['ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f} "
+              f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} [{card}]",
+              flush=True)
+    return out
+
+
+def conv_calls(calls, widths, reps, card, plain_reps=3,
+               label='gather_gemm_conv'):
     """Kernel gather_gemm_conv vs its plain version per call, with the
     recorded epilogue and without any. Each element is held to TOL of the
     magnitude of its own sum (the plain conv of |feats| and |weights|,
@@ -294,7 +442,7 @@ def conv_calls(calls, widths, reps, card, plain_reps=3):
         magnitude = mc.gather_gemm_conv_plain(feats.abs(), rows,
                                               weights.abs())
         errs, rels, elems = [], [], []
-        for kw in (kwargs, {}):
+        for kw in ((kwargs, {}) if kwargs else ({},)):
             got = mc.gather_gemm_conv(feats, rows, weights, **kw)
             want = mc.gather_gemm_conv_plain(feats, rows, weights, **kw)
             torch.cuda.synchronize()
@@ -340,7 +488,7 @@ def conv_calls(calls, widths, reps, card, plain_reps=3):
             bytes_ms=nbytes / PEAK_BYTES * 1e3,
             ops_ms=2.0 * hits * cin * cout / PEAK_FP32 * 1e3)
         out.append(rec)
-        print(f"gather_gemm_conv[{i}] {cin}->{cout} K_in={rec['k_in']} "
+        print(f"{label}[{i}] {cin}->{cout} K_in={rec['k_in']} "
               f"K_out={k_out} Ta={ta} hits={hits} "
               f"epilogue={sorted(k for k, v in kwargs.items() if v is not None and v is not False)} "
               f"max_abs_err={rec['err']:.3g} ({rec['rel']:.3g} of max "
@@ -494,21 +642,24 @@ def check_proposals(head, index, preds_p):
 
 class ReorderedSums:
     """Inside the scope the plain sparse conv sums its taps, and each tap's
-    input channels, in the reverse order: the same sums in another fp32
-    order, a legitimate path whose spread from the plain path measures
-    what the model itself makes of rounding."""
+    input channels, in the reverse order, and the plain weight gradient
+    its rows: the same sums in another fp32 order, a legitimate path whose
+    spread from the plain path measures what the model itself makes of
+    rounding."""
 
     def __enter__(self):
         from msmdfusion_torch.ops.sparse import matchconv as mc
-        self._mc, orig = mc, mc.gather_gemm_conv_plain
-        self._orig = orig
+        self._mc = mc
+        self._orig = conv, dw = mc.gather_gemm_conv_plain, mc.conv_dw_plain
         mc.gather_gemm_conv_plain = lambda feats, rows, weights, *a, **k: \
-            orig(feats.flip(1), rows.flip(1), weights.flip(0).flip(1),
+            conv(feats.flip(1), rows.flip(1), weights.flip(0).flip(1),
                  *a, **k)
+        mc.conv_dw_plain = lambda feats, rows, g: \
+            dw(feats, rows.flip(0), g.flip(0))
         return self
 
     def __exit__(self, *exc):
-        self._mc.gather_gemm_conv_plain = self._orig
+        self._mc.gather_gemm_conv_plain, self._mc.conv_dw_plain = self._orig
         return False
 
 
@@ -572,7 +723,9 @@ def compare_outputs(run, ref, alt):
 def profile_forward(fn, top=8):
     """``fn()`` once under torch.profiler: (host window ms, device busy ms,
     [(device ms, kernel name)] of the ``top`` kernels). Busy time is the
-    union of the device events' spans (CUPTI's own buffer events left out)."""
+    union of the device events' spans (CUPTI's own buffer events and the
+    device-side spans of annotated regions, such as ``Optimizer.step``,
+    left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -585,6 +738,7 @@ def profile_forward(fn, top=8):
     spans, by_name = [], {}
     for evt in prof.events():
         if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, 'is_user_annotation', False)
                 or evt.name in ('Buffer Flush', 'Activity Buffer Request')):
             continue
         spans.append((evt.time_range.start, evt.time_range.end))
@@ -752,6 +906,373 @@ def dense_engines(model, inputs, card, reps=3):
             torch.backends.cudnn.enabled = was
 
 
+class HeadGrad:
+    """Inside the scope keep the gradient that reaches the detection
+    head's input (``grad``) and, with ``replace``, hand the backward
+    ``replace`` in its place: the backward below the head then starts from
+    the same gradient in two paths."""
+
+    def __init__(self, head, replace=None):
+        self.head, self.replace, self.grad = head, replace, None
+
+    def __enter__(self):
+        def keep(grad):
+            self.grad = grad.detach().clone()
+            return self.replace
+
+        def pre(module, args):
+            if args[0].requires_grad:
+                args[0].register_hook(keep)
+        self._handle = self.head.register_forward_pre_hook(pre)
+        return self
+
+    def __exit__(self, *exc):
+        self._handle.remove()
+        return False
+
+
+class ReluMasks:
+    """Inside the scope every ReLU called through ``torch.relu``,
+    ``F.relu`` or ``nn.ReLU`` (all of those below the detection head)
+    records its mask ``x > 0`` (``masks`` None) or, given another pass's
+    ``masks``, applies them in call order. At full scale every layer has
+    inputs within fp32 rounding of 0, and the gradient passes one side of
+    such a ReLU and not the other: a second pass that takes the first
+    one's masks makes the same decisions, so that the backward is a smooth
+    function of the values the two paths compute."""
+
+    def __init__(self, masks=None):
+        self.replay = masks is not None
+        self.masks = [] if masks is None else masks
+        self.calls = 0
+
+    def relu(self, x, inplace=False):
+        import torch
+        del inplace
+        if self.replay:
+            mask = self.masks[self.calls]
+            check(mask.shape == x.shape, f'ReLU call {self.calls}: shape '
+                  f'{tuple(x.shape)}, recorded {tuple(mask.shape)}')
+            out = torch.where(mask, x, 0.0)
+        else:
+            self.masks.append(x > 0)
+            out = self._orig[0](x)
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        self._orig = (torch.relu, F.relu, torch.nn.ReLU.forward)
+        torch.relu = F.relu = self.relu
+        torch.nn.ReLU.forward = lambda module, x: self.relu(x)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.nn.functional as F
+        torch.relu, F.relu, torch.nn.ReLU.forward = self._orig
+        check(exc[0] is not None or not self.replay
+              or self.calls == len(self.masks),
+              f'{self.calls} ReLU calls, {len(self.masks)} masks recorded')
+        return False
+
+
+def train_pass(model, inputs, gt, rec=None, targets=None, index=None,
+               head_grad=None, scopes=()):
+    """One training-mode forward, loss and backward (no update), with the
+    dropout masks of step 0. ``targets``/``index``/``head_grad``: another
+    path's assignment, proposals and head-input gradient to reuse (ReLU
+    masks come in ``scopes``). Returns dict(losses, targets, index,
+    head_grad (this path's own), grads)."""
+    import torch
+    from msmdfusion_torch.apis.train import dropout_generator, total_loss
+    head = model.pts_bbox_head
+    with contextlib.ExitStack() as stack:
+        for scope in scopes:
+            stack.enter_context(scope)
+        if index is not None:
+            stack.enter_context(PinnedProposals(index))
+        hg = stack.enter_context(HeadGrad(head, head_grad))
+        model.zero_grad(set_to_none=True)
+        preds = model(*inputs, generator=dropout_generator(
+            inputs[0].device, SEED, 0))
+        if targets is None:
+            targets = head.get_targets(preds, *gt)
+        losses = model.loss(preds, *gt, targets=targets)
+        if rec is not None:
+            rec.phase = 'backward'
+        total_loss(losses).backward()
+        if rec is not None:
+            rec.phase = 'forward'
+    torch.cuda.synchronize()
+    return dict(losses={k: v.detach() for k, v in losses.items()},
+                targets=targets, index=proposal_index(preds),
+                head_grad=hg.grad,
+                grads={n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None})
+
+
+def compare_train(run, ref, alt):
+    """The kernel path's step ``run`` vs the plain path ``ref`` (same
+    proposals, assignment, dropout masks and head-input gradient); ``alt``
+    is the plain path with reordered sums. Up to the head's input, the
+    dense-heatmap loss (computed before the decoder) and every parameter
+    gradient below the head (whose backward starts from the same
+    head-input gradient in both paths) are held to TOL of their largest
+    value. The decoder amplifies rounding, so its losses, the head-input
+    gradient before its replacement and the head's parameter gradients
+    are held to FLOOR_MARGIN times the plain path's own spread, never less
+    than TOL. Returns [(error over max |ref|, limit, spread, name)], worst
+    first by error over limit."""
+    rows = []
+
+    def held(name, got, want, other):
+        rel = rel_err(got, want)[1]
+        floor = rel_err(other, want)[1]
+        below_head = name == 'loss_heatmap' or (
+            '.' in name and not name.startswith('pts_bbox_head.'))
+        limit = TOL if below_head else max(TOL, FLOOR_MARGIN * floor)
+        rows.append((rel, limit, floor, name))
+
+    for key in run['losses']:
+        if 'loss' in key:
+            held(key, run['losses'][key], ref['losses'][key],
+                 alt['losses'][key])
+    held('head_input_grad', run['head_grad'], ref['head_grad'],
+         alt['head_grad'])
+    check(set(run['grads']) == set(ref['grads']),
+          'the kernel and plain paths give gradients to different '
+          'parameters')
+    for name, want in ref['grads'].items():
+        held(name, run['grads'][name], want, alt['grads'][name])
+    rows.sort(key=lambda r: r[0] / r[1], reverse=True)
+    return rows
+
+
+def drive_train(model, inputs, gt, card):
+    """Phase 5 (see the module docstring) on the calibrated flagship.
+    Returns ({kernel: per-call records}, {kernel: launches of one step})."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.train import (build_lr_schedule,
+                                             build_optimizer,
+                                             dropout_generator,
+                                             make_train_step, total_loss)
+    from msmdfusion_torch.models.layers import cudnn_enabled
+    from msmdfusion_torch.utils import overflow
+    label = 'MSMDFusion train'
+    head = model.pts_bbox_head
+    frozen = TRAIN['frozen']
+    schedule = build_lr_schedule(TRAIN['lr_config'],
+                                 TRAIN['optimizer']['lr'],
+                                 TRAIN['total_steps'],
+                                 TRAIN['steps_per_epoch'])
+    opt = build_optimizer(model, TRAIN['optimizer'],
+                          TRAIN['optimizer_config'], schedule,
+                          frozen_prefixes=frozen)
+    model.train()
+    check(head.training and not model.img_backbone.training,
+          f'{label}: the frozen image branch must stay in eval mode')
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def restore_buffers():
+        """Undo the norm-statistics updates of the checking passes."""
+        with torch.no_grad():
+            for name, b in model.named_buffers():
+                b.copy_(start[name])
+
+    # one step's kernel calls, each against its plain version
+    relu = ReluMasks()
+    with Recorder() as rec:
+        run = train_pass(model, inputs, gt, rec=rec, scopes=[relu])
+    restore_buffers()
+    recorded = {k: (len(rec.calls_in(k, 'forward')),
+                    len(rec.calls_in(k, 'backward'))) for k in rec.calls}
+    print(f'{label}: recorded calls (forward, backward): {recorded}',
+          flush=True)
+    want = TRAIN['launches']
+    check(recorded['rows_queries'] == (want['rows_queries'], 0)
+          and recorded['conv_dw'] == (0, want['conv_dw'])
+          and sum(recorded['gather_gemm_conv']) == want['gather_gemm_conv'],
+          f'{label}: recorded calls {recorded}, expected {want}')
+    check(not any(n.startswith(frozen) for n in run['grads']),
+          f'{label}: a frozen image parameter got a gradient')
+    recs = {}
+    with torch.no_grad():
+        recs['rows_queries'] = rows_queries_calls(
+            rec.calls['rows_queries'], 10, card)
+        recs['conv_dw'] = dw_calls(rec.calls['conv_dw'], 5, card)
+        recs['gather_gemm_conv_bwd'] = conv_calls(
+            rec.calls_in('gather_gemm_conv', 'backward'), set(), 5, card,
+            label='gather_gemm_conv_bwd')
+    del rec
+    for name, rs in recs.items():
+        print(f'{label}: {name} sums over one step: '
+              f'{len(rs)} calls, ms={sum(r["ms"] for r in rs):.3f} '
+              f'plain_ms={sum(r["plain_ms"] for r in rs):.3f} bound_ms='
+              f'{sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs):.3f} '
+              f'[{card}]', flush=True)
+
+    # the same step on the plain versions (and with reordered sums), on
+    # the kernel path's proposals, assignment, dropout masks, head-input
+    # gradient and ReLU masks
+    pinned = dict(targets=run['targets'], index=run['index'],
+                  head_grad=run['head_grad'])
+    ref = train_pass(model, inputs, gt, scopes=[
+        kernels.plain_kernels(), ReluMasks(relu.masks)], **pinned)
+    restore_buffers()
+    alt = train_pass(model, inputs, gt, scopes=[
+        kernels.plain_kernels(), ReorderedSums(), ReluMasks(relu.masks)],
+        **pinned)
+    restore_buffers()
+    # what the masks are for: the kernel path once more with its ReLUs
+    # free (not asserted)
+    free = train_pass(model, inputs, gt, **pinned)
+    restore_buffers()
+    spread = sorted(((rel_err(free['grads'][n], g)[1], n)
+                     for n, g in run['grads'].items()
+                     if not n.startswith('pts_bbox_head.')), reverse=True)
+    print(f'{label}: the kernel path against itself with free ReLUs: '
+          f'{sum(s <= TOL for s, _ in spread)} of {len(spread)} parameter '
+          f'gradients below the head within {TOL}, worst {spread[0][0]:.3g} '
+          f'of max |ref| ({spread[0][1]})', flush=True)
+    del free, relu
+    rows = compare_train(run, ref, alt)
+    losses = {k: round(float(v), 6) for k, v in run['losses'].items()}
+    print(f'{label}: losses {json.dumps(losses)}', flush=True)
+    for rel, limit, floor, name in rows[:8]:
+        print(f'{label}: kernel vs plain path: {name} {rel:.3g} of max '
+              f'|ref| (limit {limit:.3g}; reordered plain path {floor:.3g})',
+              flush=True)
+    for group, keep in (
+            ('losses and head-input gradient',
+             lambda n: 'loss' in n or n == 'head_input_grad'),
+            ('parameter gradients of the head',
+             lambda n: n.startswith('pts_bbox_head.')),
+            ('parameter gradients below the head',
+             lambda n: '.' in n and not n.startswith('pts_bbox_head.'))):
+        sel = [r for r in rows if keep(r[3])]
+        worst = max(r[0] for r in sel)
+        over_spread = max(r[0] / max(r[2], 1e-30) for r in sel)
+        print(f'{label}: {len(sel)} {group}: worst {worst:.3g} of max '
+              f'|ref|, {sum(r[0] <= TOL for r in sel)} within {TOL}; worst '
+              f'over the reordered spread {over_spread:.3g}', flush=True)
+    bad = [r for r in rows if r[0] > r[1]]
+    check(not bad, f'{label}: kernel vs plain path above the limit: '
+          f'{bad[:5]}')
+    del run, ref, alt
+
+    # the main path: one step through make_train_step, counted
+    restore_buffers()
+    batch = dict(inputs=inputs, gt_bboxes=gt[0], gt_labels=gt[1],
+                 gt_valid=gt[2])
+    train_step = make_train_step(model, opt, seed=SEED)
+    trainable = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+    kernels.reset_launches()
+    with overflow.capture() as cap:
+        metrics = train_step(batch, 0)
+    launches = dict(kernels.launches)
+    torch.cuda.synchronize()
+    print(f'{label}: launches of one step: {launches}', flush=True)
+    for name, n in want.items():
+        check(launches[name] == n, f'{label}: {name} launched '
+              f'{launches[name]} times, expected {n}')
+    check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
+    check(bool(torch.isfinite(metrics['total_loss'])),
+          f'{label}: non-finite loss')
+    print(f'{label}: overflow_total 0; step 0 total_loss '
+          f'{float(metrics["total_loss"]):.6f} grad_norm '
+          f'{float(metrics["grad_norm"]):.6f} lr {schedule(0):.3g}',
+          flush=True)
+
+    # AdamW steps, timed: forward (with the assignment), backward,
+    # optimizer, by CUDA events; the first is a warm-up
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    split, host, auction = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(1, TRAIN['steps'] + 2):
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        preds = model(*inputs, generator=dropout_generator(
+            inputs[0].device, SEED, step))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        targets = head.get_targets(preds, *gt)
+        torch.cuda.synchronize()
+        auction.append((time.perf_counter() - t1) * 1e3)
+        losses = model.loss(preds, *gt, targets=targets)
+        total = total_loss(losses)
+        events[1].record()
+        total.backward()
+        events[2].record()
+        opt.step()
+        events[3].record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        split.append([events[i].elapsed_time(events[i + 1])
+                      for i in range(3)])
+        check(bool(torch.isfinite(total)), f'{label}: step {step} loss '
+              'is not finite')
+        print(f'{label}: step {step} total_loss '
+              f'{float(total.detach()):.6f}', flush=True)
+        del preds, losses, total
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd, bwd, upd = (sum(s[i] for s in split[1:]) / TRAIN['steps']
+                     for i in range(3))
+    print(f'{label}: step {fwd + bwd + upd:.3f} ms = forward {fwd:.3f} '
+          f'(the assignment {sum(auction[1:]) / TRAIN["steps"]:.3f} of '
+          f'it, host clock) + backward {bwd:.3f} + optimizer {upd:.3f} '
+          f'(CUDA events, mean of {TRAIN["steps"]} steps after a warm-up); '
+          f'host clock {sum(host[1:]) / TRAIN["steps"]:.3f} ms/step; peak '
+          f'memory {peak_gb:.2f} GiB [{card}]', flush=True)
+
+    moved = sum(not torch.equal(p, start[n]) for n, p in trainable)
+    check(moved >= 0.9 * len(trainable),
+          f'{label}: only {moved} of {len(trainable)} parameters moved')
+    state = model.state_dict()
+    still = all(torch.equal(state[k], v) for k, v in start.items()
+                if k.startswith(frozen))
+    check(still, f'{label}: the frozen image branch changed')
+    check(all(p.grad is None for n, p in model.named_parameters()
+              if n.startswith(frozen)),
+          f'{label}: a frozen image parameter has a gradient')
+    print(f'{label}: {moved} of {len(trainable)} trainable tensors moved; '
+          'the frozen image branch (weights and norm statistics) '
+          'unchanged', flush=True)
+
+    # the backward's dense convolutions on and off cuDNN (one step each)
+    for on in (True, False, True):
+        opt.zero_grad(set_to_none=True)
+        preds = model(*inputs, generator=dropout_generator(
+            inputs[0].device, SEED, 0))
+        total = total_loss(model.loss(preds, *gt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cudnn_enabled(on):
+            total.backward()
+            torch.cuda.synchronize()
+        print(f'{label}: backward with cuDNN {"on" if on else "off"} '
+              f'{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock) '
+              f'[{card}]', flush=True)
+        del preds, total
+
+    def one_step():
+        train_step(batch, TRAIN['steps'] + 2)
+    window_ms, busy_ms, ranked = profile_forward(one_step)
+    check(busy_ms > 0, f'{label}: the profiler saw no device work')
+    print(f'{label}: profile: one step {window_ms:.3f} ms host window, '
+          f'device busy {busy_ms:.3f} ms, idle share '
+          f'{1 - busy_ms / window_ms:.3f} [{card}]', flush=True)
+    for ms, name in ranked:
+        print(f'{label}: profile: {ms:9.3f} ms  {name[:100]}', flush=True)
+    return recs, launches
+
+
 def main():
     if not (ROOT / 'msmdfusion_torch' / '__init__.py').is_file():
         print('chip_smoke: msmdfusion_torch/ not found beside this script',
@@ -787,7 +1308,8 @@ def main():
               flush=True)
     for name in KERNEL_INFO:
         kernels.entry_point(name)
-    print(f'build: {len(built)} kernels in {build_s:.1f} s (parallel nvcc)',
+    print(f'build: {len(built)} sources of {len(KERNEL_INFO)} kernels in '
+          f'{build_s:.1f} s (parallel nvcc)',
           flush=True)
 
     # 3. TransFusion-L
@@ -805,7 +1327,7 @@ def main():
     # 4. MSMDFusion
     t0 = time.perf_counter()
     model = build_flagship(dev)
-    inputs = make_scene(model, FLAGSHIP['shape'], dev)
+    inputs, gt = make_scene(model, FLAGSHIP['shape'], dev)
     calibrate_norms(model, *inputs)
     print(f'MSMDFusion setup: model + realistic scene + norms in '
           f'{time.perf_counter() - t0:.1f} s; foreground points '
@@ -815,6 +1337,11 @@ def main():
                            reps=dict(kernel=10, frame=10))
     dense_engines(model, inputs, card)
 
+    # 5. the MSMDFusion train step
+    train_recs, train_launches = drive_train(model, inputs, gt, card)
+    recs.update(train_recs)
+    launches = {name: (train_launches if name in train_recs else
+                       launches)[name] for name in KERNEL_INFO}
     summary = [kernel_summary(name, recs[name], launches)
                for name in KERNEL_INFO]
     print(json.dumps({'kernels': summary}), flush=True)

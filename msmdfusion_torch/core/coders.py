@@ -1,4 +1,4 @@
-"""TransFusion box coder (decode).
+"""TransFusion box coder (encode and decode).
 
 Counterpart of ``TransFusionBBoxCoder`` in the JAX package's
 ``core/coders.py`` (reference
@@ -24,6 +24,22 @@ class TransFusionBBoxCoder:
         self.post_center_range = post_center_range
         self.score_threshold = score_threshold
         self.code_size = code_size
+
+    def encode(self, dst_boxes):
+        """[..., 7 or 9] bottom-centre boxes -> [..., code_size] targets:
+        grid-relative centre, gravity-centre z, log dims, sin and cos of
+        the yaw, and the velocity with code size 10."""
+        tx = (dst_boxes[..., 0] - self.pc_range[0]) / (
+            self.out_size_factor * self.voxel_size[0])
+        ty = (dst_boxes[..., 1] - self.pc_range[1]) / (
+            self.out_size_factor * self.voxel_size[1])
+        tz = dst_boxes[..., 2] + dst_boxes[..., 5] * 0.5
+        tdims = torch.log(torch.clamp(dst_boxes[..., 3:6], min=1e-12))
+        parts = [tx[..., None], ty[..., None], tz[..., None], tdims,
+                 torch.sin(dst_boxes[..., 6:7]), torch.cos(dst_boxes[..., 6:7])]
+        if self.code_size == 10:
+            parts.append(dst_boxes[..., 7:9])
+        return torch.cat(parts, -1)
 
     def decode(self, heatmap, rot, dim, center, height, vel=None,
                filter: bool = False):

@@ -1,27 +1,53 @@
-// Rulebook rows of an affine sparse-conv plan, by binary search.
+// Rulebook rows of a sparse-conv plan, by binary search: two entry points
+// over one device search.
 //
-// Replaces the TPU kernel msmdfusion_tpu/ops/sparse/matchconv.py
-// _win_rows_kernel (wrapper _win_plan_rows). That kernel matched each
-// 128-row output column against a window of the sorted input keys held in
-// VMEM, with one-hot compares extracted through MXU dots, and could drop a
-// match that fell outside its slab. Here every (output row, tap) pair is
-// one thread that runs a lower-bound binary search over the sorted input
-// keys, so no match is ever dropped:
+// msmd_rows_affine replaces the TPU kernel
+// msmdfusion_tpu/ops/sparse/matchconv.py _win_rows_kernel (wrapper
+// _win_plan_rows), for plans in affine form (query = okeys[r] + dkey[t]):
+// subm and downsample plans.
 //
-//   rows[r, t] = i  where in_keys[i] == okeys[r] + dkey[t],
-//                    inb[r, t] holds and okeys[r] != INT_MAX
+// msmd_rows_queries replaces the TPU kernel _rows_kernel (wrapper
+// plan_rows), for plans with explicit queries [K, Ta]: the transpose
+// ("dual") plans of the strided convs that the training backward runs on.
+//
+// Both TPU kernels matched each 128-row output column against a window of
+// the sorted input keys held in VMEM, with one-hot compares extracted
+// through MXU dots, and could drop a match that fell outside their slab.
+// Here every (row, tap) pair is one thread that runs a lower-bound binary
+// search over the sorted input keys, so no match is ever dropped:
+//
+//   rows[r, t] = i  where in_keys[i] == query(r, t), inb[r, t] holds and
+//                    the query is a real key (okeys[r] != INT_MAX for the
+//                    affine form, queries[r, t] != INT_MAX for the explicit)
 //              = -1 otherwise.
 //
 // Bound on the card: bytes. The work per pair is ~log2(K_in) dependent
 // loads from a key array that sits in L2 (K_in * 4 bytes, < 1 MB); the
-// least traffic is reading inb and okeys once and writing rows once. Taps
-// of one output row are neighbouring threads, so their searches share
-// their first steps in cache.
+// least traffic is reading inb and the queries once and writing rows once.
+// Taps of one row are neighbouring threads, so their searches share their
+// first steps in cache.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define INT_MAX_KEY 2147483647
+
+namespace {
+
+// the row of q in the ascending in_keys, or -1
+__device__ __forceinline__ int32_t find_key(const int32_t* __restrict__ keys,
+                                            int k_in, int32_t q) {
+  int lo = 0, hi = k_in;
+  while (lo < hi) {
+    int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(keys + mid) < q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return (lo < k_in && __ldg(keys + lo) == q) ? lo : -1;
+}
 
 __global__ void rows_affine_kernel(const int32_t* __restrict__ in_keys,
                                    int k_in,
@@ -40,19 +66,28 @@ __global__ void rows_affine_kernel(const int32_t* __restrict__ in_keys,
   if (okey != INT_MAX_KEY && __ldg(inb + idx)) {
     // an in-bounds tap of a valid row gives a real key in [0, 2^31)
     int32_t q = (int32_t)((uint32_t)okey + (uint32_t)__ldg(dkey + t));
-    int lo = 0, hi = k_in;
-    while (lo < hi) {
-      int mid = lo + ((hi - lo) >> 1);
-      if (__ldg(in_keys + mid) < q) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    if (lo < k_in && __ldg(in_keys + lo) == q) result = lo;
+    result = find_key(in_keys, k_in, q);
   }
   rows[idx] = result;
 }
+
+__global__ void rows_queries_kernel(const int32_t* __restrict__ in_keys,
+                                    int k_in,
+                                    const int32_t* __restrict__ queries,
+                                    int64_t total,
+                                    const uint8_t* __restrict__ inb,
+                                    int32_t* __restrict__ rows) {
+  int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  int32_t q = __ldg(queries + idx);
+  rows[idx] = (q != INT_MAX_KEY && __ldg(inb + idx))
+                  ? find_key(in_keys, k_in, q)
+                  : -1;
+}
+
+constexpr int kThreads = 256;
+
+}  // namespace
 
 extern "C" int msmd_rows_affine(const void* in_keys, int k_in,
                                 const void* okeys, int k_out,
@@ -60,12 +95,25 @@ extern "C" int msmd_rows_affine(const void* in_keys, int k_in,
                                 void* rows, void* stream) {
   int64_t total = (int64_t)k_out * ta;
   if (total > 0) {
-    const int threads = 256;
-    int64_t blocks = (total + threads - 1) / threads;
-    rows_affine_kernel<<<(unsigned)blocks, threads, 0,
+    int64_t blocks = (total + kThreads - 1) / kThreads;
+    rows_affine_kernel<<<(unsigned)blocks, kThreads, 0,
                          (cudaStream_t)stream>>>(
         (const int32_t*)in_keys, k_in, (const int32_t*)okeys, k_out,
         (const int32_t*)dkey, ta, (const uint8_t*)inb, (int32_t*)rows);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int msmd_rows_queries(const void* in_keys, int k_in,
+                                 const void* queries, int k_rows, int ta,
+                                 const void* inb, void* rows, void* stream) {
+  int64_t total = (int64_t)k_rows * ta;
+  if (total > 0) {
+    int64_t blocks = (total + kThreads - 1) / kThreads;
+    rows_queries_kernel<<<(unsigned)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(
+        (const int32_t*)in_keys, k_in, (const int32_t*)queries, total,
+        (const uint8_t*)inb, (int32_t*)rows);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by its
-own ``nvcc`` process for ``sm_90a`` into a shared library under
+Each kernel has a plain C entry point in a ``csrc/<source>.cu`` (one
+source may hold several entry points). Each source is compiled by its own
+``nvcc`` process for ``sm_90a`` into a shared library under
 ``msmdfusion_torch/_build/`` at first use (the processes of one ``build()``
 run in parallel). The library file name carries a hash of the source and
 the flags, so an edited source is rebuilt. Libraries are loaded with
@@ -28,16 +29,21 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point and argument types of each kernel's library
+# source stem, C entry point and argument types of each kernel
 ENTRY_POINTS = {
-    'rows_affine': ('msmd_rows_affine',
+    'rows_affine': ('rows_affine', 'msmd_rows_affine',
                     (_P, _I, _P, _I, _P, _I, _P, _P, _P)),
-    'gather_gemm_conv': ('msmd_gather_gemm_conv',
+    'rows_queries': ('rows_affine', 'msmd_rows_queries',
+                     (_P, _I, _P, _I, _I, _P, _P, _P)),
+    'gather_gemm_conv': ('gather_gemm_conv', 'msmd_gather_gemm_conv',
                          (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                           _P)),
-    'masked_nn': ('msmd_masked_nn',
+    'conv_dw': ('conv_dw', 'msmd_conv_dw',
+                (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P)),
+    'masked_nn': ('masked_nn', 'msmd_masked_nn',
                   (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P)),
-    'merge_take': ('msmd_merge_take', (_P, _I, _I, _P, _P, _P, _I, _P, _P)),
+    'merge_take': ('merge_take', 'msmd_merge_take',
+                   (_P, _I, _I, _P, _P, _P, _I, _P, _P)),
 }
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
@@ -54,22 +60,24 @@ def nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
+def _lib_path(source: str) -> Path:
+    src = (CSRC / f'{source}.cu').read_bytes()
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f'lib{name}_{digest[:16]}.so'
+    return BUILD_DIR / f'lib{source}_{digest[:16]}.so'
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:
-    """Compile the named kernels (default: all) that are not built yet.
+    """Compile the sources of the named kernels (default: all) that are
+    not built yet.
 
-    One nvcc process per source, all started together. Returns {name:
-    (seconds, compiler log)} for the kernels built by this call; raises
+    One nvcc process per source, all started together. Returns {source:
+    (seconds, compiler log)} for the sources built by this call; raises
     with the compiler's output if any build fails.
     """
     names = list(ENTRY_POINTS if names is None else names)
+    sources = sorted({ENTRY_POINTS[n][0] for n in names})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
+    todo = {s: _lib_path(s) for s in sources if not _lib_path(s).exists()}
     if not todo:
         return {}
     exe = nvcc()
@@ -101,8 +109,8 @@ def entry_point(name: str):
     fn = _LOADED.get(name)
     if fn is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        symbol, argtypes = ENTRY_POINTS[name]
+        source, symbol, argtypes = ENTRY_POINTS[name]
+        lib = ctypes.CDLL(str(_lib_path(source)))
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

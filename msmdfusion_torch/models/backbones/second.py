@@ -49,8 +49,6 @@ class SECOND(nn.Module):
         magnitude slower than this path on an H100, and the other convs
         here run at about the same speed on both.
         """
-        if self.training:
-            raise NotImplementedError('the port runs inference only')
         outs = []
         with cudnn_enabled(False):
             for block in self.blocks:

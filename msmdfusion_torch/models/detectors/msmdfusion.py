@@ -1,4 +1,4 @@
-"""MSMDFusion: LiDAR + camera detector, inference.
+"""MSMDFusion: LiDAR + camera detector, inference and training.
 
 Counterpart of the JAX package's ``models/detectors/msmdfusion.py``
 (reference mmdet3d/models/detectors/MSMDFusion.py, ``MSMDFusionDetector``):
@@ -13,6 +13,14 @@ Counterpart of the JAX package's ``models/detectors/msmdfusion.py``
 - the LiDAR encoder, the GMA encoder over its stages and the 2D voxels,
   SPP fusion of the two BEV maps, SECOND, SECONDFPN and the TransFusion
   head.
+
+In training mode (``model.train()``) every norm but the frozen image
+branch's takes the batch's moments, the strided sparse convs build their
+transpose plans for the backward, and ``loss`` gives the head's losses.
+With ``freeze_img`` (the reference's stage-2 recipe) the image branch stays
+in eval mode and runs under ``torch.no_grad()``, the port's form of the
+JAX package's ``stop_gradient``: no gradient reaches it and its norm
+statistics never move.
 
 Dense maps are channels-first (NCHW); the sparse tensors and the
 foreground arrays keep the JAX package's layouts. Module names are the
@@ -123,7 +131,7 @@ class MSMDFusionDetector(nn.Module):
             raise NotImplementedError(
                 f"voxel encoder {pts_voxel_encoder['type']}: only the fused "
                 'HardSimpleVFE path is ported')
-        del freeze_img, train_cfg        # inference: everything is frozen
+        self.freeze_img = freeze_img
         self.spatial_shapes = [tuple(s) for s in spatial_shapes]
         self.downscale_factors = list(downscale_factors)
         self.fps_num_list = list(fps_num_list)
@@ -146,6 +154,7 @@ class MSMDFusionDetector(nn.Module):
         self.pts_neck = NECKS.build(dict(pts_neck))
         head_cfg = dict(pts_bbox_head)
         head_cfg['test_cfg'] = dict(test_cfg['pts'])
+        head_cfg['train_cfg'] = dict(train_cfg['pts']) if train_cfg else None
         self.pts_bbox_head = HEADS.build(head_cfg)
 
         c_img = img_neck['out_channels']
@@ -155,6 +164,14 @@ class MSMDFusionDetector(nn.Module):
         # score_net: Linear(49 feature + 1 depth + 16 lidar2img -> 1) + ReLU
         self.score_net = MLP(49 + 1 + 16, (1,), final_act=True)
         self.bev_fusion = SPPModule(self._bev_channels(), 256)
+
+    def train(self, mode: bool = True):
+        """Set the training mode; a frozen image branch stays in eval."""
+        super().train(mode)
+        if mode and self.freeze_img:
+            self.img_backbone.eval()
+            self.img_neck.eval()
+        return self
 
     def _bev_channels(self) -> int:
         """Channels of the two BEV maps SPP fuses: each sparse map's width
@@ -237,7 +254,8 @@ class MSMDFusionDetector(nn.Module):
         vl = self.pts_voxel_layer
         max_voxels = vl['max_voxels']
         if isinstance(max_voxels, (tuple, list)):
-            max_voxels = max_voxels[1]          # the test-time capacity
+            # the train-time capacity, else the test-time one
+            max_voxels = max_voxels[0 if self.training else 1]
         batch_size = points.shape[0]
         with section('voxelize'):
             voxel_features, coors, valid = voxelize_mean_batch(
@@ -272,21 +290,31 @@ class MSMDFusionDetector(nn.Module):
         with section('bev'):
             return self.pts_neck(self.pts_backbone(x))
 
-    def forward(self, points, points_mask, img, fg: Dict[str, Any]):
+    def forward(self, points, points_mask, img, fg: Dict[str, Any],
+                generator=None):
         """points [B, N, 5], points_mask [B, N], img [B, V, H, W, 3] and
         the foreground dict (fg_pixels [B, V, M, 3], fg_points [B, V, M,
         15], fg_mask [B, V, M], fg_real_pixels [B, V, Mr, 3], fg_real_mask
         [B, V, Mr], lidar2img [B, V, 4, 4]; pixels in input-image scale)
-        -> head predictions."""
-        if self.training:
-            raise NotImplementedError('the port runs inference only')
+        -> head predictions. ``generator``: the ``torch.Generator`` the
+        head's dropout draws from in training mode."""
+        if self.training and not self.freeze_img:
+            raise NotImplementedError(
+                'training the image branch (freeze_img=False) is not ported')
         input_hw = (img.shape[2], img.shape[3])
-        with section('img'):
+        with section('img'), torch.set_grad_enabled(
+                torch.is_grad_enabled() and not self.freeze_img):
             img_feats = self.extract_img_feat(img)
         feats = self.extract_pts_feat(points, points_mask, img_feats, fg,
                                       input_hw)
         with section('head'):
-            return self.pts_bbox_head(feats[0])
+            return self.pts_bbox_head(feats[0], generator=generator)
+
+    def loss(self, preds, gt_bboxes, gt_labels, gt_valid, targets=None):
+        """The head's losses (``TransFusionHead.loss``)."""
+        with section('loss'):
+            return self.pts_bbox_head.loss(preds, gt_bboxes, gt_labels,
+                                           gt_valid, targets=targets)
 
     def get_bboxes(self, preds):
         with section('decode'):

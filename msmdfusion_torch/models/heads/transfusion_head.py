@@ -3,9 +3,12 @@
 Counterpart of the JAX package's ``models/heads/transfusion_head.py``
 (reference mmdet3d/models/dense_heads/transfusion_head.py): heatmap query
 initialisation with per-class local-maximum NMS, a transformer decoder
-with learned position embeddings, the FFN prediction branches, and the
-decode of ``get_bboxes``. Inference only: loss and targets are not ported
-yet.
+with learned position embeddings, the FFN prediction branches, the
+decode of ``get_bboxes``, and for training the Hungarian target
+assignment (the device auction of ``ops/matching.py``), the gaussian
+heatmap targets and the losses. In training mode the batch norms take the
+batch's moments and dropout draws from the ``torch.Generator`` passed to
+``forward``.
 
 Module and parameter names are the reference's (``shared_conv``,
 ``heatmap_head``, ``class_encoding``, ``decoder.{i}``,
@@ -22,8 +25,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.gaussian import draw_heatmap, gaussian_radius
+from ...core.iou3d import boxes_iou_3d
+from ...ops.matching import assign_proposals
 from ...registry import BBOX_CODERS, HEADS
 from ..layers import ConvModule, batch_norm_last, get_activation, pointwise
+from ..losses import (clip_sigmoid, gaussian_focal_loss, l1_loss,
+                      sigmoid_focal_loss)
+
+
+def dropout(x, p: float, training: bool, generator=None):
+    """Inverted dropout with rate ``p`` in training mode; the mask draws
+    from ``generator`` (the default generator when None)."""
+    if not training or p <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return torch.where(keep, x / (1 - p), 0.0)
 
 
 class PositionEmbeddingLearned(nn.Module):
@@ -51,6 +69,7 @@ class MultiheadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
                                                        embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
@@ -58,8 +77,9 @@ class MultiheadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, query, key, value, attn_mask=None):
-        """query [B, P, C], key/value [B, S, C] -> [B, P, C]."""
+    def forward(self, query, key, value, attn_mask=None, generator=None):
+        """query [B, P, C], key/value [B, S, C] -> [B, P, C]; in training
+        mode dropout on the attention weights."""
         b, p, c = query.shape
         s = key.shape[1]
         h = self.num_heads
@@ -72,19 +92,22 @@ class MultiheadAttention(nn.Module):
         logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         if attn_mask is not None:
             logits = logits + attn_mask
-        out = torch.matmul(torch.softmax(logits, dim=-1), v)
+        weights = dropout(torch.softmax(logits, dim=-1), self.dropout,
+                          self.training, generator)
+        out = torch.matmul(weights, v)
         return self.out_proj(out.transpose(1, 2).reshape(b, p, c))
 
 
 class TransformerDecoderLayer(nn.Module):
     """Self-attention, cross-attention and FFN with learned position
-    embeddings (reference :44-122). Dropout is off: inference only."""
+    embeddings (reference :44-122); dropout in training mode."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.1, activation: str = 'relu',
                  cross_only: bool = False, pos_dim: int = 2):
         super().__init__()
         self.cross_only = cross_only
+        self.dropout = dropout
         if not cross_only:
             self.self_attn = MultiheadAttention(d_model, nhead, dropout)
         self.multihead_attn = MultiheadAttention(d_model, nhead, dropout)
@@ -97,19 +120,24 @@ class TransformerDecoderLayer(nn.Module):
         self.self_posembed = PositionEmbeddingLearned(pos_dim, d_model)
         self.cross_posembed = PositionEmbeddingLearned(pos_dim, d_model)
 
-    def forward(self, query, key, query_pos, key_pos, attn_mask=None):
+    def forward(self, query, key, query_pos, key_pos, attn_mask=None,
+                generator=None):
         """query [B, P, C], key [B, S, C], query_pos [B, P, D],
         key_pos [B, S, D] -> [B, P, C]."""
+        def drop(x):
+            return dropout(x, self.dropout, self.training, generator)
+
         qpe = self.self_posembed(query_pos)
         kpe = self.cross_posembed(key_pos)
         if not self.cross_only:
             q = query + qpe
-            query = self.norm1(query + self.self_attn(q, q, q))
+            query = self.norm1(query + drop(self.self_attn(
+                q, q, q, generator=generator)))
         k = key + kpe
-        query = self.norm2(query + self.multihead_attn(
-            query + qpe, k, k, attn_mask=attn_mask))
-        ff = self.linear2(self.activation(self.linear1(query)))
-        return self.norm3(query + ff)
+        query = self.norm2(query + drop(self.multihead_attn(
+            query + qpe, k, k, attn_mask=attn_mask, generator=generator)))
+        ff = self.linear2(drop(self.activation(self.linear1(query))))
+        return self.norm3(query + drop(ff))
 
 
 class FFN(nn.Module):
@@ -185,16 +213,24 @@ class TransFusionHead(nn.Module):
                  bn_momentum: float = 0.1, activation: str = 'relu',
                  common_heads: Optional[Dict[str, Any]] = None,
                  num_heatmap_convs: int = 2, bbox_coder: Any = None,
-                 test_cfg: Any = None, fuse_img: bool = False, **unused):
+                 train_cfg: Any = None, test_cfg: Any = None,
+                 loss_cls: Any = None, loss_bbox: Any = None,
+                 fuse_img: bool = False, **unused):
         super().__init__()
         if fuse_img:
             raise NotImplementedError('image fusion is not ported yet')
-        # loss, target and training settings wait for the training port
+        # the config's loss types and loss_heatmap are not read: the losses
+        # are the JAX package's (focal, L1, unweighted gaussian focal)
         del unused
         self.num_proposals = num_proposals
         self.num_classes = num_classes
+        self.num_decoder_layers = num_decoder_layers
+        self.auxiliary = auxiliary
         self.nms_kernel_size = nms_kernel_size
+        self.train_cfg = train_cfg
         self.test_cfg = test_cfg
+        self.loss_cls = dict(loss_cls or {})
+        self.loss_bbox = dict(loss_bbox or {})
         self.coder = BBOX_CODERS.build(dict(bbox_coder))
         self.shared_conv = nn.Conv2d(in_channels, hidden_channel, 3,
                                      padding=1, bias=True)
@@ -216,11 +252,12 @@ class TransFusionHead(nn.Module):
         dataset = (self.test_cfg or {}).get('dataset')
         return {'nuScenes': (8, 9), 'Waymo': (1, 2)}.get(dataset, ())
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator=None):
         """inputs [B, C_in, H, W] BEV -> dict of [B, C, P * layers]
         predictions, 'dense_heatmap' [B, C, H, W], 'query_heatmap_score'
         [B, C, P], 'query_labels' [B, P] and 'query_spatial' [B, P] (the
-        BEV cell index ``y * W + x`` of each proposal)."""
+        BEV cell index ``y * W + x`` of each proposal). ``generator``: the
+        source of the dropout masks in training mode."""
         b, _, h, w = inputs.shape
         lidar_feat = self.shared_conv(inputs)                 # [B, hid, H, W]
         lidar_flat = lidar_feat.flatten(2).transpose(1, 2)    # [B, HW, hid]
@@ -250,7 +287,8 @@ class TransFusionHead(nn.Module):
 
         ret_layers = []
         for decoder, pred_head in zip(self.decoder, self.prediction_heads):
-            query_feat = decoder(query_feat, lidar_flat, query_pos, bev_pos)
+            query_feat = decoder(query_feat, lidar_flat, query_pos, bev_pos,
+                                 generator=generator)
             res = pred_head(query_feat)
             res['center'] = res['center'] + query_pos
             query_pos = res['center'].detach()
@@ -266,6 +304,161 @@ class TransFusionHead(nn.Module):
         out['query_labels'] = top_classes
         out['query_spatial'] = top_spatial
         return out
+
+    # ------------------------------------------------------------------
+    # loss and targets
+    # ------------------------------------------------------------------
+    def loss(self, preds, gt_bboxes, gt_labels, gt_valid, targets=None):
+        """Training losses (reference :1220-1286) of ``forward``'s
+        ``preds`` against padded ground truth: gt_bboxes [B, G, 9]
+        bottom-centre boxes with velocity, gt_labels [B, G], gt_valid
+        [B, G]. ``targets``: a ``get_targets`` result to use instead of
+        assigning anew (so that two paths can share one assignment).
+        Returns {'loss_heatmap', 'layer_-1_loss_cls', 'layer_-1_loss_bbox'
+        (``layer_{i}`` for auxiliary layers), 'matched_ious'}."""
+        p = self.num_proposals
+        num_layers = self.num_decoder_layers if self.auxiliary else 1
+        if targets is None:
+            targets = self.get_targets(preds, gt_bboxes, gt_labels, gt_valid)
+        (labels, label_weights, bbox_targets, bbox_weights, num_pos,
+         matched_ious, heatmap_tgt) = targets
+        losses = {}
+        clipped = clip_sigmoid(preds['dense_heatmap'])
+        hm_avg = torch.clamp((heatmap_tgt == 1.0).sum(), min=1)
+        losses['loss_heatmap'] = \
+            gaussian_focal_loss(clipped, heatmap_tgt).sum() / hm_avg
+        code_weights = preds['heatmap'].new_tensor(
+            self.train_cfg['code_weights'])
+        avg = torch.clamp(num_pos, min=1)
+        for idx in range(num_layers):
+            prefix = 'layer_-1' if idx == num_layers - 1 else f'layer_{idx}'
+            sl = slice(idx * p, (idx + 1) * p)
+            cls_score = preds['heatmap'][..., sl].transpose(1, 2).reshape(
+                -1, self.num_classes)
+            loss_cls = sigmoid_focal_loss(
+                cls_score, labels[..., sl].reshape(-1), self.num_classes,
+                gamma=self.loss_cls.get('gamma', 2.0),
+                alpha=self.loss_cls.get('alpha', 0.25))
+            # [N] losses times [N, 1] weights: the JAX package's broadcast,
+            # which sums the outer product, i.e. N times the reference's
+            # weighted sum when every weight is 1 (ROADMAP section 3)
+            lw = label_weights[..., sl].reshape(-1)
+            loss_cls = (loss_cls * lw[:, None]).sum() / avg
+            losses[f'{prefix}_loss_cls'] = \
+                loss_cls * self.loss_cls.get('loss_weight', 1.0)
+            parts = [preds[k][..., sl] for k in ('center', 'height', 'dim',
+                                                 'rot', 'vel') if k in preds]
+            pred_box = torch.cat(parts, 1).transpose(1, 2)
+            reg_w = bbox_weights[:, sl, :] * code_weights
+            loss_bbox = (l1_loss(pred_box, bbox_targets[:, sl, :])
+                         * reg_w).sum() / avg
+            losses[f'{prefix}_loss_bbox'] = \
+                loss_bbox * self.loss_bbox.get('loss_weight', 1.0)
+        losses['matched_ious'] = matched_ious
+        return losses
+
+    @torch.no_grad()
+    def get_targets(self, preds, gt_bboxes, gt_labels, gt_valid):
+        """Hungarian assignment and target tensors (reference
+        :1092-1218): (labels [B, P*L], label_weights, bbox_targets
+        [B, P*L, code], bbox_weights, num_pos, matched_ious, heatmap
+        targets [B, C, H, W])."""
+        tc = self.train_cfg
+        p = self.num_proposals
+        num_layers = self.num_decoder_layers if self.auxiliary else 1
+        score = preds['heatmap'].detach()
+        vel = preds.get('vel')
+        pred_boxes = self.coder.decode(
+            score, preds['rot'].detach(), preds['dim'].detach(),
+            preds['center'].detach(), preds['height'].detach(),
+            None if vel is None else vel.detach())['bboxes']
+        parts = [self._hungarian_assign(pred_boxes[:, idx * p:(idx + 1) * p],
+                                        score[..., idx * p:(idx + 1) * p],
+                                        gt_bboxes, gt_labels, gt_valid)
+                 for idx in range(num_layers)]
+        assigned = torch.cat([a for a, _ in parts], 1)
+        max_iou = torch.cat([m for _, m in parts], 1)
+
+        pos = assigned >= 0
+        safe = torch.clamp(assigned, min=0).to(torch.int64)
+        gt_for = torch.gather(
+            gt_bboxes, 1, safe[..., None].expand(-1, -1, gt_bboxes.shape[-1]))
+        enc = self.coder.encode(gt_for)
+        bbox_targets = torch.where(pos[..., None], enc, 0.0)
+        bbox_weights = pos[..., None].expand_as(enc).to(enc.dtype)
+        labels = torch.where(pos, torch.gather(gt_labels.to(torch.int64), 1,
+                                               safe), self.num_classes)
+        label_weights = torch.ones_like(labels, dtype=enc.dtype)
+        num_pos = pos.sum()
+        matched_ious = torch.where(pos, max_iou, 0.0).sum() / \
+            torch.clamp(num_pos, min=1)
+
+        # dense heatmap targets
+        fm_h, fm_w = self._bev_shape()
+        vx = tc['voxel_size'][0] * tc['out_size_factor']
+        vy = tc['voxel_size'][1] * tc['out_size_factor']
+        x0, y0 = tc['point_cloud_range'][0], tc['point_cloud_range'][1]
+        heatmaps = []
+        for boxes, labels_s, valid_s in zip(gt_bboxes, gt_labels, gt_valid):
+            width = boxes[:, 3] / vx
+            length = boxes[:, 4] / vy
+            radius = gaussian_radius((length, width), tc['gaussian_overlap'])
+            radius = torch.clamp(radius.to(torch.int32),
+                                 min=tc['min_radius']).to(torch.float32)
+            cx = ((boxes[:, 0] - x0) / vx).to(torch.int32)
+            cy = ((boxes[:, 1] - y0) / vy).to(torch.int32)
+            ok = valid_s & (boxes[:, 3] > 0) & (boxes[:, 4] > 0)
+            heatmaps.append(draw_heatmap(torch.stack([cx, cy], -1), radius,
+                                         labels_s, ok, self.num_classes,
+                                         (fm_h, fm_w)))
+        return (labels, label_weights, bbox_targets, bbox_weights, num_pos,
+                matched_ious, torch.stack(heatmaps))
+
+    def _bev_shape(self) -> Tuple[int, int]:
+        """(H, W) of the BEV feature map: the grid over the output stride."""
+        grid, osf = self.test_cfg['grid_size'], self.test_cfg['out_size_factor']
+        return grid[1] // osf, grid[0] // osf
+
+    def _hungarian_assign(self, pred_boxes, cls_score, gt_bboxes, gt_labels,
+                          gt_valid):
+        """Batched Hungarian assignment (HungarianAssigner3D,
+        mmdet3d/core/bbox/assigners/hungarian_assigner.py:96-153) with the
+        auction: (assigned ground truth [B, P] int32, -1 = background;
+        the IoU with it [B, P])."""
+        acfg = self.train_cfg['assigner']
+        b, p = pred_boxes.shape[:2]
+        g = gt_bboxes.shape[1]
+        prob = torch.sigmoid(cls_score).transpose(1, 2)          # [B, P, C]
+        eps = 1e-12
+        gamma = acfg['cls_cost'].get('gamma', 2.0)
+        alpha = acfg['cls_cost'].get('alpha', 0.25)
+        neg_cost = -torch.log(1 - prob + eps) * (1 - alpha) * prob ** gamma
+        pos_cost = -torch.log(prob + eps) * alpha * (1 - prob) ** gamma
+        lab = torch.clamp(gt_labels, min=0).to(torch.int64)[:, None, :] \
+            .expand(b, p, g)
+        cls_cost = (torch.gather(pos_cost, 2, lab)
+                    - torch.gather(neg_cost, 2, lab)) \
+            * acfg['cls_cost'].get('weight', 1.0)
+
+        pcr = self.train_cfg['point_cloud_range']
+        span = pred_boxes.new_tensor([pcr[3] - pcr[0], pcr[4] - pcr[1]])
+        start = pred_boxes.new_tensor(pcr[:2])
+        pxy = (pred_boxes[..., :2] - start) / span
+        gxy = (gt_bboxes[..., :2] - start) / span
+        reg_cost = (pxy[:, :, None, :] - gxy[:, None, :, :]).abs().sum(-1) \
+            * acfg['reg_cost'].get('weight', 1.0)
+
+        iou = torch.stack([boxes_iou_3d(a[:, :7], bb[:, :7])
+                           for a, bb in zip(pred_boxes, gt_bboxes)])
+        cost = cls_cost + reg_cost - iou * acfg['iou_cost'].get('weight', 1.0)
+        cost = torch.where(gt_valid[:, None, :], cost, 1e8)
+        assigned = torch.stack([assign_proposals(c, v)
+                                for c, v in zip(cost, gt_valid)])
+        safe = torch.clamp(assigned, min=0).to(torch.int64)
+        max_iou = torch.where(assigned >= 0,
+                              torch.gather(iou, 2, safe[..., None])[..., 0],
+                              0.0)
+        return assigned, max_iou
 
     def get_bboxes(self, preds):
         """Decode the last layer's proposals (reference :1288-1379) into

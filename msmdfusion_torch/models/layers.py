@@ -1,8 +1,9 @@
 """Shared building blocks: masked batch norm over sparse rows, ConvModule.
 
-Counterpart of the JAX package's ``models/layers.py``. The port is
-inference-only in this slice: batch norms use their running statistics,
-and asking for training mode raises. Parameter and buffer names are the
+Counterpart of the JAX package's ``models/layers.py``. Batch norms follow
+the module's mode: running statistics in eval mode, the batch's moments
+(and a running-statistics update) in training mode; folding a norm into a
+conv epilogue is eval-only. Parameter and buffer names are the
 reference mmdet3d/mmcv ones (``weight``, ``bias``, ``running_mean``,
 ``running_var``; ConvModule's ``conv``/``bn``), so a reference checkpoint
 and the JAX package's converter both read a port ``state_dict()`` as is.
@@ -48,40 +49,53 @@ def cudnn_enabled(enabled: bool):
         torch.backends.cudnn.enabled = was
 
 
-def _check_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f'{type(module).__name__}: the port runs inference only; '
-            'call .eval() first')
-
-
 def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x):
-    """Eval-mode batch norm over the last axis of ``x`` (any rank), as a
-    call of the module on [rows, C] (so its hooks run)."""
-    _check_eval(bn)
+    """Batch norm over the last axis of ``x`` (any rank), as a call of the
+    module on [rows, C] (so its hooks run): in training mode the moments
+    are over all leading axes, as the JAX package's unmasked
+    ``MaskedBatchNorm``."""
     c = x.shape[-1]
     return bn(x.reshape(-1, c)).reshape(x.shape)
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
-    """Batch norm over channels-last rows with an optional validity mask.
+    """Batch norm over channels-last rows [K, C] with an optional validity
+    mask: ``y = (x - mean) * rsqrt(var + eps) * weight + bias``, rows
+    outside ``mask`` zeroed.
 
-    Eval mode only: ``y = (x - mean) * rsqrt(var + eps) * weight + bias``,
-    rows outside ``mask`` zeroed. ``fold()`` returns the same affine as
-    ``(scale, shift)`` for fusion into a conv kernel's epilogue.
+    Eval mode uses the running statistics. Training mode uses the moments
+    of the valid rows only (``nn.BatchNorm1d``'s own would count the
+    padding rows): the biased variance normalises, and the running mean
+    and the unbiased variance update with torch's momentum convention
+    (new = (1 - m) * old + m * batch). ``fold()`` (eval only) returns the
+    affine as ``(scale, shift)`` for fusion into a conv kernel's epilogue.
     """
 
     def forward(self, x, mask=None):
-        _check_eval(self)
-        c = x.shape[-1]
-        y = super().forward(x.reshape(-1, c)).reshape(x.shape)
+        if not self.training:
+            y = super().forward(x)
+        else:
+            w = (torch.ones_like(x[:, :1]) if mask is None
+                 else mask.to(x.dtype)[:, None])
+            count = torch.clamp(w.sum(), min=1.0)
+            mean = (x * w).sum(0) / count
+            var = (((x - mean) ** 2) * w).sum(0) / count
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * unbiased)
+                self.num_batches_tracked.add_(1)
+            y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+                + self.bias
         if mask is not None:
             y = torch.where(mask[:, None], y, 0.0)
         return y
 
     def fold(self):
         """(scale, shift) with ``bn(x) == x * scale + shift``."""
-        _check_eval(self)
+        if self.training:
+            raise ValueError('fold() is an eval-mode transformation')
         s = self.weight * torch.rsqrt(self.running_var + self.eps)
         return s, self.bias - self.running_mean * s
 
@@ -110,7 +124,6 @@ class ConvModule(nn.Module):
     def forward(self, x):
         x = self.conv(x)
         if self.bn is not None:
-            _check_eval(self.bn)
             x = self.bn(x)
         if self.act is not None:
             x = self.act(x)

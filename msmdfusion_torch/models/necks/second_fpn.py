@@ -40,8 +40,6 @@ class SECONDFPN(nn.Module):
 
     def forward(self, inputs):
         """inputs: tuple of [B, C_i, H_i, W_i] -> [[B, sum(C_out), H, W]]."""
-        if self.training:
-            raise NotImplementedError('the port runs inference only')
         assert len(inputs) == len(self.deblocks)
         ups = [block(x) for block, x in zip(self.deblocks, inputs)]
         return [torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]]

@@ -5,8 +5,12 @@ Counterpart of the JAX package's ``models/sparse_blocks.py``
 mmdet3d/ops/sparse_block.py). The reference's implicit ``indice_key``
 rulebook reuse is an explicit ``cache`` dict threaded through the calls:
 every conv on one coordinate set shares one plan and its rulebook rows
-(kernel A runs once per ``indice_key``), and each conv is one launch of
-kernel B with the eval batch norm (+ ReLU) folded into its epilogue.
+(computed once per ``indice_key``). In eval mode each conv is one launch of
+the gather-GEMM kernel with the batch norm (+ ReLU) folded into its
+epilogue. In training mode the conv runs through the differentiable
+``MatchConv`` with no epilogue, then a masked batch norm on the batch's
+valid rows and a masked ReLU; a strided conv also builds its transpose
+("dual") plan and its rows once per ``indice_key``, for the backward.
 
 Weights keep spconv's ``[O, kz, ky, kx, I]`` layout and the reference
 parameter names; the conv reads them as ``[Ta, I, O]`` taps, z-major and
@@ -14,6 +18,7 @@ x fastest.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional
 
@@ -22,7 +27,8 @@ from torch import nn
 
 from ..ops.sparse.conv import downsample_out_coords, triple
 from ..ops.sparse.matchconv import (apply_match_conv, attach_rows,
-                                    build_downsample_plan, build_subm_plan)
+                                    build_downsample_plan,
+                                    build_dual_down_plan, build_subm_plan)
 from ..ops.sparse.tensor import SparseTensor
 from ..utils.timing import section
 from .layers import MaskedBatchNorm
@@ -102,6 +108,13 @@ class SparseConv3d(_SparseConvBase):
                     st, out_coords, out_valid, self.kernel_size, self.stride,
                     self.padding)
                 plan = attach_rows(st.keys, plan, site=self.indice_key)
+                if self.training:
+                    dual = build_dual_down_plan(
+                        st, out_shape, self.kernel_size, self.stride,
+                        self.padding)
+                    dual = attach_rows(out_keys, dual,
+                                       site=self.indice_key + '_dual')
+                    plan = dataclasses.replace(plan, dual=dual)
             entry = (out_keys, out_coords, out_valid, out_shape, plan)
             cache[key] = entry
         out_keys, out_coords, out_valid, out_shape, plan = entry
@@ -113,10 +126,15 @@ class SparseConv3d(_SparseConvBase):
         return out, cache
 
 
+def _masked_relu(st: SparseTensor) -> SparseTensor:
+    return st.replace_features(
+        torch.where(st.valid[:, None], torch.relu(st.features), 0.0))
+
+
 class SparseConvBlock(nn.Sequential):
     """conv (``0``) + batch norm (``1``) + ReLU, the reference's
-    ``make_sparse_convmodule`` with its default order. The eval batch norm
-    and the ReLU fold into the conv kernel's epilogue."""
+    ``make_sparse_convmodule`` with its default order. In eval mode the
+    batch norm and the ReLU fold into the conv kernel's epilogue."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
                  stride=1, padding=0, conv_type: str = 'SubMConv3d',
@@ -140,6 +158,10 @@ class SparseConvBlock(nn.Sequential):
                                                momentum=norm_momentum))
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any]):
+        if self.training:
+            st, cache = self[0](st, cache)
+            st = st.replace_features(self[1](st.features, mask=st.valid))
+            return _masked_relu(st), cache
         scale, shift = self[1].fold()
         return self[0](st, cache, scale=scale, shift=shift, relu=True)
 
@@ -160,11 +182,18 @@ class SparseBasicBlock(nn.Module):
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any]):
         identity = st.features
-        s1, b1 = self.bn1.fold()
-        st, cache = self.conv1(st, cache, scale=s1, shift=b1, relu=True)
-        s2, b2 = self.bn2.fold()
-        st, cache = self.conv2(st, cache, scale=s2, shift=b2)
+        if self.training:
+            st, cache = self.conv1(st, cache)
+            st = _masked_relu(st.replace_features(
+                self.bn1(st.features, mask=st.valid)))
+            st, cache = self.conv2(st, cache)
+            st = st.replace_features(self.bn2(st.features, mask=st.valid))
+        else:
+            s1, b1 = self.bn1.fold()
+            st, cache = self.conv1(st, cache, scale=s1, shift=b1, relu=True)
+            s2, b2 = self.bn2.fold()
+            st, cache = self.conv2(st, cache, scale=s2, shift=b2)
         with section('convs'):
-            out = torch.clamp(st.features + identity, min=0.0)
+            out = torch.relu(st.features + identity)
             out = torch.where(st.valid[:, None], out, 0.0)
         return st.replace_features(out), cache

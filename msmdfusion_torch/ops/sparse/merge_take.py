@@ -14,6 +14,11 @@ PyTorch version for CPU tensors or inside ``kernels.plain_kernels()``.
 The TPU kernel's sliding windows and bf16 hi/lo split have no counterpart:
 the gather is exact fp32 and never drops a row, so ``merge_take.win[site]``
 is recorded as 0 to keep the overflow sites' names.
+
+The gather is differentiable in ``table``: its backward is the
+scatter-add of the JAX package's custom VJP (``_vjp_bwd``, plain XLA
+there, ``index_add_`` here), and rows read through an out-of-range index
+receive nothing.
 """
 from __future__ import annotations
 
@@ -41,10 +46,40 @@ def merge_take_rows_plain(table, idx, idx2=None, dup=None):
     return out
 
 
+def merge_take_grad(g, n: int, idx, idx2=None, dup=None):
+    """d table [N, C] of ``merge_take_rows`` under the output gradient
+    ``g`` [M, C]: g rows added at their in-range indices (the others
+    park on a spare row past the end, dropped)."""
+    def add(d, i, active):
+        ok = active & (i >= 0) & (i < n)
+        return d.index_add_(0, torch.where(ok, i, n).to(torch.int64), g)
+
+    d = add(g.new_zeros((n + 1, g.shape[1])), idx,
+            torch.ones_like(idx, dtype=torch.bool))
+    if idx2 is not None:
+        d = add(d, idx2, dup)
+    return d[:n]
+
+
+class _MergeTake(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, idx, idx2, dup):
+        ctx.n = table.shape[0]
+        ctx.save_for_backward(idx, idx2, dup)
+        return _merge_take_forward(table, idx, idx2, dup)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, idx2, dup = ctx.saved_tensors
+        return merge_take_grad(g, ctx.n, idx, idx2, dup), None, None, None
+
+
 def merge_take_rows(table, idx, idx2: Optional[torch.Tensor] = None,
                     dup: Optional[torch.Tensor] = None,
                     site: str = '') -> torch.Tensor:
-    """``table[idx] (+ table[idx2] where dup)`` -> [M, C] fp32.
+    """``table[idx] (+ table[idx2] where dup)`` -> [M, C] fp32,
+    differentiable in ``table``.
 
     table [N, C] f32; idx, idx2 [M] int32; dup [M] bool (with idx2). On
     the card C is a multiple of 4 and the table 16-byte aligned.
@@ -63,8 +98,16 @@ def merge_take_rows(table, idx, idx2: Optional[torch.Tensor] = None,
                              f'{tuple(idx2.shape)}, dup {tuple(dup.shape)}')
     tag = f'[{site}]' if site else ''
     overflow.record(f'merge_take.win{tag}', 0)
+    if table.requires_grad and torch.is_grad_enabled():
+        return _MergeTake.apply(table, idx, idx2, dup)
+    return _merge_take_forward(table, idx, idx2, dup)
+
+
+def _merge_take_forward(table, idx, idx2, dup):
     if not kernels.use_kernel(table):
         return merge_take_rows_plain(table, idx, idx2, dup)
+    dev = table.device
+    m = idx.shape[0]
     n, c = table.shape
     out = torch.empty((m, c), dtype=torch.float32, device=dev)
     # the kernel moves float4 slices of rows

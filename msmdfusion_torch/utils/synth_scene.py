@@ -303,14 +303,18 @@ def _pad(arrays, num_cams: int, cap: int, dim: int, site: str):
 
 
 def realistic_batch(shape: Dict, b: int, seed: int = 0,
-                    num_virtual: int = 200) -> Dict:
+                    num_virtual: int = 200, return_gt: bool = False,
+                    max_gt: int = 32) -> Dict:
     """The flagship's input batch: dict(points [B, N, 5], points_mask,
     img [B, V, H, W, 3], fg=dict(fg_pixels [B, V, M, 3], fg_points
     [B, V, M, 15], fg_mask, fg_real_pixels [B, V, Mr, 3], fg_real_mask,
     lidar2img [B, V, 4, 4])) as numpy arrays.
 
     shape: dict(n, v, m, mr, img_hw, pcr), the JAX package's
-    ``_flagship_model`` shape contract.
+    ``_flagship_model`` shape contract. ``return_gt`` adds ``gt``:
+    dict(gt_bboxes [B, max_gt, 9] bottom-centre (x, y, z, dx, dy, dz, yaw,
+    vx, vy) of the scene's objects, gt_labels [B, max_gt] int32, gt_valid
+    [B, max_gt]), zero-padded.
     """
     n, v, m, mr = shape['n'], shape['v'], shape['m'], shape['mr']
     img_hw = shape['img_hw']
@@ -321,9 +325,18 @@ def realistic_batch(shape: Dict, b: int, seed: int = 0,
     imgs = rng.randn(b, v, img_hw[0], img_hw[1], 3).astype(np.float32)
     fg_batches: List[Dict[str, np.ndarray]] = []
     l2i_batches = []
+    gt_bboxes = np.zeros((b, max_gt, 9), np.float32)
+    gt_labels = np.zeros((b, max_gt), np.int32)
+    gt_valid = np.zeros((b, max_gt), bool)
     for bi in range(b):
         pts, objects = lidar_scene(rng, n, pcr)
         points[bi] = pts
+        for gi, obj in enumerate(objects[:max_gt]):
+            c, d = obj['center'], obj['dims']
+            gt_bboxes[bi, gi] = [c[0], c[1], c[2] - d[2] / 2, d[0], d[1],
+                                 d[2], obj['yaw'], 0.0, 0.0]
+            gt_labels[bi, gi] = obj['label']
+            gt_valid[bi, gi] = True
         l2i = camera_rig(img_hw, num_cams=v, seed=seed + 17 * bi)
         per_cam = [generate_camera_foreground(
             pts, np.asarray(l2i[ci], np.float64), img_hw,
@@ -341,5 +354,9 @@ def realistic_batch(shape: Dict, b: int, seed: int = 0,
         l2i_batches.append(l2i)
     fg = {k: np.stack([fb[k] for fb in fg_batches]) for k in fg_batches[0]}
     fg['lidar2img'] = np.stack(l2i_batches)
-    return dict(points=points, points_mask=np.ones((b, n), bool), img=imgs,
-                fg=fg)
+    batch = dict(points=points, points_mask=np.ones((b, n), bool), img=imgs,
+                 fg=fg)
+    if return_gt:
+        batch['gt'] = dict(gt_bboxes=gt_bboxes, gt_labels=gt_labels,
+                           gt_valid=gt_valid)
+    return batch

@@ -62,7 +62,7 @@ def test_masked_batch_norm_and_fold_match_jax():
     np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-6,
                                atol=1e-7)
     tbn.train()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='eval-mode'):
         tbn.fold()
 
 

@@ -279,6 +279,7 @@ def test_cpu_tensors_never_count_launches():
     kernels.reset_launches()
     rows = tmc.attach_rows(t.keys, tp).rows
     tmc.gather_gemm_conv(t.features, rows, torch.zeros(27, 8, 4))
-    assert kernels.launches == {'rows_affine': 0, 'gather_gemm_conv': 0,
+    assert kernels.launches == {'rows_affine': 0, 'rows_queries': 0,
+                                'gather_gemm_conv': 0, 'conv_dw': 0,
                                 'masked_nn': 0, 'merge_take': 0}
     assert not kernels.use_kernel(t.keys)
