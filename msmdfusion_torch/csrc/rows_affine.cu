@@ -30,24 +30,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define INT_MAX_KEY 2147483647
+#include "key_search.cuh"
 
 namespace {
-
-// the row of q in the ascending in_keys, or -1
-__device__ __forceinline__ int32_t find_key(const int32_t* __restrict__ keys,
-                                            int k_in, int32_t q) {
-  int lo = 0, hi = k_in;
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(keys + mid) < q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return (lo < k_in && __ldg(keys + lo) == q) ? lo : -1;
-}
 
 __global__ void rows_affine_kernel(const int32_t* __restrict__ in_keys,
                                    int k_in,

@@ -1,12 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel has a plain C entry point in a ``csrc/<source>.cu`` (one
-source may hold several entry points). Each source is compiled by its own
-``nvcc`` process for ``sm_90a`` into a shared library under
+source may hold several entry points; sources share device code through
+``csrc/*.cuh`` headers). Each source is compiled by its own ``nvcc``
+process for ``sm_90a`` into a shared library under
 ``msmdfusion_torch/_build/`` at first use (the processes of one ``build()``
-run in parallel). The library file name carries a hash of the source and
-the flags, so an edited source is rebuilt. Libraries are loaded with
-``ctypes``; pointer and stream arguments are ``c_void_p``.
+run in parallel). The library file name carries a hash of the source, of
+every header it includes and of the flags, so an edited source or header
+is rebuilt. Libraries are loaded with ``ctypes``; pointer and stream
+arguments are ``c_void_p``.
 
 Nothing here runs when the module is imported.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,8 +41,17 @@ ENTRY_POINTS = {
     'gather_gemm_conv': ('gather_gemm_conv', 'msmd_gather_gemm_conv',
                          (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                           _P)),
+    'gather_gemm_conv_bf16': ('gather_gemm_conv_bf16',
+                              'msmd_gather_gemm_conv_bf16',
+                              (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P,
+                               _P, _P)),
     'conv_dw': ('conv_dw', 'msmd_conv_dw',
                 (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P)),
+    'conv_dw_bf16': ('conv_dw', 'msmd_conv_dw_bf16',
+                     (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P)),
+    'match_conv': ('match_conv', 'msmd_match_conv',
+                   (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                    _I, _P, _P, _P)),
     'masked_nn': ('masked_nn', 'msmd_masked_nn',
                   (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P)),
     'merge_take': ('merge_take', 'msmd_merge_take',
@@ -60,10 +72,29 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(source: str):
+    """``csrc/<source>.cu`` and every header it includes with quotes,
+    recursively (paths relative to the including file)."""
+    todo, files = [CSRC / f'{source}.cu'], []
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / name.decode()
+                 for name in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def _lib_path(source: str) -> Path:
-    src = (CSRC / f'{source}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f'lib{source}_{digest[:16]}.so'
+    digest = hashlib.sha256()
+    for path in source_files(source):
+        digest.update(path.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{source}_{digest.hexdigest()[:16]}.so'
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:

@@ -4,13 +4,15 @@ Counterpart of the JAX package's ``models/sparse_blocks.py``
 (``make_sparse_convmodule``/``SparseBasicBlock`` of the reference,
 mmdet3d/ops/sparse_block.py). The reference's implicit ``indice_key``
 rulebook reuse is an explicit ``cache`` dict threaded through the calls:
-every conv on one coordinate set shares one plan and its rulebook rows
-(computed once per ``indice_key``). In eval mode each conv is one launch of
-the gather-GEMM kernel with the batch norm (+ ReLU) folded into its
-epilogue. In training mode the conv runs through the differentiable
-``MatchConv`` with no epilogue, then a masked batch norm on the batch's
-valid rows and a masked ReLU; a strided conv also builds its transpose
-("dual") plan and its rows once per ``indice_key``, for the backward.
+every conv on one coordinate set shares one plan and, under the default
+``MSMD_CONV_ALGO=vgather``, its rulebook rows (computed once per
+``indice_key``; the one-hot engine attaches none and matches inside every
+conv). In eval mode each conv is one kernel launch with the batch norm (+
+ReLU) folded into its epilogue. In training mode the conv runs through
+the differentiable ``MatchConv`` with no epilogue, then a masked batch
+norm on the batch's valid rows and a masked ReLU; a strided conv also
+builds its transpose ("dual") plan (and its rows) once per
+``indice_key``, for the backward.
 
 Weights keep spconv's ``[O, kz, ky, kx, I]`` layout and the reference
 parameter names; the conv reads them as ``[Ta, I, O]`` taps, z-major and
@@ -28,7 +30,8 @@ from torch import nn
 from ..ops.sparse.conv import downsample_out_coords, triple
 from ..ops.sparse.matchconv import (apply_match_conv, attach_rows,
                                     build_downsample_plan,
-                                    build_dual_down_plan, build_subm_plan)
+                                    build_dual_down_plan, build_subm_plan,
+                                    conv_algo)
 from ..ops.sparse.tensor import SparseTensor
 from ..utils.timing import section
 from .layers import MaskedBatchNorm
@@ -68,9 +71,9 @@ class SubMConv3d(_SparseConvBase):
         plan = cache.get(key)
         if plan is None:
             with section('plans'):
-                plan = attach_rows(st.keys,
-                                   build_subm_plan(st, self.kernel_size),
-                                   site=self.indice_key)
+                plan = build_subm_plan(st, self.kernel_size)
+                if conv_algo() == 'vgather':
+                    plan = attach_rows(st.keys, plan, site=self.indice_key)
             cache[key] = plan
         with section('convs'):
             out = apply_match_conv(st, plan, self.taps(), st.coords,
@@ -107,14 +110,18 @@ class SparseConv3d(_SparseConvBase):
                 plan = build_downsample_plan(
                     st, out_coords, out_valid, self.kernel_size, self.stride,
                     self.padding)
-                plan = attach_rows(st.keys, plan, site=self.indice_key)
+                with_rows = conv_algo() == 'vgather'
+                if with_rows:
+                    plan = attach_rows(st.keys, plan, site=self.indice_key)
                 if self.training:
                     dual = build_dual_down_plan(
                         st, out_shape, self.kernel_size, self.stride,
                         self.padding)
-                    dual = attach_rows(out_keys, dual,
-                                       site=self.indice_key + '_dual')
-                    plan = dataclasses.replace(plan, dual=dual)
+                    if with_rows:
+                        dual = attach_rows(out_keys, dual,
+                                           site=self.indice_key + '_dual')
+                    plan = dataclasses.replace(plan, dual=dual,
+                                               dual_keys=out_keys)
             entry = (out_keys, out_coords, out_valid, out_shape, plan)
             cache[key] = entry
         out_keys, out_coords, out_valid, out_shape, plan = entry

@@ -10,7 +10,25 @@ plans of strided convs). ``attach_rows`` turns it into the rulebook ``rows
 every conv on that coordinate set then runs as a gather-GEMM over the same
 rows.
 
-Four hand-written CUDA kernels carry this path (``csrc/``):
+Two switches, read from the environment at call time with the JAX
+package's names, values and defaults, pick the engine:
+
+- ``MSMD_CONV_ALGO`` (``conv_algo()``): ``vgather`` (default), the
+  rulebook engine above; ``onehot``, the one-hot engine, which stores no
+  rulebook: every conv searches its plan's queries in the input keys
+  itself (``match_conv``), forward and training backward alike;
+- ``MSMD_CONV_DTYPE`` (``conv_dtype()``): ``float32`` (default) or
+  ``bfloat16``, the JAX package's packed mode (its benchmarked setting):
+  the rulebook engine's forward and input gradient round the features and
+  the weights to bf16 and multiply on the tensor cores with fp32 sums,
+  and its weight gradient rounds both operands to bf16. The one-hot
+  engine ignores it, as the JAX package's ``_pallas_conv`` does.
+
+Any other value raises. The JAX package's TPU layout knobs
+(``MSMD_CONV_SLAB``, ``_TILE``, ``_CW``, ``_COLW``, ``_GEMM``,
+``_TAILMODE``) have no counterpart.
+
+Hand-written CUDA kernels carry these paths (``csrc/``):
 
 - ``rows_affine``: the rulebook rows of affine plans, replacing
   ``_win_rows_kernel``;
@@ -19,8 +37,12 @@ Four hand-written CUDA kernels carry this path (``csrc/``):
 - ``gather_gemm_conv``: the conv with its fused BN/ReLU/mask epilogue,
   replacing ``_vgather_kernel`` (forward, fp32); the training backward
   runs it again over the dual rows for the input gradient;
-- ``conv_dw``: the weight gradient, replacing ``_vgather_kernel``'s
-  ``with_dw`` accumulator.
+- ``gather_gemm_conv_bf16``: the same conv on bf16 tensor cores,
+  replacing ``_vgather_kernel``'s packed mode;
+- ``conv_dw`` and ``conv_dw_bf16``: the weight gradient, replacing
+  ``_vgather_kernel``'s ``with_dw`` accumulator (fp32 and packed);
+- ``match_conv``: the one-hot engine's conv, search and product fused,
+  replacing ``_match_kernel``.
 
 Each wrapper launches its kernel for a CUDA tensor, raising if the build
 or the launch fails, and runs its plain PyTorch version for a CPU tensor
@@ -32,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -44,15 +67,46 @@ from .conv import kernel_offsets, triple
 from .tensor import INT_MAX, SparseTensor
 
 
+def conv_algo() -> str:
+    """``MSMD_CONV_ALGO``: 'vgather' (default, rulebook rows) or 'onehot'
+    (queries matched inside the conv kernel)."""
+    algo = os.environ.get('MSMD_CONV_ALGO', 'vgather')
+    if algo not in ('vgather', 'onehot'):
+        raise ValueError(f'MSMD_CONV_ALGO={algo!r}: expected vgather or '
+                         'onehot')
+    return algo
+
+
+def conv_dtype() -> str:
+    """``MSMD_CONV_DTYPE``: 'float32' (default) or 'bfloat16' (the
+    rulebook engine rounds its operands to bf16, fp32 sums)."""
+    dtype = os.environ.get('MSMD_CONV_DTYPE', 'float32')
+    if dtype not in ('float32', 'bfloat16'):
+        raise ValueError(f'MSMD_CONV_DTYPE={dtype!r}: expected float32 or '
+                         'bfloat16')
+    return dtype
+
+
+def packed() -> bool:
+    """The rulebook engine in bf16 (the JAX package's packed mode)."""
+    return conv_algo() == 'vgather' and conv_dtype() == 'bfloat16'
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to bf16 (to nearest, ties to even), as fp32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class MatchPlan:
     """Per-coordinate-set conv plan (the counterpart of a spconv rulebook).
 
     Affine form: query[r, t] = okeys[r] + dkey[t]; explicit form:
     ``queries[r, t]``. Either way only where ``inb[r, t]`` holds; ``rows``
-    is the matched input row of each query (``attach_rows``). A strided
-    plan built for training carries its transpose ``dual``, whose rows
-    index the conv's output coordinate set.
+    is the matched input row of each query (``attach_rows``; the one-hot
+    engine attaches none). A strided plan built for training carries its
+    transpose ``dual``, whose queries are matched against the conv's
+    output keys ``dual_keys``.
     """
     inb: torch.Tensor              # [K_out, Ta] bool: tap in bounds, row valid
     okeys: Optional[torch.Tensor] = None   # [K_out] int32, INT_MAX invalid
@@ -63,6 +117,7 @@ class MatchPlan:
     # transpose, with tap u <-> Ta-1-u
     self_transpose: bool = False
     dual: Optional['MatchPlan'] = None
+    dual_keys: Optional[torch.Tensor] = None   # [K_out] int32
 
     @property
     def k_out(self) -> int:
@@ -266,14 +321,24 @@ def rows_queries(in_keys, queries, inb) -> torch.Tensor:
     return rows
 
 
-def attach_rows(in_keys, plan: MatchPlan, site: str = '') -> MatchPlan:
-    """The plan with its rulebook rows (once per indice_key): kernel
-    ``rows_affine`` for an affine plan, ``rows_queries`` for explicit
-    queries."""
+def plan_rows(in_keys, plan: MatchPlan) -> torch.Tensor:
+    """The plan's rulebook rows: kernel ``rows_affine`` for an affine plan,
+    ``rows_queries`` for explicit queries."""
     if plan.queries is not None:
-        rows = rows_queries(in_keys, plan.queries, plan.inb)
-    else:
-        rows = rows_affine(in_keys, plan.okeys, plan.dkey, plan.inb)
+        return rows_queries(in_keys, plan.queries, plan.inb)
+    return rows_affine(in_keys, plan.okeys, plan.dkey, plan.inb)
+
+
+def plan_rows_plain(in_keys, plan: MatchPlan) -> torch.Tensor:
+    """Plain version of ``plan_rows``."""
+    if plan.queries is not None:
+        return rows_queries_plain(in_keys, plan.queries, plan.inb)
+    return rows_affine_plain(in_keys, plan.okeys, plan.dkey, plan.inb)
+
+
+def attach_rows(in_keys, plan: MatchPlan, site: str = '') -> MatchPlan:
+    """The plan with its rulebook rows (once per indice_key)."""
+    rows = plan_rows(in_keys, plan)
     # the TPU kernels' slab and column-window sites: a binary search has
     # neither window, so nothing is ever dropped there
     tag = f'[{site}]' if site else ''
@@ -300,9 +365,9 @@ def apply_epilogue(out, out_valid=None, scale=None, shift=None,
     return out
 
 
-def gather_gemm_conv_plain(feats, rows, weights, scale=None, shift=None,
-                           relu: bool = False, out_valid=None):
-    """Plain version of ``gather_gemm_conv``: per-tap index_select + matmul."""
+def _rows_product(feats, rows, weights):
+    """sum_t feats[rows[:, t]] @ weights[t] in fp32, per-tap index_select
+    and matmul."""
     k_out, ta = rows.shape
     out = feats.new_zeros((k_out, weights.shape[2]))
     for t in range(ta):
@@ -310,15 +375,44 @@ def gather_gemm_conv_plain(feats, rows, weights, scale=None, shift=None,
         hit = (r >= 0)[:, None]
         g = feats.index_select(0, torch.clamp(r, min=0).to(torch.int64))
         out = out + torch.where(hit, g, 0.0) @ weights[t]
-    return apply_epilogue(out, out_valid, scale, shift, relu)
+    return out
+
+
+def gather_gemm_conv_plain(feats, rows, weights, scale=None, shift=None,
+                           relu: bool = False, out_valid=None):
+    """Plain version of ``gather_gemm_conv`` (and, under ``packed()``, of
+    ``gather_gemm_conv_bf16``: features and unscaled weights rounded to
+    bf16, products and sums in fp32, the epilogue on the fp32 sum)."""
+    if packed():
+        feats, weights = bf16_round(feats), bf16_round(weights)
+    return apply_epilogue(_rows_product(feats, rows, weights), out_valid,
+                          scale, shift, relu)
+
+
+def _check_epilogue(dev, k_out, cout, scale, shift, out_valid):
+    for name, v in (('scale', scale), ('shift', shift)):
+        if v is not None:
+            check_tensor(name, v, torch.float32, 1, dev)
+            if v.shape[0] != cout:
+                raise ValueError(f'{name}: expected [{cout}]')
+    if out_valid is not None:
+        check_tensor('out_valid', out_valid, torch.bool, 1, dev)
+        if out_valid.shape[0] != k_out:
+            raise ValueError(f'out_valid: expected [{k_out}]')
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
                      relu: bool = False, out_valid=None) -> torch.Tensor:
-    """out [K_out, Cout] = epi(sum_t feats[rows[:, t]] @ weights[t]), fp32.
+    """out [K_out, Cout] = epi(sum_t feats[rows[:, t]] @ weights[t]).
 
     feats [K_in, Cin] f32; rows [K_out, Ta] int32 (-1 = miss); weights
     [Ta, Cin, Cout] f32; scale/shift [Cout] f32; out_valid [K_out] bool.
+    fp32 (kernel ``gather_gemm_conv``), or under ``packed()`` bf16
+    operands with fp32 sums (kernel ``gather_gemm_conv_bf16``).
     """
     dev = feats.device
     check_tensor('feats', feats, torch.float32, 2, dev)
@@ -329,31 +423,85 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     if weights.shape[0] != ta or feats.shape[1] != cin:
         raise ValueError(f'shape mismatch: feats {tuple(feats.shape)}, rows '
                          f'{tuple(rows.shape)}, weights {tuple(weights.shape)}')
-    for name, v in (('scale', scale), ('shift', shift)):
-        if v is not None:
-            check_tensor(name, v, torch.float32, 1, dev)
-            if v.shape[0] != cout:
-                raise ValueError(f'{name}: expected [{cout}]')
-    if out_valid is not None:
-        check_tensor('out_valid', out_valid, torch.bool, 1, dev)
-        if out_valid.shape[0] != k_out:
-            raise ValueError(f'out_valid: expected [{k_out}]')
+    _check_epilogue(dev, k_out, cout, scale, shift, out_valid)
     if not kernels.use_kernel(feats):
         return gather_gemm_conv_plain(feats, rows, weights, scale, shift,
                                       relu, out_valid)
-    fn = kernels.entry_point('gather_gemm_conv')
+    name = 'gather_gemm_conv_bf16' if packed() else 'gather_gemm_conv'
+    fn = kernels.entry_point(name)
     out = torch.empty((k_out, cout), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check('gather_gemm_conv', fn(
+        kernels.check(name, fn(
             feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
-            weights.data_ptr(), cout, ptr(scale), ptr(shift), int(relu),
-            ptr(out_valid), out.data_ptr(), stream))
-    kernels.launches['gather_gemm_conv'] += 1
+            weights.data_ptr(), cout, _ptr(scale), _ptr(shift), int(relu),
+            _ptr(out_valid), out.data_ptr(), stream))
+    kernels.launches[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel C: the one-hot engine's conv (search and product fused)
+# ---------------------------------------------------------------------------
+
+def match_conv_plain(feats, in_keys, plan: MatchPlan, weights, scale=None,
+                     shift=None, relu: bool = False, out_valid=None):
+    """Plain version of ``match_conv``: the plan's rows by searchsorted,
+    then the fp32 gather-GEMM and the epilogue."""
+    return apply_epilogue(
+        _rows_product(feats, plan_rows_plain(in_keys, plan), weights),
+        out_valid, scale, shift, relu)
+
+
+def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
+               shift=None, relu: bool = False,
+               out_valid=None) -> torch.Tensor:
+    """out [K_out, Cout] = epi(sum_t feats[match(query[r, t])] @ W[t]), fp32.
+
+    The one-hot engine: no rulebook is stored. Each query (``okeys[r] +
+    dkey[t]``, or ``queries[r, t]``) where ``inb[r, t]`` holds and the row
+    or query is not INT_MAX is searched in ``in_keys`` [K_in] (ascending,
+    INT_MAX tail) inside the kernel; a miss adds nothing. feats [K_in,
+    Cin] f32; weights [Ta, Cin, Cout] f32; epilogue as ``gather_gemm_conv``.
+    """
+    dev = feats.device
+    check_tensor('feats', feats, torch.float32, 2, dev)
+    check_tensor('in_keys', in_keys, torch.int32, 1, dev)
+    check_tensor('weights', weights, torch.float32, 3, dev)
+    check_tensor('inb', plan.inb, torch.bool, 2, dev)
+    k_out, ta = plan.inb.shape
+    k_in, cin = feats.shape
+    cout = weights.shape[2]
+    if plan.queries is not None:
+        check_tensor('queries', plan.queries, torch.int32, 2, dev)
+        bad = plan.queries.shape != plan.inb.shape
+    else:
+        check_tensor('okeys', plan.okeys, torch.int32, 1, dev)
+        check_tensor('dkey', plan.dkey, torch.int32, 1, dev)
+        bad = plan.okeys.shape[0] != k_out or plan.dkey.shape[0] != ta
+    if (bad or in_keys.shape[0] != k_in or weights.shape[0] != ta
+            or weights.shape[1] != cin):
+        raise ValueError(f'shape mismatch: feats {tuple(feats.shape)}, '
+                         f'in_keys {tuple(in_keys.shape)}, inb '
+                         f'{tuple(plan.inb.shape)}, weights '
+                         f'{tuple(weights.shape)}')
+    _check_epilogue(dev, k_out, cout, scale, shift, out_valid)
+    # the TPU kernel's slab site: a binary search drops nothing
+    overflow.record('matchconv.slab', 0)
+    if not kernels.use_kernel(feats):
+        return match_conv_plain(feats, in_keys, plan, weights, scale, shift,
+                                relu, out_valid)
+    fn = kernels.entry_point('match_conv')
+    out = torch.empty((k_out, cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernels.check('match_conv', fn(
+            feats.data_ptr(), cin, in_keys.data_ptr(), k_in,
+            _ptr(plan.okeys), _ptr(plan.dkey), _ptr(plan.queries),
+            plan.inb.data_ptr(), k_out, ta, weights.data_ptr(), cout,
+            _ptr(scale), _ptr(shift), int(relu), _ptr(out_valid),
+            out.data_ptr(), stream))
+    kernels.launches['match_conv'] += 1
     return out
 
 
@@ -362,7 +510,11 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
 # ---------------------------------------------------------------------------
 
 def conv_dw_plain(feats, rows, g) -> torch.Tensor:
-    """Plain version of ``conv_dw``: per-tap index_select and product."""
+    """Plain version of ``conv_dw`` (and, under ``packed()``, of
+    ``conv_dw_bf16``: both operands rounded to bf16, fp32 sums): per-tap
+    index_select and product."""
+    if packed():
+        feats, g = bf16_round(feats), bf16_round(g)
     k_out, ta = rows.shape
     dw = feats.new_empty((ta, feats.shape[1], g.shape[1]))
     for t in range(ta):
@@ -392,7 +544,8 @@ def conv_dw(feats, rows, g) -> torch.Tensor:
     weight gradient of ``gather_gemm_conv(feats, rows, w)`` under the
     output gradient ``g`` [K_out, Cout]. The sum over the rows runs in a
     fixed order (per-chunk partials, then their sum in chunk order), so
-    repeated calls give the same bits."""
+    repeated calls give the same bits. Under ``packed()`` kernel
+    ``conv_dw_bf16`` rounds both operands to bf16 on load, same sums."""
     dev = feats.device
     check_tensor('feats', feats, torch.float32, 2, dev)
     check_tensor('rows', rows, torch.int32, 2, dev)
@@ -408,48 +561,70 @@ def conv_dw(feats, rows, g) -> torch.Tensor:
     dw = torch.empty((ta, cin, cout), dtype=torch.float32, device=dev)
     partials = (torch.empty((n_chunks, ta, cin, cout), dtype=torch.float32,
                             device=dev) if n_chunks > 1 else None)
-    fn = kernels.entry_point('conv_dw')
+    name = 'conv_dw_bf16' if packed() else 'conv_dw'
+    fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check('conv_dw', fn(
+        kernels.check(name, fn(
             feats.data_ptr(), cin, rows.data_ptr(), k_out, ta, g.data_ptr(),
-            cout, tile, n_chunks, chunk_rows,
-            None if partials is None else partials.data_ptr(),
+            cout, tile, n_chunks, chunk_rows, _ptr(partials),
             dw.data_ptr(), stream))
-    kernels.launches['conv_dw'] += 1
+    kernels.launches[name] += 1
     return dw
 
 
 class MatchConv(torch.autograd.Function):
-    """``gather_gemm_conv(feats, plan.rows, weights)`` with the training
-    backward of the JAX package's ``match_conv`` custom VJP:
+    """The differentiable conv, with the training backward of the JAX
+    package's ``match_conv`` custom VJP. Rulebook engine (``in_keys``
+    None): ``gather_gemm_conv(feats, plan.rows, weights)``; one-hot engine:
+    ``match_conv(feats, in_keys, plan, weights)``. Backward:
 
-    - ``d_feats``: the same gather-GEMM kernel over the transpose plan's
-      rows with the weights tap-flipped and transposed (a submanifold plan
-      is its own transpose; a strided plan carries its ``dual``), only
-      when the features need a gradient;
-    - ``d_weights``: kernel ``conv_dw`` over the forward rows.
+    - ``d_feats``: the same conv kernel over the transpose plan with the
+      weights tap-flipped and transposed (a submanifold plan is its own
+      transpose; a strided plan carries its ``dual``, matched against
+      ``dual_keys``), only when the features need a gradient;
+    - ``d_weights``: kernel ``conv_dw`` over the forward rows; the one-hot
+      engine builds them here, one ``rows_affine``/``rows_queries`` launch
+      per conv, as the JAX package's ``_pallas_bwd`` does.
     """
 
     @staticmethod
-    def forward(ctx, feats, weights, plan: MatchPlan):
-        ctx.plan = plan
+    def forward(ctx, feats, weights, plan: MatchPlan, in_keys=None):
+        ctx.plan, ctx.in_keys = plan, in_keys
         ctx.save_for_backward(feats, weights)
+        if in_keys is not None:
+            return match_conv(feats, in_keys, plan, weights)
         return gather_gemm_conv(feats, plan.rows, weights)
 
     @staticmethod
     def backward(ctx, g):
         feats, weights = ctx.saved_tensors
-        plan = ctx.plan
+        plan, in_keys = ctx.plan, ctx.in_keys
         g = g.contiguous()
         d_feats = d_weights = None
         if ctx.needs_input_grad[0]:
-            d_feats = gather_gemm_conv(
-                g, dual_rows(plan), weights.flip(0).transpose(1, 2)
-                .contiguous())
+            w_t = weights.flip(0).transpose(1, 2).contiguous()
+            if in_keys is None:
+                d_feats = gather_gemm_conv(g, dual_rows(plan), w_t)
+            else:
+                dual, dual_keys = dual_plan(plan, in_keys)
+                d_feats = match_conv(g, dual_keys, dual, w_t)
         if ctx.needs_input_grad[1]:
-            d_weights = conv_dw(feats, plan.rows, g)
-        return d_feats, d_weights, None
+            rows = plan.rows if in_keys is None else plan_rows(in_keys, plan)
+            d_weights = conv_dw(feats, rows, g)
+        return d_feats, d_weights, None, None
+
+
+def dual_plan(plan: MatchPlan, in_keys):
+    """(transpose plan, the keys it is matched against): the plan itself
+    and ``in_keys`` for a submanifold plan with centre-symmetric taps, else
+    the attached ``dual`` and ``dual_keys``."""
+    if plan.self_transpose:
+        return plan, in_keys
+    if plan.dual is None or plan.dual_keys is None:
+        raise ValueError('a strided plan has no dual: build the conv in '
+                         'training mode')
+    return plan.dual, plan.dual_keys
 
 
 def dual_rows(plan: MatchPlan) -> torch.Tensor:
@@ -473,18 +648,27 @@ def apply_match_conv(st: SparseTensor, plan: MatchPlan, weights, out_coords,
     differentiable); a bias under an affine enters the shift pre-scaled:
     (conv + bias) * scale + shift. Without them the conv runs through
     ``MatchConv`` (differentiable) and a bias lands on the ``out_valid``
-    rows only.
+    rows only. Under ``conv_algo() == 'onehot'`` the conv matches the
+    plan's queries against ``st.keys`` itself (``match_conv``); otherwise
+    it runs over the plan's rulebook rows.
     """
-    if plan.rows is None:
+    onehot = conv_algo() == 'onehot'
+    if not onehot and plan.rows is None:
         raise ValueError('plan has no rows: call attach_rows first')
     if scale is not None or shift is not None or relu:
         if bias is not None:
             b_eff = bias * scale if scale is not None else bias
             shift = b_eff if shift is None else shift + b_eff
-        out = gather_gemm_conv(st.features, plan.rows, weights, scale=scale,
-                               shift=shift, relu=relu, out_valid=out_valid)
+        epilogue = dict(scale=scale, shift=shift, relu=relu,
+                        out_valid=out_valid)
+        if onehot:
+            out = match_conv(st.features, st.keys, plan, weights, **epilogue)
+        else:
+            out = gather_gemm_conv(st.features, plan.rows, weights,
+                                   **epilogue)
     else:
-        out = MatchConv.apply(st.features, weights, plan)
+        out = MatchConv.apply(st.features, weights, plan,
+                              st.keys if onehot else None)
         if bias is not None:
             out = torch.where(out_valid[:, None], out + bias, 0.0)
     return SparseTensor(features=out, coords=out_coords, valid=out_valid,
