@@ -57,7 +57,10 @@ Phases (any failure raises and ends the run with a non-zero exit):
    lie from phase 4's fp32 path (printed, not held); then phase 5's
    train step with every ``conv_dw_bf16`` and backward-conv call held to
    1e-4 of its sums, the twin, a counted step (launches 16/8/73/37/8/3)
-   and 3 timed steps;
+   and 3 timed steps. Every packed call must carry its plan's row order
+   (``matchconv.RowOrder``); its line prints the useful share (hits over
+   the row-taps or pairs the kernel stages) and its time over the fp32
+   kernel's on the same call in phase 4 or 5 (``fp32_ratio``);
 7. the one-hot engine (``MSMD_CONV_ALGO=onehot``): no rulebook rows, every
    conv matches its plan's queries in kernel ``match_conv``: the path
    below with every call held to its plain version, launches (37/8/3, no
@@ -65,7 +68,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
    forward and backward ``match_conv`` calls, the 37 ``rows_affine`` calls
    that build each conv's ``dw`` rows in the backward and ``conv_dw``
    against their plain versions, a counted step (launches 37/73/37/8/3)
-   and 2 timed steps.
+   and 2 timed steps. Last, the three engines' frames interleaved (one
+   of each per round, 6 rounds), the frame and its stage ``plans`` per
+   engine, so that a slow stretch of the host falls on all three.
 
 Batch norms are calibrated on each model's frame first
 (``utils/calibrate.py``: running statistics set to those of each norm's
@@ -98,7 +103,8 @@ the path's calls; the flagship's inference path for ``rows_affine``,
 train step for ``rows_queries`` and ``conv_dw`` (ms per step), phase 6's
 inference for ``gather_gemm_conv_bf16`` and train step for
 ``conv_dw_bf16``, phase 7's inference for ``match_conv``. The bf16
-kernels' bound takes the card's dense bf16 tensor rate. The last line is
+kernels' bound takes the card's dense bf16 tensor rate; their entries
+also carry ``useful_share`` and ``fp32_ratio``. The last line is
 ``{"ok": true, "device": {...}}``.
 
 Rehearse phases 4-7 on the CPU with the tiny flagship of
@@ -207,7 +213,7 @@ KERNEL_INFO = {
         route='cuda', source='msmdfusion_torch/csrc/gather_gemm_conv_bf16.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
     'conv_dw_bf16': dict(
-        route='cuda', source='msmdfusion_torch/csrc/conv_dw.cu',
+        route='cuda', source='msmdfusion_torch/csrc/conv_dw_bf16.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
     'match_conv': dict(
         route='cuda', source='msmdfusion_torch/csrc/match_conv.cu',
@@ -403,6 +409,23 @@ def rel_err(got, want):
     return err, err / max(scale, 1e-30)
 
 
+def rows_checked(name, i, got, want, masked):
+    """The rows kernel's output (rows, and their tap-hit masks where the
+    call asked for them: the packed engine's plans) against the plain
+    rows and their ``row_masks``; returns (rows, the masks' bytes)."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    got, masks = got if masked else (got, None)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f'{name} call {i}: {int((got != want).sum())} rows differ from '
+          'the plain version')
+    if masked:
+        check(torch.equal(masks, mc.row_masks(want)),
+              f'{name} call {i}: tap-hit masks differ from the rows\' ones')
+    return got, 0 if masks is None else masks.numel() * 8
+
+
 def rows_calls(calls, reps, card):
     """Kernel rows_affine vs its plain version and torch.searchsorted."""
     import torch
@@ -410,29 +433,35 @@ def rows_calls(calls, reps, card):
     out = []
     for i, (args, kwargs) in enumerate(calls):
         in_keys, okeys, dkey, inb = args
-        got = mc.rows_affine(*args, **kwargs)
-        want = mc.rows_affine_plain(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f'rows_affine call {i}: {int((got != want).sum())} rows differ '
-              'from the plain version')
+        masked = bool(kwargs.get('masks'))
+        got, mask_bytes = rows_checked(
+            'rows_affine', i, mc.rows_affine(*args, **kwargs),
+            mc.rows_affine_plain(*args), masked)
         q = okeys[:, None] + dkey[None, :]
         nbytes = (in_keys.numel() + okeys.numel() + dkey.numel()) * 4 + \
-            inb.numel() + got.numel() * 4
+            inb.numel() + got.numel() * 4 + mask_bytes
         rec = dict(
             k_in=in_keys.numel(), k_out=okeys.numel(), ta=dkey.numel(),
             hits=int((got >= 0).sum()), err=0.0,
-            ms=cuda_ms(lambda: mc.rows_affine(*args), reps),
-            plain_ms=cuda_ms(lambda: mc.rows_affine_plain(*args), reps),
+            ms=cuda_ms(lambda: mc.rows_affine(*args, **kwargs), reps),
+            plain_ms=cuda_ms(lambda: plain_rows(
+                mc.rows_affine_plain(*args), masked), reps),
             library_ms=cuda_ms(lambda: torch.searchsorted(in_keys, q), reps),
             bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=0.0)
         out.append(rec)
         print(f"rows_affine[{i}] K_in={rec['k_in']} K_out={rec['k_out']} "
-              f"Ta={rec['ta']} hits={rec['hits']} exact ms={rec['ms']:.4f} "
+              f"Ta={rec['ta']} hits={rec['hits']} "
+              f"{'with masks ' if masked else ''}exact ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
               f"searchsorted_ms={rec['library_ms']:.4f} "
               f"bound_ms={rec['bytes_ms']:.4f} [{card}]", flush=True)
     return out
+
+
+def plain_rows(rows, masked):
+    """The plain rows, with their ``row_masks`` where the call asked."""
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    return (rows, mc.row_masks(rows)) if masked else rows
 
 
 def rows_queries_calls(calls, reps, card):
@@ -442,25 +471,25 @@ def rows_queries_calls(calls, reps, card):
     out = []
     for i, (args, kwargs) in enumerate(calls):
         in_keys, queries, inb = args
-        got = mc.rows_queries(*args, **kwargs)
-        want = mc.rows_queries_plain(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f'rows_queries call {i}: {int((got != want).sum())} rows differ '
-              'from the plain version')
+        masked = bool(kwargs.get('masks'))
+        got, mask_bytes = rows_checked(
+            'rows_queries', i, mc.rows_queries(*args, **kwargs),
+            mc.rows_queries_plain(*args), masked)
         nbytes = (in_keys.numel() + queries.numel() + got.numel()) * 4 + \
-            inb.numel()
+            inb.numel() + mask_bytes
         rec = dict(
             k_in=in_keys.numel(), k_out=queries.shape[0],
             ta=queries.shape[1], hits=int((got >= 0).sum()), err=0.0,
-            ms=cuda_ms(lambda: mc.rows_queries(*args), reps),
-            plain_ms=cuda_ms(lambda: mc.rows_queries_plain(*args), reps),
+            ms=cuda_ms(lambda: mc.rows_queries(*args, **kwargs), reps),
+            plain_ms=cuda_ms(lambda: plain_rows(
+                mc.rows_queries_plain(*args), masked), reps),
             library_ms=cuda_ms(lambda: torch.searchsorted(in_keys, queries),
                                reps),
             bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=0.0)
         out.append(rec)
         print(f"rows_queries[{i}] K_in={rec['k_in']} K={rec['k_out']} "
-              f"Ta={rec['ta']} hits={rec['hits']} exact ms={rec['ms']:.4f} "
+              f"Ta={rec['ta']} hits={rec['hits']} "
+              f"{'with masks ' if masked else ''}exact ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
               f"searchsorted_ms={rec['library_ms']:.4f} "
               f"bound_ms={rec['bytes_ms']:.4f} [{card}]", flush=True)
@@ -485,10 +514,13 @@ def held_to_sums(name, got, want, magnitude):
         if diff.numel() else 0.0
 
 
-def dw_calls(calls, reps, card, plain_reps=3):
+def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
     """Kernel conv_dw (conv_dw_bf16 under the packed switch) vs its plain
     version per call: each element held to TOL of the magnitude of its sum
-    (the plain dw of |feats| and |g|); two calls give the same bits."""
+    (the plain dw of |feats| and |g|); two calls give the same bits. Under
+    the packed switch each call must carry its plan's row order, and
+    ``fp32`` (the fp32 kernel's records of the same calls) gives each
+    call's time ratio to it."""
     import torch
     from msmdfusion_torch.ops.sparse import matchconv as mc
     name = kernel_of('conv_dw')
@@ -498,6 +530,8 @@ def dw_calls(calls, reps, card, plain_reps=3):
         feats, rows, g = args
         k_out, ta = rows.shape
         cin, cout = feats.shape[1], g.shape[1]
+        check(not mc.packed() or kwargs.get('order') is not None,
+              f'{name} call {i}: the path gave it no row order')
         got = mc.conv_dw(*args, **kwargs)
         again = mc.conv_dw(*args, **kwargs)
         want = mc.conv_dw_plain(*args)
@@ -511,34 +545,77 @@ def dw_calls(calls, reps, card, plain_reps=3):
         rec = dict(
             cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
             hits=hits, err=err, rel=rel, elem=elem,
-            ms=cuda_ms(lambda: mc.conv_dw(*args), reps),
+            ms=cuda_ms(lambda: mc.conv_dw(*args, **kwargs), reps),
             plain_ms=cuda_ms(lambda: mc.conv_dw_plain(*args), plain_reps),
             library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
             ops_ms=2.0 * hits * cin * cout / peak * 1e3)
+        extra = ''
+        if mc.packed():
+            rec['staged'] = dw_staged_pairs(kwargs['order'], cin, cout)
+            extra += f"useful={hits / max(rec['staged'], 1):.3f} "
+        extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
         print(f"{name}[{i}] {cin}x{cout} K_in={rec['k_in']} K_out={k_out} "
               f"Ta={ta} hits={hits} deterministic max_abs_err={err:.3g} "
               f"({rel:.3g} of max |ref|) worst |err|/|sum| {elem:.3g} "
               f"(limit {TOL}) ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} [{card}]",
-              flush=True)
+              f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
+              f"{extra}[{card}]", flush=True)
     return out
 
 
-def conv_calls(calls, widths, reps, card, plain_reps=3, label=None):
+def conv_staged_row_taps(order, ta):
+    """Row-taps the packed conv multiplies: 16 rows for each tap of each
+    16-row slice's mask (the useful share is the hits over these)."""
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    m = order.slice_masks()
+    return mc.SLICE_ROWS * sum(int(((m >> t) & 1).sum()) for t in range(ta))
+
+
+def dw_staged_pairs(order, cin, cout):
+    """Pair slots conv_dw_bf16 stages: each chunk of each tap's pair
+    list in whole stages (the useful share is the hits over these)."""
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    tile, chunk, _ = mc.conv_dw_bf16_launch(order.tap_hits, cin, cout)
+    step = mc.dw_stage_pairs(tile)
+    return sum(n // chunk * chunk + -(-(n % chunk) // step) * step
+               for n in order.tap_hits)
+
+
+def same_call_ratio(rec, fp32, i):
+    """' fp32_ratio=x': this call's time over the fp32 kernel's on the
+    same call (``fp32``: that kernel's records, same shapes, in order)."""
+    if fp32 is None:
+        return ''
+    f = fp32[i]
+    check((f['cin'], f['cout'], f['k_out'], f['hits']) ==
+          (rec['cin'], rec['cout'], rec['k_out'], rec['hits']),
+          f'call {i}: the fp32 record is of another call')
+    rec['fp32_ms'] = f['ms']
+    return f"fp32_ms={f['ms']:.4f} fp32_ratio={rec['ms'] / f['ms']:.3f} "
+
+
+def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
+               fp32=None):
     """Each recorded conv call (``gather_gemm_conv``, which launches
     ``gather_gemm_conv_bf16`` under the packed switch, or ``match_conv``)
     against its plain version, with the recorded epilogue and without
     any. Each element is held to TOL of the magnitude of its own sum (the
     plain conv of |feats| and |weights|, through the epilogue's |scale| and
     |shift|), whatever its row's scale, and the whole output to TOL of its
-    largest |value|; every width in ``widths`` must occur."""
+    largest |value|; every width in ``widths`` must occur. Under the packed
+    switch each call must carry its plan's row order (it is not an
+    epilogue argument), and ``fp32`` (the fp32 kernel's records of the same
+    calls) gives each call's time ratio to it."""
+    import functools
     import torch
     from msmdfusion_torch.ops.sparse import matchconv as mc
     peak = PEAK_BF16 if mc.packed() else PEAK_FP32
     out = []
     for i, (args, kwargs) in enumerate(calls):
+        kwargs = dict(kwargs)
+        order = kwargs.pop('order', None)
         if len(args) == 4:                      # match_conv: no rulebook
             feats, in_keys, plan, weights = args
             conv, plain, name = mc.match_conv, mc.match_conv_plain, \
@@ -553,6 +630,10 @@ def conv_calls(calls, widths, reps, card, plain_reps=3, label=None):
             conv, plain = mc.gather_gemm_conv, mc.gather_gemm_conv_plain
             name = kernel_of('gather_gemm_conv')
             plan_bytes = 4 * rows.numel()
+            if mc.packed():
+                check(order is not None,
+                      f'{name} call {i}: the path gave it no row order')
+                conv = functools.partial(conv, order=order)
         label = label or name
         k_out, ta = rows.shape
         cin, cout = weights.shape[1], weights.shape[2]
@@ -602,6 +683,11 @@ def conv_calls(calls, widths, reps, card, plain_reps=3, label=None):
             library_ms=None,
             bytes_ms=nbytes / PEAK_BYTES * 1e3,
             ops_ms=2.0 * hits * cin * cout / peak * 1e3)
+        extra = ''
+        if order is not None:
+            rec['staged'] = conv_staged_row_taps(order, ta)
+            extra += f"useful={hits / max(rec['staged'], 1):.3f} "
+        extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
         print(f"{label}[{i}] {cin}->{cout} K_in={rec['k_in']} "
               f"K_out={k_out} Ta={ta} hits={hits} "
@@ -611,8 +697,8 @@ def conv_calls(calls, widths, reps, card, plain_reps=3, label=None):
               f"{median:.3g}) worst |err|/|sum| {rec['elem']:.3g} "
               f"(limit {TOL}) ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} [{card}]",
-              flush=True)
+              f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
+              f"{extra}[{card}]", flush=True)
     covered = {(r['cin'], r['cout']) for r in out}
     check(widths <= covered,
           f'widths not exercised: {sorted(widths - covered)}')
@@ -703,7 +789,21 @@ def kernel_summary(name, recs, launches):
         plain_ms=sum(r['plain_ms'] for r in recs),
         bound_ms=sum(max(r['bytes_ms'], r['ops_ms']) for r in recs),
         bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
-        library_ms=None if None in lib else sum(lib))
+        library_ms=None if None in lib else sum(lib), **packed_shares(recs))
+
+
+def packed_shares(recs):
+    """Of the packed kernels' records: hits over the row-taps or pairs
+    they stage (``useful_share``) and their time over the fp32 kernel's on
+    the same calls (``fp32_ratio``), where the records carry them."""
+    out = {}
+    if recs and all('staged' in r for r in recs):
+        out['useful_share'] = sum(r['hits'] for r in recs) / max(
+            sum(r['staged'] for r in recs), 1)
+    if recs and all('fp32_ms' in r for r in recs):
+        out['fp32_ratio'] = sum(r['ms'] for r in recs) / sum(
+            r['fp32_ms'] for r in recs)
+    return out
 
 
 class PinnedProposals:
@@ -889,8 +989,9 @@ def check_launches(label, launches, expected):
               f'times, expected {expected.get(name, 0)}')
 
 
-def drive(label, model, inputs, spec, card, reps):
-    """Run the path described in the module docstring on one model.
+def drive(label, model, inputs, spec, card, reps, fp32=None):
+    """Run the path described in the module docstring on one model
+    (``fp32``: {kernel: the fp32 kernel's records of the same calls}).
     Returns ({kernel: per-call records}, {kernel: launches})."""
     import torch
     from msmdfusion_torch import kernels
@@ -912,9 +1013,10 @@ def drive(label, model, inputs, spec, card, reps):
                                              reps['kernel'], card)
         for wrapper in ('gather_gemm_conv', 'match_conv'):
             if rec.calls[wrapper]:
-                recs[kernel_of(wrapper)] = conv_calls(
+                name = kernel_of(wrapper)
+                recs[name] = conv_calls(
                     rec.calls[wrapper], spec['widths'], reps['kernel'] // 2,
-                    card)
+                    card, fp32=(fp32 or {}).get(name))
         if rec.calls['masked_nn']:
             recs['masked_nn'] = nn_calls(rec.calls['masked_nn'],
                                          reps['kernel'], card)
@@ -944,6 +1046,9 @@ def drive(label, model, inputs, spec, card, reps):
     print(f'{label}: overflow_total 0; occupancy {occupancy}', flush=True)
     stage_ms = {k: round(v, 4) for k, v in tr.ms().items()}
     print(f'{label}: stage_ms {json.dumps(stage_ms)} [{card}]', flush=True)
+    host_ms = {k: round(v, 4) for k, v in tr.host_ms().items()}
+    print(f'{label}: stage ms by the host clock {json.dumps(host_ms)} '
+          f'[{card}]', flush=True)
 
     # the same forward on the plain versions (and with reordered sums),
     # decoding the kernel path's proposals: a near-tie at the top-k cut may
@@ -1210,10 +1315,10 @@ class PinnedRounding:
                 self._keep(feats)
                 return conv(feats, *a, **k)
 
-            def kept_dw(feats, rows, g):
+            def kept_dw(feats, rows, g, **k):
                 self._keep(feats)
                 self._keep(g)
-                return dw(feats, rows, g)
+                return dw(feats, rows, g, **k)
             mc.gather_gemm_conv, mc.conv_dw = kept_conv, kept_dw
         self._names = names
         return self
@@ -1303,10 +1408,11 @@ def compare_train(run, ref, alt):
 
 
 def drive_train(model, inputs, gt, card, spec=TRAIN,
-                label='MSMDFusion train'):
+                label='MSMDFusion train', fp32=None):
     """Phase 5 (see the module docstring) on the calibrated flagship, with
     the launches, timed steps and checks of ``spec`` (phases 6 and 7 skip
     the twin or the extras: free ReLUs, cuDNN on and off, the profile).
+    ``fp32``: {kernel: the fp32 kernel's records of the same calls}.
     Returns ({kernel: per-call records}, {kernel: launches of one step})."""
     import torch
     from msmdfusion_torch import kernels
@@ -1363,7 +1469,9 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
         if rec.calls_in('rows_affine', 'backward'):
             recs['rows_affine_bwd'] = rows_calls(
                 rec.calls_in('rows_affine', 'backward'), 5, card)
-        recs[kernel_of('conv_dw')] = dw_calls(rec.calls['conv_dw'], 5, card)
+        fp32 = fp32 or {}
+        recs[kernel_of('conv_dw')] = dw_calls(
+            rec.calls['conv_dw'], 5, card, fp32=fp32.get(kernel_of('conv_dw')))
         # the backward's convs (d_feats); the one-hot forward's too
         for wrapper, phase in (('gather_gemm_conv', 'backward'),
                                ('match_conv', 'forward'),
@@ -1372,14 +1480,16 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
             if calls:
                 name = kernel_of(wrapper) + ('_bwd' if phase == 'backward'
                                              else '_fwd')
-                recs[name] = conv_calls(calls, set(), 5, card, label=name)
+                recs[name] = conv_calls(calls, set(), 5, card, label=name,
+                                        fp32=fp32.get(name))
     del rec
     for name, rs in recs.items():
+        extra = ''.join(f'{k}={v:.3f} ' for k, v in packed_shares(rs).items())
         print(f'{label}: {name} sums over one step: '
               f'{len(rs)} calls, ms={sum(r["ms"] for r in rs):.3f} '
               f'plain_ms={sum(r["plain_ms"] for r in rs):.3f} bound_ms='
               f'{sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs):.3f} '
-              f'[{card}]', flush=True)
+              f'{extra}[{card}]', flush=True)
 
     if spec['twin']:
         # the same step on the plain versions (and with reordered sums), on
@@ -1560,6 +1670,12 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
 
     # 5. the MSMDFusion train step
     phases.append(drive_train(model, inputs, gt, card))
+    # the fp32 kernels' records of the calls the packed ones make again
+    same_calls = dict(
+        inference={'gather_gemm_conv_bf16': phases[0][0]['gather_gemm_conv']},
+        train={'conv_dw_bf16': phases[1][0]['conv_dw'],
+               'gather_gemm_conv_bf16_bwd':
+                   phases[1][0]['gather_gemm_conv_bwd']})
 
     # 6. the packed bf16 engine, 7. the one-hot engine: the calibrated
     # model again, the switch set around the phase only
@@ -1568,13 +1684,82 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
         model.eval()
         with switches(spec['env']):
             print(f'MSMDFusion {name}: {spec["env"]}', flush=True)
+            ratios = same_calls if spec is packed else {}
             phases.append(drive(f'MSMDFusion {name}', model, inputs, spec,
-                                card, reps=dict(kernel=4, frame=5)))
+                                card, reps=dict(kernel=4, frame=5),
+                                fp32=ratios.get('inference')))
             if spec is packed:
                 packed_vs_fp32(model, inputs, fp32)
             phases.append(drive_train(model, inputs, gt, card, spec['train'],
-                                      label=f'MSMDFusion {name} train'))
+                                      label=f'MSMDFusion {name} train',
+                                      fp32=ratios.get('train')))
+    model.load_state_dict(calibrated)
+    model.eval()
+    engines_interleaved(model, inputs, card, (
+        ('fp32', {}), ('packed bf16', packed['env']),
+        ('one-hot', onehot['env'])))
     return phases
+
+
+def engines_interleaved(model, inputs, card, engines, rounds=6):
+    """The conv engines' frames interleaved, one frame of each (name, env)
+    per round after a warm-up round, so that the host's drift over the
+    call falls on all of them alike (the frame is host-bound): per engine
+    the median, least and most ms of the frame (CUDA events around the
+    forward, its sections recording) and of its stage ``plans`` by CUDA
+    events and by the host's clock, and the medians' ratio to the first
+    engine's. Before the rounds, one forward of each engine counts the
+    host's synchronisations with the device (PyTorch's sync debug mode)
+    and prints the sites that made most of them."""
+    import collections
+    import statistics
+    import warnings
+    import torch
+    from msmdfusion_torch.utils import timing
+    with torch.no_grad():
+        for name, env in engines:
+            with switches(env), warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    forward(model, inputs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            sites = collections.Counter(
+                f'{w.filename.rsplit("/", 2)[-1]}:{w.lineno}' for w in got
+                if 'synchroniz' in str(w.message))
+            print(f'MSMDFusion engines interleaved: {name} synchronises '
+                  f'{sum(sites.values())} times a frame; most at '
+                  f'{sites.most_common(6)} [{card}]', flush=True)
+    frames = {name: [] for name, _ in engines}
+    plans = {name: [] for name, _ in engines}
+    plans_host = {name: [] for name, _ in engines}
+    with torch.no_grad():
+        for r in range(rounds + 1):
+            for name, env in engines:
+                with switches(env):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    with timing.record('cuda') as tr:
+                        start.record()
+                        forward(model, inputs)
+                        end.record()
+                    stages = tr.ms()
+                if r:
+                    frames[name].append(start.elapsed_time(end))
+                    plans[name].append(stages.get('plans', 0.0))
+                    plans_host[name].append(tr.host_ms().get('plans', 0.0))
+    base = statistics.median(frames[engines[0][0]])
+    for name, _ in engines:
+        f, p, h = frames[name], plans[name], plans_host[name]
+        print(f'MSMDFusion engines interleaved, {rounds} frames each: {name} '
+              f'{statistics.median(f):.3f} ms/frame median (min {min(f):.3f}, '
+              f'max {max(f):.3f}; {statistics.median(f) / base:.3f} of '
+              f'{engines[0][0]}), stage plans {statistics.median(p):.3f} ms '
+              f'median (min {min(p):.3f}, max {max(p):.3f}), host clock '
+              f'{statistics.median(h):.3f} median (min {min(h):.3f}, max '
+              f'{max(h):.3f}) [{card}]', flush=True)
 
 
 def main():

@@ -17,21 +17,14 @@
 // of the block hits is skipped by a block-wide vote. The per-chunk
 // partials [n_chunks, Ta, Cin, Cout] are then summed in chunk order by a
 // second kernel: no float atomics, so the result is the same on every run.
-// With one chunk the first kernel writes dw itself.
-//
-// msmd_conv_dw_bf16 is the same kernel for the packed mode of the TPU
-// kernel (MSMD_CONV_DTYPE=bfloat16), whose with_dw accumulator contracted
-// bf16 gradient rows with bf16 input features in fp32: each operand is
-// rounded to bf16 (__float2bfloat16_rn) as it is staged, and the products
-// (exact in fp32) are summed in fp32 in the same fixed order.
+// With one chunk the first kernel writes dw itself. (The packed bf16
+// mode's weight gradient is conv_dw_bf16.cu.)
 //
 // Bound on the card: 2 * hits * Cin * Cout FLOP against (K_in * Cin +
 // K_out * Ta + K_out * Cout + Ta * Cin * Cout) * 4 bytes, the same
 // operations as the forward conv: the narrow convs are bound by bytes, the
-// wide ones (Cin, Cout >= 64) by fp32 operations (the bf16 mode runs the
-// same FFMA: bound by the fp32 rate, not by the tensor cores').
+// wide ones (Cin, Cout >= 64) by fp32 operations.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,17 +32,7 @@ namespace {
 
 constexpr int BK = 32;
 
-// an operand as it is staged: itself, or rounded to bf16
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-template <int BM, int BN, int TM, int TN, bool BF16>
+template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 conv_dw_kernel(const float* __restrict__ feats, int cin,
                const int32_t* __restrict__ rows, int k_out, int ta,
@@ -91,16 +74,14 @@ conv_dw_kernel(const float* __restrict__ feats, int cin,
       int m = e - k * BM;
       int row = s_rows[k];
       As[k][m] = (row >= 0 && m0 + m < cin)
-                     ? operand<BF16>(
-                           __ldg(feats + (int64_t)row * cin + m0 + m))
+                     ? __ldg(feats + (int64_t)row * cin + m0 + m)
                      : 0.f;
     }
     for (int e = tid; e < BK * BN; e += NT) {
       int k = e / BN;
       int n = e - k * BN;
       Bs[k][n] = (s_rows[k] >= 0 && n0 + n < cout)
-                     ? operand<BF16>(
-                           __ldg(g + (int64_t)(o0 + k) * cout + n0 + n))
+                     ? __ldg(g + (int64_t)(o0 + k) * cout + n0 + n)
                      : 0.f;
     }
     __syncthreads();
@@ -144,19 +125,18 @@ __global__ void conv_dw_reduce_kernel(const float* __restrict__ partials,
   dw[e] = s;
 }
 
-template <int BM, int BN, int TM, int TN, bool BF16>
+template <int BM, int BN, int TM, int TN>
 void launch(const float* feats, int cin, const int32_t* rows, int k_out,
             int ta, const float* g, int cout, int n_chunks, int chunk_rows,
             float* out, cudaStream_t stream) {
   dim3 grid(n_chunks * ta, (cin + BM - 1) / BM, (cout + BN - 1) / BN);
   dim3 block((BM / TM) * (BN / TN));
-  conv_dw_kernel<BM, BN, TM, TN, BF16><<<grid, block, 0, stream>>>(
+  conv_dw_kernel<BM, BN, TM, TN><<<grid, block, 0, stream>>>(
       feats, cin, rows, k_out, ta, g, cout, chunk_rows, out);
 }
 
 // tile: the (Cin, Cout) tile edge, 16, 32 or 64 (the wrapper's choice);
 // partials: [n_chunks, Ta, Cin, Cout] scratch, unused when n_chunks is 1.
-template <bool BF16>
 int conv_dw(const void* feats, int cin, const void* rows, int k_out, int ta,
             const void* g, int cout, int tile, int n_chunks, int chunk_rows,
             void* partials, void* dw, void* stream) {
@@ -177,16 +157,16 @@ int conv_dw(const void* feats, int cin, const void* rows, int k_out, int ta,
   }
   switch (tile) {
     case 16:
-      launch<16, 16, 1, 1, BF16>(f, cin, rw, k_out, ta, gg, cout, n_chunks,
-                                 chunk_rows, out, s);
+      launch<16, 16, 1, 1>(f, cin, rw, k_out, ta, gg, cout, n_chunks,
+                           chunk_rows, out, s);
       break;
     case 32:
-      launch<32, 32, 2, 2, BF16>(f, cin, rw, k_out, ta, gg, cout, n_chunks,
-                                 chunk_rows, out, s);
+      launch<32, 32, 2, 2>(f, cin, rw, k_out, ta, gg, cout, n_chunks,
+                           chunk_rows, out, s);
       break;
     case 64:
-      launch<64, 64, 4, 4, BF16>(f, cin, rw, k_out, ta, gg, cout, n_chunks,
-                                 chunk_rows, out, s);
+      launch<64, 64, 4, 4>(f, cin, rw, k_out, ta, gg, cout, n_chunks,
+                           chunk_rows, out, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -206,14 +186,6 @@ extern "C" int msmd_conv_dw(const void* feats, int cin, const void* rows,
                             int k_out, int ta, const void* g, int cout,
                             int tile, int n_chunks, int chunk_rows,
                             void* partials, void* dw, void* stream) {
-  return conv_dw<false>(feats, cin, rows, k_out, ta, g, cout, tile,
-                        n_chunks, chunk_rows, partials, dw, stream);
-}
-
-extern "C" int msmd_conv_dw_bf16(const void* feats, int cin, const void* rows,
-                                 int k_out, int ta, const void* g, int cout,
-                                 int tile, int n_chunks, int chunk_rows,
-                                 void* partials, void* dw, void* stream) {
-  return conv_dw<true>(feats, cin, rows, k_out, ta, g, cout, tile, n_chunks,
-                       chunk_rows, partials, dw, stream);
+  return conv_dw(feats, cin, rows, k_out, ta, g, cout, tile, n_chunks,
+                 chunk_rows, partials, dw, stream);
 }

@@ -26,6 +26,13 @@
 // least traffic is reading inb and the queries once and writing rows once.
 // Taps of one row are neighbouring threads, so their searches share their
 // first steps in cache.
+//
+// Optionally (masks not null, Ta <= 62) each entry point also writes each
+// row's tap-hit mask, bit t set where rows[r, t] >= 0: the key by which
+// the packed bf16 kernels' row order sorts the rows. The mask is zeroed on
+// the stream and every hit ORs its bit in (atomicOr: the result does not
+// depend on the order), so the order costs the plan no launch of its own
+// beyond the sort.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +47,8 @@ __global__ void rows_affine_kernel(const int32_t* __restrict__ in_keys,
                                    int k_out,
                                    const int32_t* __restrict__ dkey, int ta,
                                    const uint8_t* __restrict__ inb,
-                                   int32_t* __restrict__ rows) {
+                                   int32_t* __restrict__ rows,
+                                   unsigned long long* __restrict__ masks) {
   int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int64_t total = (int64_t)k_out * ta;
   if (idx >= total) return;
@@ -54,20 +62,27 @@ __global__ void rows_affine_kernel(const int32_t* __restrict__ in_keys,
     result = find_key(in_keys, k_in, q);
   }
   rows[idx] = result;
+  if (masks != nullptr && result >= 0) atomicOr(masks + r, 1ull << t);
 }
 
 __global__ void rows_queries_kernel(const int32_t* __restrict__ in_keys,
                                     int k_in,
                                     const int32_t* __restrict__ queries,
-                                    int64_t total,
+                                    int64_t total, int ta,
                                     const uint8_t* __restrict__ inb,
-                                    int32_t* __restrict__ rows) {
+                                    int32_t* __restrict__ rows,
+                                    unsigned long long* __restrict__ masks) {
   int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   int32_t q = __ldg(queries + idx);
-  rows[idx] = (q != INT_MAX_KEY && __ldg(inb + idx))
-                  ? find_key(in_keys, k_in, q)
-                  : -1;
+  int32_t result = (q != INT_MAX_KEY && __ldg(inb + idx))
+                       ? find_key(in_keys, k_in, q)
+                       : -1;
+  rows[idx] = result;
+  if (masks != nullptr && result >= 0) {
+    int64_t r = idx / ta;
+    atomicOr(masks + r, 1ull << (int)(idx - r * ta));
+  }
 }
 
 constexpr int kThreads = 256;
@@ -77,28 +92,34 @@ constexpr int kThreads = 256;
 extern "C" int msmd_rows_affine(const void* in_keys, int k_in,
                                 const void* okeys, int k_out,
                                 const void* dkey, int ta, const void* inb,
-                                void* rows, void* stream) {
+                                void* rows, void* masks, void* stream) {
   int64_t total = (int64_t)k_out * ta;
+  if (masks != nullptr && k_out > 0)
+    cudaMemsetAsync(masks, 0, (size_t)k_out * 8, (cudaStream_t)stream);
   if (total > 0) {
     int64_t blocks = (total + kThreads - 1) / kThreads;
     rows_affine_kernel<<<(unsigned)blocks, kThreads, 0,
                          (cudaStream_t)stream>>>(
         (const int32_t*)in_keys, k_in, (const int32_t*)okeys, k_out,
-        (const int32_t*)dkey, ta, (const uint8_t*)inb, (int32_t*)rows);
+        (const int32_t*)dkey, ta, (const uint8_t*)inb, (int32_t*)rows,
+        (unsigned long long*)masks);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int msmd_rows_queries(const void* in_keys, int k_in,
                                  const void* queries, int k_rows, int ta,
-                                 const void* inb, void* rows, void* stream) {
+                                 const void* inb, void* rows, void* masks,
+                                 void* stream) {
   int64_t total = (int64_t)k_rows * ta;
+  if (masks != nullptr && k_rows > 0)
+    cudaMemsetAsync(masks, 0, (size_t)k_rows * 8, (cudaStream_t)stream);
   if (total > 0) {
     int64_t blocks = (total + kThreads - 1) / kThreads;
     rows_queries_kernel<<<(unsigned)blocks, kThreads, 0,
                           (cudaStream_t)stream>>>(
-        (const int32_t*)in_keys, k_in, (const int32_t*)queries, total,
-        (const uint8_t*)inb, (int32_t*)rows);
+        (const int32_t*)in_keys, k_in, (const int32_t*)queries, total, ta,
+        (const uint8_t*)inb, (int32_t*)rows, (unsigned long long*)masks);
   }
   return (int)cudaGetLastError();
 }

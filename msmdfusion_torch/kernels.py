@@ -35,20 +35,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem, C entry point and argument types of each kernel
 ENTRY_POINTS = {
     'rows_affine': ('rows_affine', 'msmd_rows_affine',
-                    (_P, _I, _P, _I, _P, _I, _P, _P, _P)),
+                    (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P)),
     'rows_queries': ('rows_affine', 'msmd_rows_queries',
-                     (_P, _I, _P, _I, _I, _P, _P, _P)),
+                     (_P, _I, _P, _I, _I, _P, _P, _P, _P)),
     'gather_gemm_conv': ('gather_gemm_conv', 'msmd_gather_gemm_conv',
                          (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
                           _P)),
     'gather_gemm_conv_bf16': ('gather_gemm_conv_bf16',
                               'msmd_gather_gemm_conv_bf16',
-                              (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P,
-                               _P, _P)),
+                              (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                               _I, _P, _P, _I, _P, _P, _P)),
     'conv_dw': ('conv_dw', 'msmd_conv_dw',
                 (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P)),
-    'conv_dw_bf16': ('conv_dw', 'msmd_conv_dw_bf16',
-                     (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P)),
+    'conv_dw_bf16': ('conv_dw_bf16', 'msmd_conv_dw_bf16',
+                     (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                      _P)),
     'match_conv': ('match_conv', 'msmd_match_conv',
                    (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
                     _I, _P, _P, _P)),

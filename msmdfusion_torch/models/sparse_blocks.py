@@ -12,7 +12,10 @@ ReLU) folded into its epilogue. In training mode the conv runs through
 the differentiable ``MatchConv`` with no epilogue, then a masked batch
 norm on the batch's valid rows and a masked ReLU; a strided conv also
 builds its transpose ("dual") plan (and its rows) once per
-``indice_key``, for the backward.
+``indice_key``, for the backward. Under ``MSMD_CONV_DTYPE=bfloat16``
+``attach_rows(..., order=True)`` also caches the ``RowOrder`` of each
+plan's rows (and its dual's) for the packed kernels, inside stage
+``plans``; in training mode with the weight gradient's pair lists.
 
 Weights keep spconv's ``[O, kz, ky, kx, I]`` layout and the reference
 parameter names; the conv reads them as ``[Ta, I, O]`` taps, z-major and
@@ -31,7 +34,7 @@ from ..ops.sparse.conv import downsample_out_coords, triple
 from ..ops.sparse.matchconv import (apply_match_conv, attach_rows,
                                     build_downsample_plan,
                                     build_dual_down_plan, build_subm_plan,
-                                    conv_algo)
+                                    conv_algo, packed)
 from ..ops.sparse.tensor import SparseTensor
 from ..utils.timing import section
 from .layers import MaskedBatchNorm
@@ -73,7 +76,8 @@ class SubMConv3d(_SparseConvBase):
             with section('plans'):
                 plan = build_subm_plan(st, self.kernel_size)
                 if conv_algo() == 'vgather':
-                    plan = attach_rows(st.keys, plan, site=self.indice_key)
+                    plan = attach_rows(st.keys, plan, site=self.indice_key,
+                                       order=packed(), pairs=self.training)
             cache[key] = plan
         with section('convs'):
             out = apply_match_conv(st, plan, self.taps(), st.coords,
@@ -112,14 +116,16 @@ class SparseConv3d(_SparseConvBase):
                     self.padding)
                 with_rows = conv_algo() == 'vgather'
                 if with_rows:
-                    plan = attach_rows(st.keys, plan, site=self.indice_key)
+                    plan = attach_rows(st.keys, plan, site=self.indice_key,
+                                       order=packed(), pairs=self.training)
                 if self.training:
                     dual = build_dual_down_plan(
                         st, out_shape, self.kernel_size, self.stride,
                         self.padding)
                     if with_rows:
                         dual = attach_rows(out_keys, dual,
-                                           site=self.indice_key + '_dual')
+                                           site=self.indice_key + '_dual',
+                                           order=packed())
                     plan = dataclasses.replace(plan, dual=dual,
                                                dual_keys=out_keys)
             entry = (out_keys, out_coords, out_valid, out_shape, plan)

@@ -33,14 +33,19 @@ Hand-written CUDA kernels carry these paths (``csrc/``):
 - ``rows_affine``: the rulebook rows of affine plans, replacing
   ``_win_rows_kernel``;
 - ``rows_queries``: the rows of explicit-query plans, replacing
-  ``_rows_kernel``;
+  ``_rows_kernel``; for the packed engine's plans either also writes
+  each row's tap-hit mask, the key of the packed kernels' row order;
 - ``gather_gemm_conv``: the conv with its fused BN/ReLU/mask epilogue,
   replacing ``_vgather_kernel`` (forward, fp32); the training backward
   runs it again over the dual rows for the input gradient;
 - ``gather_gemm_conv_bf16``: the same conv on bf16 tensor cores,
-  replacing ``_vgather_kernel``'s packed mode;
+  replacing ``_vgather_kernel``'s packed mode; it walks the rows in the
+  plan's ``RowOrder`` (rows sorted by tap-hit mask; each 16-row slice
+  stages the OR of its masks), built by ``attach_rows`` beside the rows
+  for the sparse conv layers under ``packed()`` only;
 - ``conv_dw`` and ``conv_dw_bf16``: the weight gradient, replacing
-  ``_vgather_kernel``'s ``with_dw`` accumulator (fp32 and packed);
+  ``_vgather_kernel``'s ``with_dw`` accumulator (fp32 and packed; the
+  packed one walks the ``RowOrder``'s per-tap hit pairs);
 - ``match_conv``: the one-hot engine's conv, search and product fused,
   replacing ``_match_kernel``.
 
@@ -113,6 +118,8 @@ class MatchPlan:
     dkey: Optional[torch.Tensor] = None    # [Ta] int32 key offset per tap
     queries: Optional[torch.Tensor] = None  # [K_out, Ta] int32
     rows: Optional[torch.Tensor] = None   # [K_out, Ta] int32, -1 = miss
+    # the packed kernels' walk of ``rows`` (``row_order``; packed only)
+    order: Optional['RowOrder'] = None
     # centre-symmetric taps (dkey[Ta-1-t] == -dkey[t]): the plan is its own
     # transpose, with tap u <-> Ta-1-u
     self_transpose: bool = False
@@ -261,10 +268,41 @@ def rows_affine_plain(in_keys, okeys, dkey, inb) -> torch.Tensor:
     return torch.where(hit, pos, -1).to(torch.int32)
 
 
-def rows_affine(in_keys, okeys, dkey, inb) -> torch.Tensor:
+MASK_TAPS = 62      # taps a row's int64 mask holds with its sign bit clear
+
+
+def row_masks(rows) -> torch.Tensor:
+    """[K] int64: each row's tap-hit mask, bit t set where ``rows[r, t] >=
+    0`` (Ta <= 62): what the rows kernels write beside the rows when asked,
+    and the key of ``row_order``'s sort."""
+    ta = rows.shape[1]
+    if ta > MASK_TAPS:
+        raise ValueError(f'{ta} taps: at most {MASK_TAPS} fit the mask')
+    return ((rows >= 0).to(torch.int64)
+            << torch.arange(ta, device=rows.device)).sum(1)
+
+
+def _rows_launch(name, dev, k, ta, masks, *args):
+    """Launch rows kernel ``name`` (``args`` before its outputs); returns
+    rows [k, ta], and their ``row_masks`` from the same launch where
+    ``masks``."""
+    if masks and ta > MASK_TAPS:
+        raise ValueError(f'{ta} taps: at most {MASK_TAPS} fit the mask')
+    fn = kernels.entry_point(name)
+    rows = torch.empty((k, ta), dtype=torch.int32, device=dev)
+    m = torch.empty(k, dtype=torch.int64, device=dev) if masks else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernels.check(name, fn(*args, rows.data_ptr(), _ptr(m), stream))
+    kernels.launches[name] += 1
+    return (rows, m) if masks else rows
+
+
+def rows_affine(in_keys, okeys, dkey, inb, masks: bool = False):
     """rows [K_out, Ta] int32: the row i with ``in_keys[i] == okeys[r] +
     dkey[t]`` where ``inb[r, t]`` holds and ``okeys[r] != INT_MAX``, else
-    -1. ``in_keys`` [K_in] int32 ascending with an INT_MAX tail."""
+    -1. ``in_keys`` [K_in] int32 ascending with an INT_MAX tail. With
+    ``masks``, (rows, ``row_masks(rows)``), both from the one launch."""
     dev = in_keys.device
     check_tensor('in_keys', in_keys, torch.int32, 1, dev)
     check_tensor('okeys', okeys, torch.int32, 1, dev)
@@ -275,16 +313,12 @@ def rows_affine(in_keys, okeys, dkey, inb) -> torch.Tensor:
         raise ValueError(f'shape mismatch: okeys {tuple(okeys.shape)}, '
                          f'dkey {tuple(dkey.shape)}, inb {tuple(inb.shape)}')
     if not kernels.use_kernel(in_keys):
-        return rows_affine_plain(in_keys, okeys, dkey, inb)
-    fn = kernels.entry_point('rows_affine')
-    rows = torch.empty((k_out, ta), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check('rows_affine', fn(
-            in_keys.data_ptr(), in_keys.shape[0], okeys.data_ptr(), k_out,
-            dkey.data_ptr(), ta, inb.data_ptr(), rows.data_ptr(), stream))
-    kernels.launches['rows_affine'] += 1
-    return rows
+        rows = rows_affine_plain(in_keys, okeys, dkey, inb)
+        return (rows, row_masks(rows)) if masks else rows
+    return _rows_launch('rows_affine', dev, k_out, ta, masks,
+                        in_keys.data_ptr(), in_keys.shape[0],
+                        okeys.data_ptr(), k_out, dkey.data_ptr(), ta,
+                        inb.data_ptr())
 
 
 def rows_queries_plain(in_keys, queries, inb) -> torch.Tensor:
@@ -296,10 +330,11 @@ def rows_queries_plain(in_keys, queries, inb) -> torch.Tensor:
     return torch.where(hit, pos, -1).to(torch.int32)
 
 
-def rows_queries(in_keys, queries, inb) -> torch.Tensor:
+def rows_queries(in_keys, queries, inb, masks: bool = False):
     """rows [K, Ta] int32: the row i with ``in_keys[i] == queries[r, t]``
     where ``inb[r, t]`` holds and the query is not INT_MAX, else -1.
-    ``in_keys`` [K_in] int32 ascending with an INT_MAX tail."""
+    ``in_keys`` [K_in] int32 ascending with an INT_MAX tail. With
+    ``masks``, (rows, ``row_masks(rows)``), both from the one launch."""
     dev = in_keys.device
     check_tensor('in_keys', in_keys, torch.int32, 1, dev)
     check_tensor('queries', queries, torch.int32, 2, dev)
@@ -308,25 +343,22 @@ def rows_queries(in_keys, queries, inb) -> torch.Tensor:
         raise ValueError(f'shape mismatch: queries {tuple(queries.shape)}, '
                          f'inb {tuple(inb.shape)}')
     if not kernels.use_kernel(in_keys):
-        return rows_queries_plain(in_keys, queries, inb)
+        rows = rows_queries_plain(in_keys, queries, inb)
+        return (rows, row_masks(rows)) if masks else rows
     k, ta = queries.shape
-    fn = kernels.entry_point('rows_queries')
-    rows = torch.empty((k, ta), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check('rows_queries', fn(
-            in_keys.data_ptr(), in_keys.shape[0], queries.data_ptr(), k, ta,
-            inb.data_ptr(), rows.data_ptr(), stream))
-    kernels.launches['rows_queries'] += 1
-    return rows
+    return _rows_launch('rows_queries', dev, k, ta, masks,
+                        in_keys.data_ptr(), in_keys.shape[0],
+                        queries.data_ptr(), k, ta, inb.data_ptr())
 
 
-def plan_rows(in_keys, plan: MatchPlan) -> torch.Tensor:
+def plan_rows(in_keys, plan: MatchPlan, masks: bool = False):
     """The plan's rulebook rows: kernel ``rows_affine`` for an affine plan,
-    ``rows_queries`` for explicit queries."""
+    ``rows_queries`` for explicit queries (with ``masks``, rows and their
+    ``row_masks``)."""
     if plan.queries is not None:
-        return rows_queries(in_keys, plan.queries, plan.inb)
-    return rows_affine(in_keys, plan.okeys, plan.dkey, plan.inb)
+        return rows_queries(in_keys, plan.queries, plan.inb, masks=masks)
+    return rows_affine(in_keys, plan.okeys, plan.dkey, plan.inb,
+                       masks=masks)
 
 
 def plan_rows_plain(in_keys, plan: MatchPlan) -> torch.Tensor:
@@ -336,15 +368,87 @@ def plan_rows_plain(in_keys, plan: MatchPlan) -> torch.Tensor:
     return rows_affine_plain(in_keys, plan.okeys, plan.dkey, plan.inb)
 
 
-def attach_rows(in_keys, plan: MatchPlan, site: str = '') -> MatchPlan:
-    """The plan with its rulebook rows (once per indice_key)."""
-    rows = plan_rows(in_keys, plan)
+def attach_rows(in_keys, plan: MatchPlan, site: str = '',
+                order: bool = False, pairs: bool = False) -> MatchPlan:
+    """The plan with its rulebook rows (once per indice_key); with
+    ``order`` (the packed engine's plans) also with the packed kernels'
+    ``row_order`` of them, sorted by the masks the rows kernel writes in
+    the same launch (with the weight gradient's pair lists where
+    ``pairs``: a training plan's forward rows, not a dual's, which only the
+    input gradient's conv reads)."""
+    if order:
+        rows, masks = plan_rows(in_keys, plan, masks=True)
+        walk = row_order(rows, pairs, masks)
+    else:
+        rows, walk = plan_rows(in_keys, plan), None
     # the TPU kernels' slab and column-window sites: a binary search has
     # neither window, so nothing is ever dropped there
     tag = f'[{site}]' if site else ''
     overflow.record('matchconv.rows_slab', 0)
     overflow.record(f'matchconv.col_w{tag}', 0)
-    return dataclasses.replace(plan, rows=rows)
+    return dataclasses.replace(plan, rows=rows, order=walk)
+
+
+SLICE_ROWS = 16     # rows of one mma.sync tile: the packed conv's skip unit
+
+
+@dataclasses.dataclass(frozen=True)
+class RowOrder:
+    """How the packed bf16 kernels walk a rulebook ``rows [K, Ta]``.
+
+    ``perm[s]`` is the row at sorted position ``s``: the rows stably
+    sorted by their tap-hit mask (bit t set where ``rows[r, t] >= 0``), so
+    that rows hitting the same taps sit together; ``masks[s]`` is that
+    row's mask. A 16-row slice of the conv stages and multiplies the taps
+    of the OR of its rows' masks (``slice_masks()``; the kernel ORs them
+    itself). The weight gradient's per-tap pair lists, where built: tap
+    t's pairs are ``pair_in[p], pair_out[p]`` for ``p`` in ``tap_start[t]
+    .. tap_start[t + 1]`` (the input row ``rows[o, t]`` and the output row
+    ``o``, ``o`` ascending); ``tap_hits`` their counts on the host. The
+    sort and the masks need no host synchronisation; the pair lists do.
+    """
+    perm: torch.Tensor                          # [K] int64
+    masks: torch.Tensor                         # [K] int64, ascending
+    pair_in: Optional[torch.Tensor] = None      # [hits] int32
+    pair_out: Optional[torch.Tensor] = None     # [hits] int32
+    tap_start: Optional[torch.Tensor] = None    # [Ta + 1] int32
+    tap_hits: Optional[tuple] = None            # Ta ints
+
+    def slice_masks(self) -> torch.Tensor:
+        """[ceil(K / 16)] int64: the OR of each 16-row slice's masks."""
+        sliced = torch.nn.functional.pad(
+            self.masks, (0, -self.masks.shape[0] % SLICE_ROWS))
+        sliced = sliced.view(-1, SLICE_ROWS)
+        while sliced.shape[1] > 1:
+            half = sliced.shape[1] // 2
+            sliced = sliced[:, :half] | sliced[:, half:]
+        return sliced.reshape(-1)
+
+
+def row_order(rows, pairs: bool = True, masks=None) -> RowOrder:
+    """The ``RowOrder`` of rulebook ``rows [K, Ta]`` (Ta <= 62), with the
+    pair lists where ``pairs``: plan building, plain PyTorch. ``masks``:
+    the rows' ``row_masks``, which the rows kernel writes beside them
+    (computed here where not given); then the order is one stable sort,
+    and the pairs one ``nonzero`` and the counts' copy to the host."""
+    if masks is None:
+        masks = row_masks(rows)
+    ta = rows.shape[1]
+    if masks.shape != rows.shape[:1]:
+        raise ValueError(f'{tuple(masks.shape)} masks for rows '
+                         f'{tuple(rows.shape)}')
+    masks, perm = torch.sort(masks, stable=True)
+    order = RowOrder(perm=perm, masks=masks)
+    if not pairs:
+        return order
+    hit = rows >= 0
+    t, o = torch.nonzero(hit.t(), as_tuple=True)     # t, then o, ascending
+    counts = hit.sum(0)
+    start = torch.zeros(ta + 1, dtype=torch.int32, device=rows.device)
+    start[1:] = torch.cumsum(counts, 0)
+    return dataclasses.replace(
+        order, pair_in=rows[o, t].contiguous(), pair_out=o.to(torch.int32),
+        tap_start=start, tap_hits=tuple(counts.tolist()))
 
 
 # ---------------------------------------------------------------------------
@@ -379,10 +483,12 @@ def _rows_product(feats, rows, weights):
 
 
 def gather_gemm_conv_plain(feats, rows, weights, scale=None, shift=None,
-                           relu: bool = False, out_valid=None):
+                           relu: bool = False, out_valid=None, order=None):
     """Plain version of ``gather_gemm_conv`` (and, under ``packed()``, of
     ``gather_gemm_conv_bf16``: features and unscaled weights rounded to
-    bf16, products and sums in fp32, the epilogue on the fp32 sum)."""
+    bf16, products and sums in fp32, the epilogue on the fp32 sum). It
+    sums in row order: ``order`` is taken and not needed."""
+    del order
     if packed():
         feats, weights = bf16_round(feats), bf16_round(weights)
     return apply_epilogue(_rows_product(feats, rows, weights), out_valid,
@@ -405,14 +511,56 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# output-channel widths the packed conv keeps whole in one block (Cout is
+# padded to the next; wider convs take several column blocks of 192)
+PACKED_WIDTHS = (16, 32, 64, 80, 96, 128, 192)
+
+
+def _check_order(name, order: Optional[RowOrder], rows, pairs) -> None:
+    """The packed kernel ``name`` needs the plan's order of ``rows`` (with
+    the pair lists where ``pairs``): it is built once per plan, never per
+    call."""
+    if order is None or pairs and order.tap_hits is None:
+        raise ValueError(
+            f'{name} needs the plan\'s row order of its rows'
+            + (' with the pair lists' if pairs else '')
+            + ': pass order=row_order(rows) (attach_rows(..., order=True) '
+            'builds it with the rows)')
+    k, ta = rows.shape
+    check_tensor('perm', order.perm, torch.int64, 1, rows.device)
+    check_tensor('masks', order.masks, torch.int64, 1, rows.device)
+    if (order.perm.shape[0] != k or order.masks.shape[0] != k
+            or order.tap_hits is not None and len(order.tap_hits) != ta):
+        raise ValueError(f'row order of {order.perm.shape[0]} rows for rows '
+                         f'{tuple(rows.shape)}')
+
+
+def packed_weights(weights):
+    """(wt, np, kc): the weights [Ta, Cin, Cout] rounded to bf16 once, as
+    [Ta, Cout padded to np (times column blocks), Cin padded to kc] with
+    Cin fastest, the layout ``gather_gemm_conv_bf16`` stages; kc, the
+    depth of one staged chunk, is 32 where it divides Cin, else 16."""
+    _, cin, cout = weights.shape
+    np_ = next((w for w in PACKED_WIDTHS if w >= cout), PACKED_WIDTHS[-1])
+    kc = 32 if cin % 32 == 0 else 16
+    wt = torch.nn.functional.pad(weights.transpose(1, 2),
+                                 (0, -cin % kc, 0, -cout % np_))
+    return wt.to(torch.bfloat16, memory_format=torch.contiguous_format), \
+        np_, kc
+
+
 def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
-                     relu: bool = False, out_valid=None) -> torch.Tensor:
+                     relu: bool = False, out_valid=None,
+                     order: Optional[RowOrder] = None) -> torch.Tensor:
     """out [K_out, Cout] = epi(sum_t feats[rows[:, t]] @ weights[t]).
 
     feats [K_in, Cin] f32; rows [K_out, Ta] int32 (-1 = miss); weights
     [Ta, Cin, Cout] f32; scale/shift [Cout] f32; out_valid [K_out] bool.
     fp32 (kernel ``gather_gemm_conv``), or under ``packed()`` bf16
-    operands with fp32 sums (kernel ``gather_gemm_conv_bf16``).
+    operands with fp32 sums (kernel ``gather_gemm_conv_bf16``), which walks
+    the rows in ``order``: the plan's ``row_order(rows)``, which the sparse
+    conv layers have ``attach_rows`` build under ``packed()``; a CUDA call
+    without it raises.
     """
     dev = feats.device
     check_tensor('feats', feats, torch.float32, 2, dev)
@@ -427,15 +575,24 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     if not kernels.use_kernel(feats):
         return gather_gemm_conv_plain(feats, rows, weights, scale, shift,
                                       relu, out_valid)
-    name = 'gather_gemm_conv_bf16' if packed() else 'gather_gemm_conv'
-    fn = kernels.entry_point(name)
     out = torch.empty((k_out, cout), dtype=torch.float32, device=dev)
+    epilogue = (_ptr(scale), _ptr(shift), int(relu), _ptr(out_valid),
+                out.data_ptr())
+    if not packed():
+        name = 'gather_gemm_conv'
+        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
+                weights.data_ptr(), cout, *epilogue)
+    else:
+        name = 'gather_gemm_conv_bf16'
+        _check_order(name, order, rows, pairs=False)
+        wt, np_, kc = packed_weights(weights)
+        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
+                order.perm.data_ptr(), order.masks.data_ptr(),
+                wt.data_ptr(), np_, kc, wt.shape[2], cout, *epilogue)
+    fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check(name, fn(
-            feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
-            weights.data_ptr(), cout, _ptr(scale), _ptr(shift), int(relu),
-            _ptr(out_valid), out.data_ptr(), stream))
+        kernels.check(name, fn(*args,
+                               torch.cuda.current_stream(dev).cuda_stream))
     kernels.launches[name] += 1
     return out
 
@@ -509,10 +666,11 @@ def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
 # kernel D: the weight gradient
 # ---------------------------------------------------------------------------
 
-def conv_dw_plain(feats, rows, g) -> torch.Tensor:
+def conv_dw_plain(feats, rows, g, order=None) -> torch.Tensor:
     """Plain version of ``conv_dw`` (and, under ``packed()``, of
     ``conv_dw_bf16``: both operands rounded to bf16, fp32 sums): per-tap
-    index_select and product."""
+    index_select and product over all rows (``order`` is not needed)."""
+    del order
     if packed():
         feats, g = bf16_round(feats), bf16_round(g)
     k_out, ta = rows.shape
@@ -524,6 +682,12 @@ def conv_dw_plain(feats, rows, g) -> torch.Tensor:
     return dw
 
 
+# SMs of an H100 SXM, which the weight gradients' chunking fills ~8 blocks
+# deep: a constant, not the device's count, so that the order of the sums,
+# and so the bits of dw, do not depend on the card
+H100_SMS = 132
+
+
 def conv_dw_launch(k_out: int, ta: int, cin: int, cout: int):
     """(tile, n_chunks, chunk_rows) of a ``conv_dw`` launch: the widest
     (Cin, Cout) tile the narrower width fills, and enough chunks of the
@@ -533,19 +697,48 @@ def conv_dw_launch(k_out: int, ta: int, cin: int, cout: int):
     narrow = min(cin, cout)
     tile = 64 if narrow >= 64 else 32 if narrow >= 32 else 16
     blocks = ta * math.ceil(cin / tile) * math.ceil(cout / tile)
-    n_chunks = max(1, min(math.ceil(8 * 132 / blocks),
+    n_chunks = max(1, min(math.ceil(8 * H100_SMS / blocks),
                           math.ceil(k_out / 1024)))
     chunk_rows = max(1, math.ceil(k_out / n_chunks))
     return tile, math.ceil(k_out / chunk_rows) if k_out else 1, chunk_rows
 
 
-def conv_dw(feats, rows, g) -> torch.Tensor:
+DW_CHUNK_STEP = 64      # chunks of conv_dw_bf16 are whole 64-pair stages
+
+
+def dw_stage_pairs(tile: int) -> int:
+    """Pairs of one staged step of ``conv_dw_bf16`` at a tile edge."""
+    return 32 if tile == 128 else 64
+
+
+def conv_dw_bf16_launch(tap_hits, cin: int, cout: int):
+    """(tile, chunk_pairs, n_chunks) of a ``conv_dw_bf16`` launch: the
+    (Cin, Cout) tile edge, 128 where the narrower width is above 64 (the
+    80-128-wide convs in one tile; a 192-wide conv takes 2 x 2 tiles, the
+    second half empty), else the widest of 64/32/16 it fills;
+    chunks of each tap's pair list, whole 64-pair steps of at least 512
+    pairs, sized for ~8 blocks per SM of an H100 over all taps and tiles;
+    ``n_chunks`` in all, tap by tap. A function of the shapes and the plan
+    only, so the order of the sums is the same on every run."""
+    narrow = min(cin, cout)
+    tile = next(t for t in (128, 64, 32, 16) if narrow > t // 2 or t == 16)
+    tiles = math.ceil(cin / tile) * math.ceil(cout / tile)
+    chunk = math.ceil(sum(tap_hits) * tiles / (8 * H100_SMS) / DW_CHUNK_STEP)
+    chunk = max(512, chunk * DW_CHUNK_STEP)
+    return tile, chunk, sum(math.ceil(n / chunk) for n in tap_hits)
+
+
+def conv_dw(feats, rows, g, order: Optional[RowOrder] = None) -> torch.Tensor:
     """dw [Ta, Cin, Cout] = sum_o feats[rows[o, t]]^T (x) g[o], fp32, the
     weight gradient of ``gather_gemm_conv(feats, rows, w)`` under the
     output gradient ``g`` [K_out, Cout]. The sum over the rows runs in a
     fixed order (per-chunk partials, then their sum in chunk order), so
     repeated calls give the same bits. Under ``packed()`` kernel
-    ``conv_dw_bf16`` rounds both operands to bf16 on load, same sums."""
+    ``conv_dw_bf16`` rounds both operands to bf16 and walks each tap's hit
+    pairs only: ``order``, the plan's ``row_order(rows)`` with its pair
+    lists, which the training layers have ``attach_rows`` build under
+    ``packed()``; a CUDA call without them raises. Same fixed-order
+    sums."""
     dev = feats.device
     check_tensor('feats', feats, torch.float32, 2, dev)
     check_tensor('rows', rows, torch.int32, 2, dev)
@@ -557,18 +750,31 @@ def conv_dw(feats, rows, g) -> torch.Tensor:
                          f'{tuple(g.shape)}')
     if not kernels.use_kernel(feats):
         return conv_dw_plain(feats, rows, g)
-    tile, n_chunks, chunk_rows = conv_dw_launch(k_out, ta, cin, cout)
     dw = torch.empty((ta, cin, cout), dtype=torch.float32, device=dev)
-    partials = (torch.empty((n_chunks, ta, cin, cout), dtype=torch.float32,
-                            device=dev) if n_chunks > 1 else None)
-    name = 'conv_dw_bf16' if packed() else 'conv_dw'
+    if not packed():
+        name = 'conv_dw'
+        tile, n_chunks, chunk_rows = conv_dw_launch(k_out, ta, cin, cout)
+        partials = (torch.empty((n_chunks, ta, cin, cout),
+                                dtype=torch.float32, device=dev)
+                    if n_chunks > 1 else None)
+        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
+                g.data_ptr(), cout, tile, n_chunks, chunk_rows,
+                _ptr(partials), dw.data_ptr())
+    else:
+        name = 'conv_dw_bf16'
+        _check_order(name, order, rows, pairs=True)
+        tile, chunk, n_chunks = conv_dw_bf16_launch(order.tap_hits, cin,
+                                                    cout)
+        partials = torch.empty((max(n_chunks, 1), cin, cout),
+                               dtype=torch.float32, device=dev)
+        args = (feats.data_ptr(), cin, g.data_ptr(), cout, ta,
+                order.pair_in.data_ptr(), order.pair_out.data_ptr(),
+                order.tap_start.data_ptr(), tile, chunk, n_chunks,
+                partials.data_ptr(), dw.data_ptr())
     fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check(name, fn(
-            feats.data_ptr(), cin, rows.data_ptr(), k_out, ta, g.data_ptr(),
-            cout, tile, n_chunks, chunk_rows, _ptr(partials),
-            dw.data_ptr(), stream))
+        kernels.check(name, fn(*args,
+                               torch.cuda.current_stream(dev).cuda_stream))
     kernels.launches[name] += 1
     return dw
 
@@ -594,7 +800,7 @@ class MatchConv(torch.autograd.Function):
         ctx.save_for_backward(feats, weights)
         if in_keys is not None:
             return match_conv(feats, in_keys, plan, weights)
-        return gather_gemm_conv(feats, plan.rows, weights)
+        return gather_gemm_conv(feats, plan.rows, weights, order=plan.order)
 
     @staticmethod
     def backward(ctx, g):
@@ -605,13 +811,14 @@ class MatchConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             w_t = weights.flip(0).transpose(1, 2).contiguous()
             if in_keys is None:
-                d_feats = gather_gemm_conv(g, dual_rows(plan), w_t)
+                d_feats = gather_gemm_conv(g, dual_rows(plan), w_t,
+                                           order=dual_order(plan))
             else:
                 dual, dual_keys = dual_plan(plan, in_keys)
                 d_feats = match_conv(g, dual_keys, dual, w_t)
         if ctx.needs_input_grad[1]:
             rows = plan.rows if in_keys is None else plan_rows(in_keys, plan)
-            d_weights = conv_dw(feats, rows, g)
+            d_weights = conv_dw(feats, rows, g, order=plan.order)
         return d_feats, d_weights, None, None
 
 
@@ -636,6 +843,11 @@ def dual_rows(plan: MatchPlan) -> torch.Tensor:
         raise ValueError('a strided plan has no dual rows: build the conv '
                          'in training mode')
     return plan.dual.rows
+
+
+def dual_order(plan: MatchPlan) -> Optional[RowOrder]:
+    """The ``row_order`` of ``dual_rows(plan)`` (None off ``packed()``)."""
+    return plan.order if plan.self_transpose else plan.dual.order
 
 
 def apply_match_conv(st: SparseTensor, plan: MatchPlan, weights, out_coords,
@@ -665,7 +877,7 @@ def apply_match_conv(st: SparseTensor, plan: MatchPlan, weights, out_coords,
             out = match_conv(st.features, st.keys, plan, weights, **epilogue)
         else:
             out = gather_gemm_conv(st.features, plan.rows, weights,
-                                   **epilogue)
+                                   order=plan.order, **epilogue)
     else:
         out = MatchConv.apply(st.features, weights, plan,
                               st.keys if onehot else None)
