@@ -11,7 +11,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
    for cuDNN and matmul, so every float32 product is full float32;
 2. build: every kernel under ``msmdfusion_torch/csrc`` with one ``nvcc``
    process per source, all started together, into
-   ``msmdfusion_torch/_build/``;
+   ``msmdfusion_torch/_build/``; then the kernels' card tests
+   (``tests/test_torch_rows_card.py``, ``tests/test_torch_conv_bf16_card.py``:
+   JAX-free, every test must pass) in a child process;
 3. TransFusion-L: ``configs/transfusion_nusc_voxel_L.py`` at full width
    (1440 x 1440 x 41 grid, 160k voxel capacity, the flagship's measured
    encoder stage capacities), weights drawn from a seed, one 250k-point
@@ -83,7 +85,13 @@ The path, per model: one forward records the arguments of every kernel
 call; each call is held against the kernel's plain version (rows,
 nearest neighbours and row gathers equal; each conv element within 1e-4
 of the magnitude of its own sum, and the whole output within 1e-4 of its
-largest value) and timed alone by CUDA events; launch counts
+largest value; each row gather also at C - 1 columns, the kernel's
+per-element path) and timed alone by CUDA events over back-to-back
+calls (each rows line also prints the device's time alone of the kernel
+and of ``torch.searchsorted``, ``device_ms``, the kernel's ratio to
+searchsorted by both, the bytes its design reads, the largest key window
+and the share of windows in tiles that overflow the block's buffer);
+launch counts
 are set to 0, one forward + decode runs, and the counts are read and
 asserted; boxes must be finite, scores in [0, 1], no row dropped at any
 capacity; the same forward on the plain versions, decoding the kernel
@@ -95,7 +103,9 @@ decoder's attention amplifies rounding; then per-stage CUDA-event times,
 ms/frame, frames/s, peak memory and a profile with the device's idle
 share.
 
-The line before the last is ``{"kernels": [...]}``: per kernel its
+Before it, the rows kernels' sums on the packed engine's frame and step
+(with masks) and on the one-hot step's backward. The line before the
+last is ``{"kernels": [...]}``: per kernel its
 launches, its largest error against the plain version, its time, the
 plain version's, its bound and a library call's, each time the sum over
 the path's calls; the flagship's inference path for ``rows_affine``,
@@ -104,7 +114,10 @@ train step for ``rows_queries`` and ``conv_dw`` (ms per step), phase 6's
 inference for ``gather_gemm_conv_bf16`` and train step for
 ``conv_dw_bf16``, phase 7's inference for ``match_conv``. The bf16
 kernels' bound takes the card's dense bf16 tensor rate; their entries
-also carry ``useful_share`` and ``fp32_ratio``. The last line is
+also carry ``useful_share`` and ``fp32_ratio``, the rows kernels'
+``searchsorted_ratio`` (back to back), ``device_ms`` and
+``device_ratio`` (the device's time alone) and ``design_bound_ms``. The
+last line is
 ``{"ok": true, "device": {...}}``.
 
 Rehearse phases 4-7 on the CPU with the tiny flagship of
@@ -116,6 +129,7 @@ launch where each wrapper of ``wrapper_sites()`` runs outside
 """
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -426,74 +440,262 @@ def rows_checked(name, i, got, want, masked):
     return got, 0 if masks is None else masks.numel() * 8
 
 
-def rows_calls(calls, reps, card):
-    """Kernel rows_affine vs its plain version and torch.searchsorted."""
+def device_ms(fn, reps):
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls queued
+    behind a spin of the card (``torch.cuda._sleep``), after one warm-up
+    call: the CUDA events then time the device's work alone, not the
+    host's launches (a rows call spends ~40 us of host time in its Python
+    wrapper, more than a small call's kernel). The spin is lengthened until
+    the host has queued every call before it ends, at most 6 times (to
+    2^33 cycles); ``fn`` must not synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 21
+    for _ in range(7):
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < spin.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError('device_ms: the host never queued its calls within '
+                       'the spin; does fn synchronise?')
+
+
+ROWS_SOURCE = ROOT / 'msmdfusion_torch' / 'csrc' / 'rows_affine.cu'
+INT_MIN = -2 ** 31
+
+
+def rows_design():
+    """The rows kernels' design constants, read from
+    ``csrc/rows_affine.cu``: (keys of a block's window buffer, input keys
+    sampled per tile row, the function giving a block's output rows for Ta
+    taps)."""
+    text = ROWS_SOURCE.read_text()
+
+    def constant(name):
+        return int(re.search(rf'constexpr int {name} = (\d+);', text)[1])
+    a, ra, b, rb, rc = (int(v) for v in re.search(
+        r'return ta <= (\d+) \? (\d+) : ta <= (\d+) \? (\d+) : (\d+);',
+        text).groups())
+    return (constant('kWinCap'), constant('kSamplesPerRow'),
+            lambda ta: ra if ta <= a else rb if ta <= b else rc)
+
+
+def plan_queries(plan):
+    """(queries [K, Ta] int64, live [K, Ta] bool) of a plan: what the rows
+    kernels search, and where (``inb``, a real query within int32)."""
+    import torch
+    from msmdfusion_torch.ops.sparse.tensor import INT_MAX
+    if plan.queries is not None:
+        q = plan.queries.to(torch.int64)
+        return q, plan.inb & (plan.queries != INT_MAX)
+    q = plan.okeys.to(torch.int64)[:, None] + \
+        plan.dkey.to(torch.int64)[None, :]
+    live = plan.inb & (plan.okeys != INT_MAX)[:, None] & \
+        (q <= INT_MAX) & (q >= INT_MIN)
+    return q, live
+
+
+def rows_windows(in_keys, plan) -> dict:
+    """The rows kernels' key windows of a plan, stated in PyTorch for
+    measurement (the kernels do not read it): per tile of output rows,
+    each tap's range of queries (explicit plans: the least and greatest
+    live query; affine plans: the tile's least and greatest valid okey
+    plus the tap's dkey, a superset, clamped to int32), the taps grouped (a
+    tap whose range overlaps the previous tap's with a range joins its
+    group), each group's window ``[lo, hi)`` = [lower bound of its least
+    query, upper bound of its greatest) of ``in_keys``, and the stride of
+    the tile's index of its windows in the block's buffer: 1 (every key,
+    from starts rounded down to 4 keys) where the windows fit together,
+    else the least s >= 2 for which every s-th key of each fits.
+
+    Returns ``group`` [T, Ta] (-1: no range), ``lo``, ``hi`` [T, Ta]
+    (group g valid for ``g < groups``), ``groups`` [T], ``stride`` [T],
+    ``staged`` [T]: the keys each tile copies into its buffer, and
+    ``staged_keys`` their sum.
+    """
+    import torch
+    from msmdfusion_torch.ops.sparse.tensor import INT_MAX
+    cap, _, tile_rows = rows_design()
+    k, ta = plan.inb.shape
+    tile = tile_rows(ta)
+    tiles = -(-k // tile)
+    pad = tiles * tile - k
+
+    def per_tile(x, fill):
+        x = torch.nn.functional.pad(x.cpu().to(torch.int64),
+                                    (0, 0) * (x.dim() - 1) + (0, pad),
+                                    value=fill)
+        return x.view(tiles, tile, *x.shape[1:])
+    if plan.queries is not None:
+        q = per_tile(plan.queries, INT_MAX)
+        live = per_tile(plan.inb, 0).bool() & (q != INT_MAX)
+        tmin = torch.where(live, q, INT_MAX).amin(1)
+        tmax = torch.where(live, q, INT_MIN).amax(1)
+    else:
+        okeys = per_tile(plan.okeys, INT_MAX)
+        valid = okeys != INT_MAX
+        dkey = plan.dkey.cpu().to(torch.int64)[None]
+        lo = torch.where(valid, okeys, INT_MAX).amin(1)[:, None] + dkey
+        hi = torch.where(valid, okeys, INT_MIN).amax(1)[:, None] + dkey
+        any_ = valid.any(1)[:, None] & (lo <= INT_MAX) & (hi >= INT_MIN)
+        tmin = torch.where(any_, lo.clamp(min=INT_MIN), INT_MAX)
+        tmax = torch.where(any_, hi.clamp(max=INT_MAX), INT_MIN)
+    alive = tmin <= tmax
+    group = torch.full((tiles, ta), -1, dtype=torch.int64)
+    groups = torch.zeros(tiles, dtype=torch.int64)
+    prev_lo = torch.zeros(tiles, dtype=torch.int64)
+    prev_hi = torch.zeros(tiles, dtype=torch.int64)
+    seen = torch.zeros(tiles, dtype=torch.bool)
+    for t in range(ta):
+        ok = alive[:, t]
+        joins = ok & seen & (tmin[:, t] <= prev_hi) & (tmax[:, t] >= prev_lo)
+        groups = groups + (ok & ~joins).to(torch.int64)
+        group[:, t] = torch.where(ok, groups - 1, -1)
+        prev_lo = torch.where(ok, tmin[:, t], prev_lo)
+        prev_hi = torch.where(ok, tmax[:, t], prev_hi)
+        seen = seen | ok
+    slot = group.clamp(min=0)
+    gmin = torch.full((tiles, ta), INT_MAX, dtype=torch.int64).scatter_reduce(
+        1, slot, torch.where(alive, tmin, INT_MAX), 'amin')
+    gmax = torch.full((tiles, ta), INT_MIN, dtype=torch.int64).scatter_reduce(
+        1, slot, torch.where(alive, tmax, INT_MIN), 'amax')
+    keys = in_keys.to(torch.int64).cpu()
+    valid = torch.arange(ta)[None, :] < groups[:, None]
+    lo = torch.where(valid, torch.searchsorted(keys, gmin), 0)
+    hi = torch.where(valid, torch.searchsorted(keys, gmax, right=True), 0)
+    full = hi > lo
+    exact = torch.where(full, (hi - (lo & ~3) + 3) // 4 * 4, 0).sum(1)
+    span = torch.where(full, hi - lo, 0).sum(1)
+    room = (cap - groups).clamp(min=1)
+    stride = torch.where(exact <= cap, 1,
+                         ((span + room - 1) // room).clamp(min=2))
+    sampled = torch.where(full, (hi - lo + stride[:, None] - 1)
+                          // stride[:, None], 0).sum(1)
+    staged = torch.where(stride == 1, exact, sampled)
+    return dict(group=group, lo=lo, hi=hi, groups=groups, stride=stride,
+                staged=staged, staged_keys=int(staged.sum()))
+
+
+def rows_calls(name, calls, reps, card):
+    """Kernel ``name`` (rows_affine or rows_queries) vs its plain version
+    and torch.searchsorted on the same queries, per call: rows (and masks)
+    equal; the times over back-to-back calls (``cuda_ms``) of the kernel
+    with its wrapper, the plain version and searchsorted, as every other
+    kernel is timed, and apart the device's time alone (``device_ms``) of
+    the kernel and searchsorted; the bound on the function's own bytes
+    and, apart, on the bytes the kernel's design reads (``rows_windows``:
+    the samples and staged windows for in_keys, and a 32-byte sector per
+    live query of a sampled tile); the largest window and the share of
+    windows in tiles whose windows overflow the block's buffer (sampled
+    index)."""
     import torch
     from msmdfusion_torch.ops.sparse import matchconv as mc
+    from msmdfusion_torch.ops.sparse.tensor import INT_MAX
+    affine = name == 'rows_affine'
+    wrapper = mc.rows_affine if affine else mc.rows_queries
+    plain = mc.rows_affine_plain if affine else mc.rows_queries_plain
+    _, samples_per_row, tile_rows = rows_design()
     out = []
     for i, (args, kwargs) in enumerate(calls):
-        in_keys, okeys, dkey, inb = args
+        in_keys, inb = args[0], args[-1]
+        plan = (mc.MatchPlan(inb=inb, okeys=args[1], dkey=args[2]) if affine
+                else mc.MatchPlan(inb=inb, queries=args[1]))
         masked = bool(kwargs.get('masks'))
-        got, mask_bytes = rows_checked(
-            'rows_affine', i, mc.rows_affine(*args, **kwargs),
-            mc.rows_affine_plain(*args), masked)
-        q = okeys[:, None] + dkey[None, :]
-        nbytes = (in_keys.numel() + okeys.numel() + dkey.numel()) * 4 + \
-            inb.numel() + got.numel() * 4 + mask_bytes
+        got, mask_bytes = rows_checked(name, i, wrapper(*args, **kwargs),
+                                       plain(*args), masked)
+        q, live = plan_queries(plan)
+        q32 = q.clamp(INT_MIN, INT_MAX).to(torch.int32)
+        k, ta = inb.shape
+        # the function's bytes: in_keys, inb and okeys + dkey or the
+        # queries read once, the rows and masks written once
+        tile_bytes = inb.numel() + (k * 4 + ta * 4 if affine
+                                    else q.numel() * 4)
+        own = in_keys.numel() * 4 + tile_bytes + got.numel() * 4 + \
+            mask_bytes
+        w = rows_windows(in_keys, plan)
+        full = (torch.arange(ta)[None] < w['groups'][:, None]) & \
+            (w['hi'] > w['lo'])
+        over = w['stride'] > 1
+        tiles = torch.arange(k) // tile_rows(ta)
+        sampled_queries = int(live[over[tiles].to(live.device)].sum())
+        design = (own - in_keys.numel() * 4 + sampled_queries * 32
+                  + (w['staged_keys'] + w['groups'].numel() * tile_rows(ta)
+                     * samples_per_row) * 4)
+        call = lambda: wrapper(*args, **kwargs)            # noqa: E731
+        search = lambda: torch.searchsorted(in_keys, q32)  # noqa: E731
         rec = dict(
-            k_in=in_keys.numel(), k_out=okeys.numel(), ta=dkey.numel(),
-            hits=int((got >= 0).sum()), err=0.0,
-            ms=cuda_ms(lambda: mc.rows_affine(*args, **kwargs), reps),
-            plain_ms=cuda_ms(lambda: plain_rows(
-                mc.rows_affine_plain(*args), masked), reps),
-            library_ms=cuda_ms(lambda: torch.searchsorted(in_keys, q), reps),
-            bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=0.0)
+            k_in=in_keys.numel(), k_out=k, ta=ta,
+            hits=int((got >= 0).sum()), err=0.0, masked=masked,
+            ms=cuda_ms(call, reps),
+            plain_ms=cuda_ms(lambda: plain_rows(plain(*args), masked),
+                             reps),
+            library_ms=cuda_ms(search, reps),
+            device_ms=device_ms(call, reps),
+            library_device_ms=device_ms(search, reps),
+            bytes_ms=own / PEAK_BYTES * 1e3, ops_ms=0.0,
+            design_ms=design / PEAK_BYTES * 1e3,
+            largest_window=int((w['hi'] - w['lo'])[full].max())
+            if full.any() else 0,
+            over_cap=float((over[:, None] & full).sum())
+            / max(int(full.sum()), 1))
         out.append(rec)
-        print(f"rows_affine[{i}] K_in={rec['k_in']} K_out={rec['k_out']} "
-              f"Ta={rec['ta']} hits={rec['hits']} "
-              f"{'with masks ' if masked else ''}exact ms={rec['ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f} "
+        print(f"{name}[{i}] K_in={rec['k_in']} K={k} Ta={ta} "
+              f"hits={rec['hits']} {'with masks ' if masked else ''}exact "
+              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
               f"searchsorted_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bytes_ms']:.4f} [{card}]", flush=True)
+              f"searchsorted_ratio={rec['ms'] / rec['library_ms']:.3f} "
+              f"device_ms={rec['device_ms']:.4f} searchsorted_device_ms="
+              f"{rec['library_device_ms']:.4f} device_ratio="
+              f"{rec['device_ms'] / rec['library_device_ms']:.3f} "
+              f"bound_ms={rec['bytes_ms']:.4f} "
+              f"design_bound_ms={rec['design_ms']:.4f} "
+              f"largest_window={rec['largest_window']} "
+              f"windows_over_cap={rec['over_cap']:.4f} [{card}]",
+              flush=True)
     return out
+
+
+def rows_ratios(recs):
+    """A rows kernel's sums beside ``torch.searchsorted``'s over a path's
+    calls: the ratio back to back, the device's times alone and their
+    ratio, the bound on the design's bytes."""
+    ms = sum(r['ms'] for r in recs)
+    dev = sum(r['device_ms'] for r in recs)
+    return dict(
+        searchsorted_ratio=ms / sum(r['library_ms'] for r in recs),
+        device_ms=dev,
+        device_ratio=dev / sum(r['library_device_ms'] for r in recs),
+        design_bound_ms=sum(r['design_ms'] for r in recs))
+
+
+def rows_sums(label, recs):
+    """One line of a rows kernel's sums over a path's calls."""
+    r = rows_ratios(recs)
+    return (f"{label}: {len(recs)} calls ms={sum(x['ms'] for x in recs):.4f}"
+            f" searchsorted_ms={sum(x['library_ms'] for x in recs):.4f} "
+            f"searchsorted_ratio={r['searchsorted_ratio']:.3f} device_ms="
+            f"{r['device_ms']:.4f} searchsorted_device_ms="
+            f"{sum(x['library_device_ms'] for x in recs):.4f} device_ratio="
+            f"{r['device_ratio']:.3f} bound_ms="
+            f"{sum(x['bytes_ms'] for x in recs):.4f} design_bound_ms="
+            f"{r['design_bound_ms']:.4f}")
 
 
 def plain_rows(rows, masked):
     """The plain rows, with their ``row_masks`` where the call asked."""
     from msmdfusion_torch.ops.sparse import matchconv as mc
     return (rows, mc.row_masks(rows)) if masked else rows
-
-
-def rows_queries_calls(calls, reps, card):
-    """Kernel rows_queries vs its plain version and torch.searchsorted."""
-    import torch
-    from msmdfusion_torch.ops.sparse import matchconv as mc
-    out = []
-    for i, (args, kwargs) in enumerate(calls):
-        in_keys, queries, inb = args
-        masked = bool(kwargs.get('masks'))
-        got, mask_bytes = rows_checked(
-            'rows_queries', i, mc.rows_queries(*args, **kwargs),
-            mc.rows_queries_plain(*args), masked)
-        nbytes = (in_keys.numel() + queries.numel() + got.numel()) * 4 + \
-            inb.numel() + mask_bytes
-        rec = dict(
-            k_in=in_keys.numel(), k_out=queries.shape[0],
-            ta=queries.shape[1], hits=int((got >= 0).sum()), err=0.0,
-            ms=cuda_ms(lambda: mc.rows_queries(*args, **kwargs), reps),
-            plain_ms=cuda_ms(lambda: plain_rows(
-                mc.rows_queries_plain(*args), masked), reps),
-            library_ms=cuda_ms(lambda: torch.searchsorted(in_keys, queries),
-                               reps),
-            bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=0.0)
-        out.append(rec)
-        print(f"rows_queries[{i}] K_in={rec['k_in']} K={rec['k_out']} "
-              f"Ta={rec['ta']} hits={rec['hits']} "
-              f"{'with masks ' if masked else ''}exact ms={rec['ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f} "
-              f"searchsorted_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bytes_ms']:.4f} [{card}]", flush=True)
-    return out
 
 
 def held_to_sums(name, got, want, magnitude):
@@ -743,7 +945,10 @@ def nn_calls(calls, reps, card, plain_reps=3):
 
 
 def take_calls(calls, reps, card):
-    """Kernel merge_take vs its plain version per call: equal rows."""
+    """Kernel merge_take vs its plain version per call: equal rows, by the
+    kernel's float4 path on the call's own table and by its per-element
+    path on the table's first C - 1 columns (a width that is not a
+    multiple of 4, as a zoo model's could be)."""
     import torch
     from msmdfusion_torch.ops.sparse import merge_take as mt
     out = []
@@ -756,6 +961,13 @@ def take_calls(calls, reps, card):
         check(torch.equal(got, want),
               f'merge_take call {i}: {int((got != want).any(1).sum())} rows '
               'differ from the plain version')
+        odd = table[:, :-1].contiguous()
+        odd_args = (odd, *args[1:])
+        odd_got = mt.merge_take_rows(*odd_args)
+        check(not mt.take_vec4(odd, odd_got) and torch.equal(
+            odd_got, mt.merge_take_rows_plain(odd, idx, idx2, dup)),
+            f'merge_take call {i}: the per-element path at C={odd.shape[1]} '
+            'differs from the plain version')
         n, c = table.shape
         m = idx.shape[0]
         rows = int(((idx >= 0) & (idx < n)).sum())
@@ -769,11 +981,13 @@ def take_calls(calls, reps, card):
             ms=cuda_ms(lambda: mt.merge_take_rows(*args), reps),
             plain_ms=cuda_ms(lambda: mt.merge_take_rows_plain(
                 table, idx, idx2, dup), reps),
-            library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=0.0)
+            library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=0.0,
+            odd_ms=cuda_ms(lambda: mt.merge_take_rows(*odd_args), reps))
         out.append(rec)
         print(f"merge_take[{i}] N={n} C={c} M={m} rows_read={rows} exact "
               f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={rec['bytes_ms']:.4f} [{card}]", flush=True)
+              f"bound_ms={rec['bytes_ms']:.4f}; per-element path at "
+              f"C={c - 1} exact ms={rec['odd_ms']:.4f} [{card}]", flush=True)
     return out
 
 
@@ -789,7 +1003,9 @@ def kernel_summary(name, recs, launches):
         plain_ms=sum(r['plain_ms'] for r in recs),
         bound_ms=sum(max(r['bytes_ms'], r['ops_ms']) for r in recs),
         bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
-        library_ms=None if None in lib else sum(lib), **packed_shares(recs))
+        library_ms=None if None in lib else sum(lib), **packed_shares(recs),
+        **(rows_ratios(recs) if name in ('rows_affine', 'rows_queries')
+           else {}))
 
 
 def packed_shares(recs):
@@ -1009,8 +1225,8 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
     recs = {}
     with torch.no_grad():
         if rec.calls['rows_affine']:
-            recs['rows_affine'] = rows_calls(rec.calls['rows_affine'],
-                                             reps['kernel'], card)
+            recs['rows_affine'] = rows_calls(
+                'rows_affine', rec.calls['rows_affine'], reps['kernel'], card)
         for wrapper in ('gather_gemm_conv', 'match_conv'):
             if rec.calls[wrapper]:
                 name = kernel_of(wrapper)
@@ -1464,11 +1680,12 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
     recs = {}
     with torch.no_grad():
         if rec.calls['rows_queries']:
-            recs['rows_queries'] = rows_queries_calls(
-                rec.calls['rows_queries'], 10, card)
+            recs['rows_queries'] = rows_calls(
+                'rows_queries', rec.calls['rows_queries'], 10, card)
         if rec.calls_in('rows_affine', 'backward'):
             recs['rows_affine_bwd'] = rows_calls(
-                rec.calls_in('rows_affine', 'backward'), 5, card)
+                'rows_affine', rec.calls_in('rows_affine', 'backward'), 5,
+                card)
         fp32 = fp32 or {}
         recs[kernel_of('conv_dw')] = dw_calls(
             rec.calls['conv_dw'], 5, card, fp32=fp32.get(kernel_of('conv_dw')))
@@ -1762,6 +1979,52 @@ def engines_interleaved(model, inputs, card, engines, rounds=6):
               f'{max(h):.3f}) [{card}]', flush=True)
 
 
+def report(phases, card):
+    """The rows kernels' sums lines and the ``kernels`` line of the
+    flagship's phases (``flagship_phases``)."""
+    # the rows kernels' sums where the kernels line does not hold them: the
+    # packed engine's calls, which also write the tap-hit masks, and the
+    # one-hot step's backward
+    for label, recs, masked in (
+            ('rows_affine with masks, packed bf16 frame',
+             phases[2][0]['rows_affine'], True),
+            ('rows_queries with masks, packed bf16 step',
+             phases[3][0]['rows_queries'], True),
+            ('rows_affine, one-hot step backward',
+             phases[5][0]['rows_affine_bwd'], False)):
+        check(all(r['masked'] == masked for r in recs),
+              f'{label}: calls with{"out" if masked else ""} masks')
+        print(f'{rows_sums(label, recs)} [{card}]', flush=True)
+    # each kernel's records and launches from the first phase that ran it
+    picked = {}
+    for recs, launches in phases:
+        for name in recs:
+            if name in KERNEL_INFO and name not in picked:
+                picked[name] = (recs[name], launches)
+    check(set(picked) == set(KERNEL_INFO),
+          f'kernels never checked: {sorted(set(KERNEL_INFO) - set(picked))}')
+    summary = [kernel_summary(name, *picked[name]) for name in KERNEL_INFO]
+    print(json.dumps({'kernels': summary}), flush=True)
+
+
+CARD_TESTS = ('tests/test_torch_rows_card.py',
+              'tests/test_torch_conv_bf16_card.py')
+
+
+def card_tests():
+    """Phase 2b: the kernels' card tests (JAX-free, marked ``cuda``), in a
+    child process that the phase waits for; fails if any test fails or
+    skips."""
+    out = subprocess.run(
+        [sys.executable, '-m', 'pytest', '--noconftest', '-p',
+         'no:cacheprovider', '-m', 'cuda', '-q', '-rs', *CARD_TESTS],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    tail = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ''
+    print(f'card tests {" ".join(CARD_TESTS)}: {tail}', flush=True)
+    check(out.returncode == 0 and 'skipped' not in tail,
+          f'card tests failed:\n{out.stdout[-4000:]}\n{out.stderr[-2000:]}')
+
+
 def main():
     if not (ROOT / 'msmdfusion_torch' / '__init__.py').is_file():
         print('chip_smoke: msmdfusion_torch/ not found beside this script',
@@ -1798,8 +2061,8 @@ def main():
     for name in KERNEL_INFO:
         kernels.entry_point(name)
     print(f'build: {len(built)} sources of {len(KERNEL_INFO)} kernels in '
-          f'{build_s:.1f} s (parallel nvcc)',
-          flush=True)
+          f'{build_s:.1f} s (parallel nvcc)', flush=True)
+    card_tests()
 
     # 3. TransFusion-L
     t0 = time.perf_counter()
@@ -1824,16 +2087,7 @@ def main():
           f'{int(inputs[3]["fg_real_mask"].sum())}', flush=True)
     phases = flagship_phases(model, inputs, gt, card)
 
-    # each kernel's records and launches from the first phase that ran it
-    picked = {}
-    for recs, launches in phases:
-        for name in recs:
-            if name in KERNEL_INFO and name not in picked:
-                picked[name] = (recs[name], launches)
-    check(set(picked) == set(KERNEL_INFO),
-          f'kernels never checked: {sorted(set(KERNEL_INFO) - set(picked))}')
-    summary = [kernel_summary(name, *picked[name]) for name in KERNEL_INFO]
-    print(json.dumps({'kernels': summary}), flush=True)
+    report(phases, card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

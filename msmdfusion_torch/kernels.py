@@ -56,7 +56,7 @@ ENTRY_POINTS = {
     'masked_nn': ('masked_nn', 'msmd_masked_nn',
                   (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P)),
     'merge_take': ('merge_take', 'msmd_merge_take',
-                   (_P, _I, _I, _P, _P, _P, _I, _P, _P)),
+                   (_P, _I, _I, _P, _P, _P, _I, _P, _I, _P)),
 }
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}

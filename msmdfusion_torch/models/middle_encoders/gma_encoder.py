@@ -32,6 +32,7 @@ from ...ops.nn_argmin import masked_nn
 from ...ops.sparse.tensor import (SparseTensor, lookup_sorted_pair,
                                   make_sparse_tensor, sparse_add)
 from ...registry import MIDDLE_ENCODERS
+from ...utils.switches import require_default
 from ..layers import MLP
 from ..sparse_blocks import SparseBasicBlock, SparseConvBlock
 
@@ -149,10 +150,14 @@ class SparseMultiModalEncoderPaint(nn.Module):
             split = modality_split(v3, v2)
             c3 = v3.num_channels
 
-            # orphan 2D gating by the approximate nearest 3D voxel
+            # orphan 2D gating by the approximate nearest 3D voxel (the JAX
+            # package's MSMD_GMA_NN=exact and MSMD_GMA_DUMMY=random:<seed>
+            # ablations are not ported: they raise)
+            require_default('MSMD_GMA_NN')
             nn_row = approx_nn_3d(v2.coords, split['only_2d'], v3.coords,
                                   v3.valid, fps_num_list[i], radius_list[i],
                                   dist_thresh_list[i])
+            require_default('MSMD_GMA_DUMMY')
             dummy = getattr(self, f'dummy_embedding_{i}')
             nn_feat = torch.where((nn_row >= 0)[:, None],
                                   _rows(v3.features, nn_row), dummy[None, :])

@@ -15,7 +15,10 @@ builds its transpose ("dual") plan (and its rows) once per
 ``indice_key``, for the backward. Under ``MSMD_CONV_DTYPE=bfloat16``
 ``attach_rows(..., order=True)`` also caches the ``RowOrder`` of each
 plan's rows (and its dual's) for the packed kernels, inside stage
-``plans``; in training mode with the weight gradient's pair lists.
+``plans``; in training mode with the weight gradient's pair lists. The
+JAX package's ``MSMD_SPARSE_BACKEND`` (read by every conv) and
+``MSMD_FUSE_BN`` (read in eval mode) are not ported: a value that selects
+another path there raises (``utils/switches.py``).
 
 Weights keep spconv's ``[O, kz, ky, kx, I]`` layout and the reference
 parameter names; the conv reads them as ``[Ta, I, O]`` taps, z-major and
@@ -36,6 +39,7 @@ from ..ops.sparse.matchconv import (apply_match_conv, attach_rows,
                                     build_dual_down_plan, build_subm_plan,
                                     conv_algo, packed)
 from ..ops.sparse.tensor import SparseTensor
+from ..utils.switches import require_default
 from ..utils.timing import section
 from .layers import MaskedBatchNorm
 
@@ -70,6 +74,7 @@ class SubMConv3d(_SparseConvBase):
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any], scale=None,
                 shift=None, relu: bool = False):
+        require_default('MSMD_SPARSE_BACKEND')
         key = ('subm', self.indice_key)
         plan = cache.get(key)
         if plan is None:
@@ -102,6 +107,7 @@ class SparseConv3d(_SparseConvBase):
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any], scale=None,
                 shift=None, relu: bool = False):
+        require_default('MSMD_SPARSE_BACKEND')
         key = ('spconv', self.indice_key)
         entry = cache.get(key)
         if entry is None:
@@ -175,6 +181,7 @@ class SparseConvBlock(nn.Sequential):
             st, cache = self[0](st, cache)
             st = st.replace_features(self[1](st.features, mask=st.valid))
             return _masked_relu(st), cache
+        require_default('MSMD_FUSE_BN')
         scale, shift = self[1].fold()
         return self[0](st, cache, scale=scale, shift=shift, relu=True)
 
@@ -202,6 +209,7 @@ class SparseBasicBlock(nn.Module):
             st, cache = self.conv2(st, cache)
             st = st.replace_features(self.bn2(st.features, mask=st.valid))
         else:
+            require_default('MSMD_FUSE_BN')
             s1, b1 = self.bn1.fold()
             st, cache = self.conv1(st, cache, scale=s1, shift=b1, relu=True)
             s2, b2 = self.bn2.fold()

@@ -24,17 +24,25 @@ package's names, values and defaults, pick the engine:
   and its weight gradient rounds both operands to bf16. The one-hot
   engine ignores it, as the JAX package's ``_pallas_conv`` does.
 
-Any other value raises. The JAX package's TPU layout knobs
+Any other value raises. The JAX package's TPU layout and engine knobs
 (``MSMD_CONV_SLAB``, ``_TILE``, ``_CW``, ``_COLW``, ``_GEMM``,
-``_TAILMODE``) have no counterpart.
+``_TAILMODE``, ``MSMD_ROWS_MIN_C``, ``MSMD_DENSE_CELLS``,
+``MSMD_CONV_BACKEND``) have no counterpart, nor has
+``MSMD_OVERFLOW_CHECK``: the port always counts overflow. Its switches
+that change results, ``MSMD_FUSE_BN`` and ``MSMD_SPARSE_BACKEND`` (and the
+GMA encoder's ``MSMD_GMA_NN`` and ``MSMD_GMA_DUMMY``), are not ported yet:
+a value that selects another path there raises where the JAX package
+reads it (``utils/switches.py``).
 
 Hand-written CUDA kernels carry these paths (``csrc/``):
 
 - ``rows_affine``: the rulebook rows of affine plans, replacing
   ``_win_rows_kernel``;
 - ``rows_queries``: the rows of explicit-query plans, replacing
-  ``_rows_kernel``; for the packed engine's plans either also writes
-  each row's tap-hit mask, the key of the packed kernels' row order;
+  ``_rows_kernel``; both match a tile of output rows inside windows of
+  the sorted input keys staged in shared memory; for the packed engine's
+  plans either also writes each row's tap-hit mask, the key of the packed
+  kernels' row order;
 - ``gather_gemm_conv``: the conv with its fused BN/ReLU/mask epilogue,
   replacing ``_vgather_kernel`` (forward, fp32); the training backward
   runs it again over the dual rows for the input gradient;
@@ -53,7 +61,8 @@ Each wrapper launches its kernel for a CUDA tensor, raising if the build
 or the launch fails, and runs its plain PyTorch version for a CPU tensor
 (or inside ``kernels.plain_kernels()``). The TPU plan's slab brackets,
 column windows, duplicated sublanes and bf16 splits have no counterpart:
-a binary search never drops a match.
+a key window that overflows the rows kernels' buffer is indexed, never
+cut, so no match is ever dropped.
 """
 from __future__ import annotations
 
@@ -262,6 +271,8 @@ def rows_affine_plain(in_keys, okeys, dkey, inb) -> torch.Tensor:
     (the JAX package's ``_rows_from_plan(...).T``)."""
     keys64 = in_keys.to(torch.int64)
     q = okeys.to(torch.int64)[:, None] + dkey.to(torch.int64)[None, :]
+    if not in_keys.shape[0]:
+        return torch.full(q.shape, -1, dtype=torch.int32, device=q.device)
     pos = torch.searchsorted(keys64, q)
     pos = torch.clamp(pos, max=in_keys.shape[0] - 1)
     hit = (keys64[pos] == q) & inb & (okeys != INT_MAX)[:, None]
@@ -324,6 +335,9 @@ def rows_affine(in_keys, okeys, dkey, inb, masks: bool = False):
 def rows_queries_plain(in_keys, queries, inb) -> torch.Tensor:
     """Plain version of ``rows_queries``: searchsorted over the sorted keys
     (the JAX package's ``_rows_from_plan(...).T``)."""
+    if not in_keys.shape[0]:
+        return torch.full(queries.shape, -1, dtype=torch.int32,
+                          device=queries.device)
     pos = torch.searchsorted(in_keys, queries)
     pos = torch.clamp(pos, max=in_keys.shape[0] - 1)
     hit = (in_keys[pos] == queries) & inb & (queries != INT_MAX)
@@ -381,8 +395,9 @@ def attach_rows(in_keys, plan: MatchPlan, site: str = '',
         walk = row_order(rows, pairs, masks)
     else:
         rows, walk = plan_rows(in_keys, plan), None
-    # the TPU kernels' slab and column-window sites: a binary search has
-    # neither window, so nothing is ever dropped there
+    # the TPU kernels' slab and column-window sites: the rows kernels index
+    # a window that overflows their buffer instead of cutting it, so
+    # nothing is ever dropped there
     tag = f'[{site}]' if site else ''
     overflow.record('matchconv.rows_slab', 0)
     overflow.record(f'matchconv.col_w{tag}', 0)

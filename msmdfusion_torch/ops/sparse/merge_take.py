@@ -8,8 +8,11 @@ Counterpart of the JAX package's ``ops/sparse/merge_take.py``
 with an index outside ``[0, len(table))`` (INT_MAX on the callers' inactive
 rows) contributing zero. The hand-written CUDA kernel
 ``csrc/merge_take.cu`` replaces ``_kernel``; the wrapper launches it for
-CUDA tensors (raising if the build or the launch fails) and runs the plain
-PyTorch version for CPU tensors or inside ``kernels.plain_kernels()``.
+CUDA tensors (raising if the build or the launch fails), by float4 slices
+of rows or, at a width that is not a multiple of 4 or on unaligned
+tensors, by elements (``take_vec4``), and runs the plain PyTorch version
+for CPU tensors or inside ``kernels.plain_kernels()``. The JAX package's
+``MSMD_SPARSE_BACKEND`` is not ported: ``xla`` raises.
 
 The TPU kernel's sliding windows and bf16 hi/lo split have no counterpart:
 the gather is exact fp32 and never drops a row, so ``merge_take.win[site]``
@@ -28,6 +31,7 @@ import torch
 
 from ... import kernels
 from ...utils import overflow
+from ...utils.switches import require_default
 from ...kernels import check_tensor
 
 
@@ -81,8 +85,8 @@ def merge_take_rows(table, idx, idx2: Optional[torch.Tensor] = None,
     """``table[idx] (+ table[idx2] where dup)`` -> [M, C] fp32,
     differentiable in ``table``.
 
-    table [N, C] f32; idx, idx2 [M] int32; dup [M] bool (with idx2). On
-    the card C is a multiple of 4 and the table 16-byte aligned.
+    table [N, C] f32; idx, idx2 [M] int32; dup [M] bool (with idx2); any
+    width and alignment (the kernel's path: ``take_vec4``).
     """
     dev = table.device
     check_tensor('table', table, torch.float32, 2, dev)
@@ -96,6 +100,7 @@ def merge_take_rows(table, idx, idx2: Optional[torch.Tensor] = None,
         if idx2.shape[0] != m or dup.shape[0] != m:
             raise ValueError(f'shape mismatch: idx {tuple(idx.shape)}, idx2 '
                              f'{tuple(idx2.shape)}, dup {tuple(dup.shape)}')
+    require_default('MSMD_SPARSE_BACKEND')
     tag = f'[{site}]' if site else ''
     overflow.record(f'merge_take.win{tag}', 0)
     if table.requires_grad and torch.is_grad_enabled():
@@ -110,10 +115,6 @@ def _merge_take_forward(table, idx, idx2, dup):
     m = idx.shape[0]
     n, c = table.shape
     out = torch.empty((m, c), dtype=torch.float32, device=dev)
-    # the kernel moves float4 slices of rows
-    if c % 4 or table.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError(f'merge_take kernel: C ({c}) must be a multiple of '
-                         '4 and the table 16-byte aligned')
     fn = kernels.entry_point('merge_take')
 
     def ptr(t):
@@ -123,6 +124,14 @@ def _merge_take_forward(table, idx, idx2, dup):
         stream = torch.cuda.current_stream(dev).cuda_stream
         kernels.check('merge_take', fn(
             table.data_ptr(), n, c, idx.data_ptr(), ptr(idx2), ptr(dup), m,
-            out.data_ptr(), stream))
+            out.data_ptr(), int(take_vec4(table, out)), stream))
     kernels.launches['merge_take'] += 1
     return out
+
+
+def take_vec4(table, out) -> bool:
+    """The kernel's path for these tensors: float4 slices of rows where C
+    is a multiple of 4 and the table and the output are 16-byte aligned,
+    one element per thread otherwise."""
+    return (table.shape[1] % 4 == 0 and table.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0)

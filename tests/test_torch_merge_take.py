@@ -89,6 +89,26 @@ def test_single_stream_and_out_of_range_rows():
     np.testing.assert_array_equal(got.numpy()[ok], want[ok])
 
 
+@pytest.mark.parametrize('c', [5, 7])
+def test_odd_widths_equal_xla_take(c):
+    # widths that are not a multiple of 4 take the kernel's per-element
+    # path on the card; on the CPU the plain version, exact as the JAX
+    # package's XLA gather
+    rng = np.random.RandomState(c)
+    idx, idx2, dup = sparse_add_streams(rng, 1200, 1100, 300)
+    table = rng.randn(2300, c).astype(np.float32)
+    for args in ((table, idx), (table, idx, idx2, dup)):
+        got = merge_take_rows(*(torch.from_numpy(a) for a in args))
+        plain = merge_take_rows_plain(*(torch.from_numpy(a) for a in args))
+        j = [jnp.asarray(a) for a in args] + [None] * (4 - len(args))
+        want = np.asarray(jmt._xla_take(*j))
+        active = idx != INT_MAX
+        assert got.shape == (len(idx), c)
+        np.testing.assert_array_equal(got.numpy()[active], want[active])
+        assert torch.equal(got, plain)
+        assert (got.numpy()[~active] == 0).all()
+
+
 def test_merge_take_checks_and_counts():
     t = torch.zeros(10, 4)
     i = torch.zeros(3, dtype=torch.int32)
