@@ -12,8 +12,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
 2. build: every kernel under ``msmdfusion_torch/csrc`` with one ``nvcc``
    process per source, all started together, into
    ``msmdfusion_torch/_build/``; then the kernels' card tests
-   (``tests/test_torch_rows_card.py``, ``tests/test_torch_conv_bf16_card.py``:
-   JAX-free, every test must pass) in a child process;
+   (``tests/test_torch_rows_card.py``, ``tests/test_torch_conv_bf16_card.py``,
+   ``tests/test_torch_conv_x3_card.py``: JAX-free, every test must pass) in
+   a child process;
 3. TransFusion-L: ``configs/transfusion_nusc_voxel_L.py`` at full width
    (1440 x 1440 x 41 grid, 160k voxel capacity, the flagship's measured
    encoder stage capacities), weights drawn from a seed, one 250k-point
@@ -24,17 +25,22 @@ Phases (any failure raises and ends the run with a non-zero exit):
    encoder, GMA downscale, GMA union and foreground voxels), weights from
    a seed, and the JAX package's realistic scene (``realistic_batch``:
    250k points, six 448 x 800 cameras, 20000 foreground points and 15000
-   real pixels per camera). The same path runs on it, and then the dense
-   layers new to this model are timed on and off cuDNN;
+   real pixels per camera). The same path runs on it; then one counted
+   frame on the exact fp32 product (``MSMD_CONV_GEMM=highest``, set around
+   it only: launches 16/37/8/3 with kernel ``gather_gemm_conv``) and how
+   far the default x3 path lies from it (printed, not held); then the
+   dense layers new to this model are timed on and off cuDNN;
 5. the MSMDFusion train step on the same model and scene, with the
    scene's ground truth: the reference's stage-2 recipe (frozen
    ``img_backbone``/``img_neck``, AdamW lr 1e-4 and weight decay 0.05,
    global-norm clip 10, step schedule with linear warmup), dropout from a
    seeded generator. One step records the arguments of every
-   ``rows_queries``, ``conv_dw`` and backward ``gather_gemm_conv`` call;
-   each is held against its plain version (rows equal; ``dw`` and
-   ``d_feats`` elements within 1e-4 of the magnitude of their sums) and
-   timed alone. The same step on the plain versions, on the kernel path's
+   ``rows_queries``, ``conv_dw`` and backward ``gather_gemm_conv`` call
+   (kernels ``conv_dw_x3`` and ``gather_gemm_conv_x3``); each is held
+   against its plain versions (rows equal; ``dw`` and ``d_feats`` elements
+   within 1e-4 of the magnitude of their sums, against the x3 plain
+   version and the exact one) and timed alone, and run again on the exact
+   (FFMA) kernels, held to the exact plain version and timed. The same step on the plain versions, on the kernel path's
    proposals, assignment, dropout masks, head-input gradient and ReLU
    masks (at full scale every layer has ReLU inputs within rounding of 0,
    and a free ReLU there moves a gradient by up to a few percent of its
@@ -47,7 +53,12 @@ Phases (any failure raises and ends the run with a non-zero exit):
    no row dropped), five timed AdamW steps after a warm-up (forward with
    the auction timed apart, backward, optimizer; finite losses; the
    trainable parameters move, the frozen image branch does not), the
-   backward on and off cuDNN, and a profile with the idle share;
+   backward on and off cuDNN, and a profile with the idle share. The
+   plain path of phases 4-5 (the twin) computes the x3 product where the
+   kernels do (``X3Plain``) and, as phase 6 pins its bf16 rounding, takes
+   the kernel path's conv operands wherever its own lie within 2^-16 of
+   their binade of them (``PinnedRounding``): the same split, sums in
+   another order;
 6. the packed bf16 engine (``MSMD_CONV_DTYPE=bfloat16``, set around this
    phase only: the JAX package's benchmarked setting) on the same model
    with its calibrated weights: the path below with every conv call on
@@ -62,7 +73,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    and 3 timed steps. Every packed call must carry its plan's row order
    (``matchconv.RowOrder``); its line prints the useful share (hits over
    the row-taps or pairs the kernel stages) and its time over the fp32
-   kernel's on the same call in phase 4 or 5 (``fp32_ratio``);
+   engine's kernel's (x3) on the same call in phase 4 or 5
+   (``fp32_ratio``);
 7. the one-hot engine (``MSMD_CONV_ALGO=onehot``): no rulebook rows, every
    conv matches its plan's queries in kernel ``match_conv``: the path
    below with every call held to its plain version, launches (37/8/3, no
@@ -70,9 +82,11 @@ Phases (any failure raises and ends the run with a non-zero exit):
    forward and backward ``match_conv`` calls, the 37 ``rows_affine`` calls
    that build each conv's ``dw`` rows in the backward and ``conv_dw``
    against their plain versions, a counted step (launches 37/73/37/8/3)
-   and 2 timed steps. Last, the three engines' frames interleaved (one
-   of each per round, 6 rounds), the frame and its stage ``plans`` per
-   engine, so that a slow stretch of the host falls on all three.
+   and 2 timed steps (its ``dw`` stays on the exact kernel
+   ``conv_dw``, whatever ``MSMD_CONV_GEMM``). Last, the engines' frames
+   interleaved (fp32 x3, fp32 highest, packed, one-hot: one of each per
+   round, 6 rounds), the frame and its stage ``plans`` per engine, so that
+   a slow stretch of the host falls on all of them.
 
 Batch norms are calibrated on each model's frame first
 (``utils/calibrate.py``: running statistics set to those of each norm's
@@ -80,6 +94,15 @@ input, as a trained checkpoint's roughly are), so that activations keep
 a realistic scale; with random statistics the flagship's gated GMA
 features grow to ~1e8 and a tolerance scaled by the largest value would
 pass a kernel that corrupts the small rows.
+
+The fp32 rulebook engine runs its default ``x3`` route throughout
+(``MSMD_CONV_GEMM`` unset): kernels ``gather_gemm_conv_x3`` and
+``conv_dw_x3``, with launches 8/21 (TransFusion-L), 16/37/8/3 and
+16/8/73/37/8/3; every call of theirs is held to its x3 plain version and
+to the exact one, and run again on the exact (FFMA) kernel
+``gather_gemm_conv``/``conv_dw`` under ``MSMD_CONV_GEMM=highest`` (set
+around that call only), held to the exact plain version and timed
+(``ffma_ratio``: the x3 time over the FFMA time).
 
 The path, per model: one forward records the arguments of every kernel
 call; each call is held against the kernel's plain version (rows,
@@ -94,12 +117,16 @@ and the share of windows in tiles that overflow the block's buffer);
 launch counts
 are set to 0, one forward + decode runs, and the counts are read and
 asserted; boxes must be finite, scores in [0, 1], no row dropped at any
-capacity; the same forward on the plain versions, decoding the kernel
-path's proposals, must give a top-k choice of its heatmap and agree
+capacity; the kernel path once more, keeping its conv operands
+(``PinnedRounding``), and the same forward on the plain versions,
+replaying them and decoding that kernel forward's proposals, must give a
+top-k choice of its heatmap and agree
 within 1e-4 of max up to the head's decoder (the head's input and the
 dense heatmap), and after it (decoder outputs, boxes) within 10 times the
 plain path's own spread under reordered sums (never less than 1e-4): the
-decoder's attention amplifies rounding; then per-stage CUDA-event times,
+decoder's attention amplifies rounding (how far the counted forward lies
+from the replayed one is printed: the x3 and packed routes turn ulp-level
+run-to-run noise into rounding steps); then per-stage CUDA-event times,
 ms/frame, frames/s, peak memory and a profile with the device's idle
 share.
 
@@ -108,13 +135,18 @@ Before it, the rows kernels' sums on the packed engine's frame and step
 last is ``{"kernels": [...]}``: per kernel its
 launches, its largest error against the plain version, its time, the
 plain version's, its bound and a library call's, each time the sum over
-the path's calls; the flagship's inference path for ``rows_affine``,
-``gather_gemm_conv``, ``masked_nn`` and ``merge_take`` (ms per frame), its
-train step for ``rows_queries`` and ``conv_dw`` (ms per step), phase 6's
-inference for ``gather_gemm_conv_bf16`` and train step for
-``conv_dw_bf16``, phase 7's inference for ``match_conv``. The bf16
-kernels' bound takes the card's dense bf16 tensor rate; their entries
-also carry ``useful_share`` and ``fp32_ratio``, the rows kernels'
+the path's calls; each kernel from the first phase that launched it on
+its main path: the flagship's inference path for ``rows_affine`` (with
+masks, which the x3 kernels' row order needs), ``gather_gemm_conv_x3``,
+``masked_nn`` and ``merge_take`` (ms per frame), its train step for
+``rows_queries`` and ``conv_dw_x3`` (ms per step), the exact
+``gather_gemm_conv`` timed on phase 4's calls with the launches of the
+frame on ``highest``, phase 6's inference for ``gather_gemm_conv_bf16``
+and train step for ``conv_dw_bf16``, phase 7's inference for
+``match_conv`` and train step for the exact ``conv_dw``. The bf16 and x3
+kernels' bound takes the card's dense bf16 tensor rate (three products
+for x3); their entries also carry ``useful_share``, the packed ones
+``fp32_ratio`` and the x3 ones ``ffma_ratio``, the rows kernels'
 ``searchsorted_ratio`` (back to back), ``device_ms`` and
 ``device_ratio`` (the device's time alone) and ``design_bound_ms``. The
 last line is
@@ -142,11 +174,11 @@ TOL = 1e-4                      # of the largest |reference| value
 # reordered sums
 FLOOR_MARGIN = 10
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, fp32 FLOP/s outside the tensor
-# cores (the kernels run fp32 FFMA), both at the 700 W power limit
+# cores (the exact kernels run fp32 FFMA), both at the 700 W power limit
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 # the same data sheet: dense bf16 on the tensor cores (the packed engine's
-# operands), 700 W
+# operands, and the x3 route's three products), 700 W
 PEAK_BF16 = 989e12
 NN_OPS_PER_PAIR = 8             # 3 mul + 2 add (dot), 1 mul + 2 add (dist)
 
@@ -156,7 +188,7 @@ TL = dict(
     # encoder strided-output capacities measured for this encoder on the
     # flagship's full-scale scene (spconv1..3, conv_out)
     enc_caps=[174336, 74240, 25088, 22784],
-    launches={'rows_affine': 8, 'gather_gemm_conv': 21},
+    launches={'rows_affine': 8, 'gather_gemm_conv_x3': 21},
     widths={(5, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
             (64, 128), (128, 128)})
 # the JAX package's _flagship_model('full') (__graft_entry__.py:40-151)
@@ -171,7 +203,7 @@ FLAGSHIP = dict(
     # encoder 8 + GMA 8 plans; encoder 21 + GMA 4 x (grouped, 2
     # aggregation, downscale) convs; 2 searches per GMA stage; the sums of
     # GMA stages 1-3
-    launches={'rows_affine': 16, 'gather_gemm_conv': 37, 'masked_nn': 8,
+    launches={'rows_affine': 16, 'gather_gemm_conv_x3': 37, 'masked_nn': 8,
               'merge_take': 3},
     widths={(16, 16), (32, 32), (64, 64), (128, 128), (80, 80), (96, 96),
             (192, 192), (80, 96), (96, 128), (128, 192)})
@@ -187,20 +219,33 @@ TRAIN = dict(
     # forward as in inference plus 8 dual plans (encoder spconv1-3 and
     # conv_out, GMA downscales 1-4); backward: d_feats for every conv but
     # conv_input (whose input needs no gradient), dw for all 37
-    launches={'rows_affine': 16, 'rows_queries': 8, 'gather_gemm_conv': 73,
-              'conv_dw': 37, 'masked_nn': 8, 'merge_take': 3},
+    launches={'rows_affine': 16, 'rows_queries': 8,
+              'gather_gemm_conv_x3': 73, 'conv_dw_x3': 37, 'masked_nn': 8,
+              'merge_take': 3},
     steps=5, twin=True, extras=True)
+# the exact fp32 product (the FFMA kernels): phase 4's counted frame and
+# the FFMA timings of the x3 kernels' calls, the switch set around them
+# only; the frame launches the fp32 path's kernels, the exact conv kernel
+# in the x3 one's place
+HIGHEST = dict(env={'MSMD_CONV_GEMM': 'highest'})
+
+
+def highest_launches(launches):
+    """The launches of a frame on ``HIGHEST`` for the fp32 path's
+    ``launches``."""
+    return {('gather_gemm_conv' if k == 'gather_gemm_conv_x3' else k): v
+            for k, v in launches.items()}
 # phase 6: the JAX package's benchmarked setting (bench.py:116-120), the
 # rulebook engine with bf16 operands; the same plans, rows and counts
 PACKED = dict(
     env={'MSMD_CONV_DTYPE': 'bfloat16'},
     launches={'rows_affine': 16, 'gather_gemm_conv_bf16': 37,
               'masked_nn': 8, 'merge_take': 3},
-    widths=FLAGSHIP['widths'], pin_rounding=True,
+    widths=FLAGSHIP['widths'],
     train=dict(launches={'rows_affine': 16, 'rows_queries': 8,
                          'gather_gemm_conv_bf16': 73, 'conv_dw_bf16': 37,
                          'masked_nn': 8, 'merge_take': 3},
-               steps=3, twin=True, extras=False, pin_rounding=True))
+               steps=3, twin=True, extras=False))
 # phase 7: the one-hot engine, no rulebook: every conv searches its
 # queries; the backward builds each conv's rows for dw (37 rows_affine)
 ONEHOT = dict(
@@ -229,6 +274,12 @@ KERNEL_INFO = {
     'conv_dw_bf16': dict(
         route='cuda', source='msmdfusion_torch/csrc/conv_dw_bf16.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
+    'gather_gemm_conv_x3': dict(
+        route='cuda', source='msmdfusion_torch/csrc/gather_gemm_conv_bf16.cu',
+        replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
+    'conv_dw_x3': dict(
+        route='cuda', source='msmdfusion_torch/csrc/conv_dw_bf16.cu',
+        replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
     'match_conv': dict(
         route='cuda', source='msmdfusion_torch/csrc/match_conv.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:615'),
@@ -240,9 +291,12 @@ KERNEL_INFO = {
         replaces='msmdfusion_tpu/ops/sparse/merge_take.py:64'),
 }
 # the wrapper that launches each kernel where it is not the kernel's name:
-# the rulebook conv and dw wrappers pick their bf16 kernels under the switch
+# the rulebook conv and dw wrappers pick their bf16 tensor-core kernels by
+# the switches
 WRAPPER = {'gather_gemm_conv_bf16': 'gather_gemm_conv',
-           'conv_dw_bf16': 'conv_dw'}
+           'conv_dw_bf16': 'conv_dw',
+           'gather_gemm_conv_x3': 'gather_gemm_conv',
+           'conv_dw_x3': 'conv_dw'}
 
 
 def as_recorded(launches):
@@ -258,7 +312,23 @@ def kernel_of(wrapper):
     from msmdfusion_torch.ops.sparse import matchconv as mc
     if wrapper in WRAPPER.values() and mc.packed():
         return wrapper + '_bf16'
+    if wrapper in WRAPPER.values() and mc.x3():
+        return wrapper + '_x3'
     return wrapper
+
+
+def ops_ms(hits, cin, cout):
+    """The least time of a rulebook conv's or dw's products on the route
+    the switches pick: 2 x hits x Cin x Cout FLOP at the fp32 rate (FFMA;
+    the one-hot engine too), at the dense bf16 tensor rate (packed), or 3
+    times that at the bf16 rate (x3: hi.hi, hi.lo and lo.hi)."""
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    flop = 2.0 * hits * cin * cout
+    if mc.packed():
+        return flop / PEAK_BF16 * 1e3
+    if mc.x3():
+        return 3 * flop / PEAK_BF16 * 1e3
+    return flop / PEAK_FP32 * 1e3
 
 
 @contextlib.contextmanager
@@ -716,55 +786,97 @@ def held_to_sums(name, got, want, magnitude):
         if diff.numel() else 0.0
 
 
-def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
-    """Kernel conv_dw (conv_dw_bf16 under the packed switch) vs its plain
-    version per call: each element held to TOL of the magnitude of its sum
-    (the plain dw of |feats| and |g|); two calls give the same bits. Under
-    the packed switch each call must carry its plan's row order, and
-    ``fp32`` (the fp32 kernel's records of the same calls) gives each
-    call's time ratio to it."""
+def plain_gemms():
+    """The plain products a rulebook conv or dw call is held to on the
+    route the switches pick: the x3 kernels to their x3 plain version and
+    to the exact one (x3 lies ~2^-17 of each sum's magnitude from it), the
+    others to their own (the exact product; bf16 operands under the packed
+    switch, whatever ``gemm``)."""
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    return ('x3', 'exact') if mc.x3() else ('exact',)
+
+
+def dw_record(name, i, args, kwargs, reps, plain_reps):
+    """One conv_dw call on the kernel the switches pick, against its plain
+    versions (``plain_gemms``; the first is the one the record's error and
+    ``plain_ms`` are of), two calls bit-equal, timed."""
     import torch
     from msmdfusion_torch.ops.sparse import matchconv as mc
+    feats, rows, g = args
+    k_out, ta = rows.shape
+    cin, cout = feats.shape[1], g.shape[1]
+    check(not mc.needs_order() or kwargs.get('order') is not None,
+          f'{name} call {i}: the path gave it no row order')
+    got = mc.conv_dw(*args, **kwargs)
+    again = mc.conv_dw(*args, **kwargs)
+    magnitude = mc.conv_dw_plain(feats.abs(), rows, g.abs())
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f'{name} call {i}: two calls differ')
+    held = [held_to_sums(f'{name} call {i} ({cin}x{cout}) against the '
+                         f'{gemm} plain version', got,
+                         mc.conv_dw_plain(*args, gemm=gemm), magnitude)
+            for gemm in plain_gemms()]
+    gemm = plain_gemms()[0]
+    hits = int((rows >= 0).sum())
+    nbytes = 4 * (feats.numel() + rows.numel() + g.numel() + got.numel())
+    return dict(
+        cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
+        hits=hits, err=held[0][0], rel=held[0][1], elem=held[0][2],
+        elem_exact=held[-1][2],
+        ms=cuda_ms(lambda: mc.conv_dw(*args, **kwargs), reps),
+        plain_ms=cuda_ms(lambda: mc.conv_dw_plain(*args, gemm=gemm),
+                         plain_reps),
+        library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+        ops_ms=ops_ms(hits, cin, cout))
+
+
+def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
+    """Kernel conv_dw (``conv_dw_x3`` on the fp32 engine's default route,
+    ``conv_dw_bf16`` under the packed switch, the exact ``conv_dw`` under
+    ``MSMD_CONV_GEMM=highest`` and on the one-hot engine) vs its plain
+    versions per call (``dw_record``): each element held to TOL of the
+    magnitude of its sum (the plain dw of |feats| and |g|); two calls give
+    the same bits. The x3 and packed kernels must be given their plan's
+    row order. Each x3 call is run again on the exact kernel, under
+    ``MSMD_CONV_GEMM=highest`` set around it only, held to the exact plain
+    version and timed (``rec['ffma']``, its ratio ``ffma_ratio``).
+    ``fp32`` (the fp32 engine's kernel's records of the same calls, x3)
+    gives each packed call's time ratio to it."""
+    from msmdfusion_torch.ops.sparse import matchconv as mc
     name = kernel_of('conv_dw')
-    peak = PEAK_BF16 if mc.packed() else PEAK_FP32
     out = []
     for i, (args, kwargs) in enumerate(calls):
-        feats, rows, g = args
-        k_out, ta = rows.shape
-        cin, cout = feats.shape[1], g.shape[1]
-        check(not mc.packed() or kwargs.get('order') is not None,
-              f'{name} call {i}: the path gave it no row order')
-        got = mc.conv_dw(*args, **kwargs)
-        again = mc.conv_dw(*args, **kwargs)
-        want = mc.conv_dw_plain(*args)
-        magnitude = mc.conv_dw_plain(feats.abs(), rows, g.abs())
-        torch.cuda.synchronize()
-        check(torch.equal(got, again), f'{name} call {i}: two calls differ')
-        err, rel, elem = held_to_sums(f'{name} call {i} ({cin}x{cout})',
-                                      got, want, magnitude)
-        hits = int((rows >= 0).sum())
-        nbytes = 4 * (feats.numel() + rows.numel() + g.numel() + got.numel())
-        rec = dict(
-            cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
-            hits=hits, err=err, rel=rel, elem=elem,
-            ms=cuda_ms(lambda: mc.conv_dw(*args, **kwargs), reps),
-            plain_ms=cuda_ms(lambda: mc.conv_dw_plain(*args), plain_reps),
-            library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
-            ops_ms=2.0 * hits * cin * cout / peak * 1e3)
+        rec = dw_record(name, i, args, kwargs, reps, plain_reps)
         extra = ''
-        if mc.packed():
-            rec['staged'] = dw_staged_pairs(kwargs['order'], cin, cout)
-            extra += f"useful={hits / max(rec['staged'], 1):.3f} "
+        if mc.needs_order():
+            rec['staged'] = dw_staged_pairs(kwargs['order'], rec['cin'],
+                                            rec['cout'])
+            extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+        if mc.x3():
+            with switches(HIGHEST['env']):
+                rec['ffma'] = dw_record('conv_dw', i, args, {}, reps,
+                                        plain_reps)
+            extra += ffma_ratio(rec)
         extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
-        print(f"{name}[{i}] {cin}x{cout} K_in={rec['k_in']} K_out={k_out} "
-              f"Ta={ta} hits={hits} deterministic max_abs_err={err:.3g} "
-              f"({rel:.3g} of max |ref|) worst |err|/|sum| {elem:.3g} "
+        print(f"{name}[{i}] {rec['cin']}x{rec['cout']} K_in={rec['k_in']} "
+              f"K_out={rec['k_out']} Ta={rec['ta']} hits={rec['hits']} "
+              f"deterministic max_abs_err={rec['err']:.3g} ({rec['rel']:.3g}"
+              f" of max |ref|) worst |err|/|sum| {rec['elem']:.3g}"
+              f"{' (exact: %.3g)' % rec['elem_exact'] if mc.x3() else ''} "
               f"(limit {TOL}) ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
               f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
               f"{extra}[{card}]", flush=True)
     return out
+
+
+def ffma_ratio(rec):
+    """' ffma_ms=.. ffma_ratio=..': an x3 call's time over the exact
+    (FFMA) kernel's on the same call."""
+    f = rec['ffma']
+    return (f"ffma_ms={f['ms']:.4f} ffma_ratio={rec['ms'] / f['ms']:.3f} "
+            f"ffma_worst_|err|/|sum| {f['elem']:.3g} ")
 
 
 def conv_staged_row_taps(order, ta):
@@ -798,105 +910,135 @@ def same_call_ratio(rec, fp32, i):
     return f"fp32_ms={f['ms']:.4f} fp32_ratio={rec['ms'] / f['ms']:.3f} "
 
 
-def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
-               fp32=None):
-    """Each recorded conv call (``gather_gemm_conv``, which launches
-    ``gather_gemm_conv_bf16`` under the packed switch, or ``match_conv``)
-    against its plain version, with the recorded epilogue and without
-    any. Each element is held to TOL of the magnitude of its own sum (the
-    plain conv of |feats| and |weights|, through the epilogue's |scale| and
-    |shift|), whatever its row's scale, and the whole output to TOL of its
-    largest |value|; every width in ``widths`` must occur. Under the packed
-    switch each call must carry its plan's row order (it is not an
-    epilogue argument), and ``fp32`` (the fp32 kernel's records of the same
-    calls) gives each call's time ratio to it."""
+def conv_record(name, i, args, kwargs, order, reps, plain_reps):
+    """One conv call (``gather_gemm_conv`` on the kernel the switches
+    pick, or ``match_conv``) against its plain versions (``plain_gemms``;
+    the first is the one the record's error and ``plain_ms`` are of), with
+    the recorded epilogue and without any, timed."""
     import functools
     import torch
     from msmdfusion_torch.ops.sparse import matchconv as mc
-    peak = PEAK_BF16 if mc.packed() else PEAK_FP32
+    if len(args) == 4:                      # match_conv: no rulebook
+        feats, in_keys, plan, weights = args
+        conv, plain, gemms = mc.match_conv, mc.match_conv_plain, (None,)
+        rows = mc.plan_rows_plain(in_keys, plan)
+        # the keys it searches and the plan it reads, not rows
+        plan_bytes = 4 * in_keys.numel() + plan.inb.numel() + 4 * (
+            plan.queries.numel() if plan.queries is not None
+            else plan.okeys.numel() + plan.dkey.numel())
+    else:
+        feats, rows, weights = args
+        conv, plain = mc.gather_gemm_conv, mc.gather_gemm_conv_plain
+        gemms = plain_gemms()
+        plan_bytes = 4 * rows.numel()
+        if mc.needs_order():
+            check(order is not None,
+                  f'{name} call {i}: the path gave it no row order')
+            conv = functools.partial(conv, order=order)
+    k_out, ta = rows.shape
+    cin, cout = weights.shape[1], weights.shape[2]
+    magnitude = mc.gather_gemm_conv_plain(feats.abs(), rows, weights.abs())
+    errs, rels, elems = [], [], []
+    for kw in ((kwargs, {}) if kwargs else ({},)):
+        got = conv(*args, **kw)
+        mag = magnitude
+        if kw.get('scale') is not None:
+            mag = mag * kw['scale'].abs()
+        if kw.get('shift') is not None:
+            mag = mag + kw['shift'].abs()
+        for gemm in gemms:
+            want = plain(*args, **kw, **({} if gemm is None
+                                        else dict(gemm=gemm)))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f'{name} call {i}: non-finite output')
+            diff = (got - want).abs()
+            what = (f'{name} call {i} ({cin}->{cout}, epilogue={bool(kw)}'
+                    + (f', against the {gemm} plain version)' if gemm
+                       else ')'))
+            bad = int((diff > TOL * mag).sum())
+            check(bad == 0, f'{what}: {bad} elements differ by more than '
+                  f'{TOL} of the magnitude of their sum')
+            err, rel = rel_err(got, want)
+            check(rel <= TOL, f'{what}: error {err:.3g} is {rel:.3g} of '
+                  f'max |ref|, above {TOL}')
+            errs.append((gemm, err))
+            rels.append((gemm, rel))
+            elems.append((gemm, float((diff / mag.clamp_min(1e-30)).max())))
+    # scale of the conv's sums on the active rows (``want`` is the call
+    # without epilogue)
+    active = want[(rows >= 0).any(1)].abs()
+    median = float(active.median()) if active.numel() else 0.0
+    hits = int((rows >= 0).sum())
+    n_epi = sum(kwargs.get(k) is not None for k in ('scale', 'shift'))
+    nbytes = 4 * (feats.numel() + weights.numel() + n_epi * cout
+                  + k_out * cout) + plan_bytes
+    if kwargs.get('out_valid') is not None:
+        nbytes += k_out
+
+    def worst(pairs, gemm):
+        return max(v for g, v in pairs if g == gemm)
+    route = gemms[0]
+    plain_kw = dict(kwargs, **({} if route is None else dict(gemm=route)))
+    return dict(
+        cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
+        hits=hits, err=worst(errs, route), rel=worst(rels, route),
+        elem=worst(elems, route), elem_exact=worst(elems, gemms[-1]),
+        median=median, max_ref=float(active.max()) if active.numel()
+        else 0.0,
+        ms=cuda_ms(lambda: conv(*args, **kwargs), reps),
+        plain_ms=cuda_ms(lambda: plain(*args, **plain_kw), plain_reps),
+        library_ms=None,
+        bytes_ms=nbytes / PEAK_BYTES * 1e3,
+        ops_ms=ops_ms(hits, cin, cout))
+
+
+def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
+               fp32=None):
+    """Each recorded conv call (``gather_gemm_conv``, which launches
+    ``gather_gemm_conv_x3`` on the fp32 engine's default route,
+    ``gather_gemm_conv_bf16`` under the packed switch and the exact
+    ``gather_gemm_conv`` under ``MSMD_CONV_GEMM=highest``, or
+    ``match_conv``) against its plain versions (``conv_record``), with the
+    recorded epilogue and without any. Each element is held to TOL of the
+    magnitude of its own sum (the plain conv of |feats| and |weights|,
+    through the epilogue's |scale| and |shift|), whatever its row's scale,
+    and the whole output to TOL of its largest |value|; the x3 kernel so
+    against its x3 plain version and the exact one; every width in
+    ``widths`` must occur. The x3 and packed kernels must be given their
+    plan's row order (it is not an epilogue argument). Each x3 call is run
+    again on the exact kernel, under ``MSMD_CONV_GEMM=highest`` set around
+    it only, held to the exact plain version and timed (``rec['ffma']``,
+    its ratio ``ffma_ratio``). ``fp32`` (the fp32 engine's kernel's
+    records of the same calls, x3) gives each packed call's time ratio to
+    it."""
+    from msmdfusion_torch.ops.sparse import matchconv as mc
     out = []
     for i, (args, kwargs) in enumerate(calls):
         kwargs = dict(kwargs)
         order = kwargs.pop('order', None)
-        if len(args) == 4:                      # match_conv: no rulebook
-            feats, in_keys, plan, weights = args
-            conv, plain, name = mc.match_conv, mc.match_conv_plain, \
-                'match_conv'
-            rows = mc.plan_rows_plain(in_keys, plan)
-            # the keys it searches and the plan it reads, not rows
-            plan_bytes = 4 * in_keys.numel() + plan.inb.numel() + 4 * (
-                plan.queries.numel() if plan.queries is not None
-                else plan.okeys.numel() + plan.dkey.numel())
-        else:
-            feats, rows, weights = args
-            conv, plain = mc.gather_gemm_conv, mc.gather_gemm_conv_plain
-            name = kernel_of('gather_gemm_conv')
-            plan_bytes = 4 * rows.numel()
-            if mc.packed():
-                check(order is not None,
-                      f'{name} call {i}: the path gave it no row order')
-                conv = functools.partial(conv, order=order)
+        name = 'match_conv' if len(args) == 4 else \
+            kernel_of('gather_gemm_conv')
         label = label or name
-        k_out, ta = rows.shape
-        cin, cout = weights.shape[1], weights.shape[2]
-        magnitude = mc.gather_gemm_conv_plain(feats.abs(), rows,
-                                              weights.abs())
-        errs, rels, elems = [], [], []
-        for kw in ((kwargs, {}) if kwargs else ({},)):
-            got = conv(*args, **kw)
-            want = plain(*args, **kw)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()),
-                  f'{name} call {i}: non-finite output')
-            mag = magnitude
-            if kw.get('scale') is not None:
-                mag = mag * kw['scale'].abs()
-            if kw.get('shift') is not None:
-                mag = mag + kw['shift'].abs()
-            diff = (got - want).abs()
-            bad = int((diff > TOL * mag).sum())
-            check(bad == 0, f'{name} call {i} ({cin}->{cout}, '
-                  f'epilogue={bool(kw)}): {bad} elements differ by more '
-                  f'than {TOL} of the magnitude of their sum')
-            err, rel = rel_err(got, want)
-            check(rel <= TOL, f'{name} call {i} ({cin}->{cout}, '
-                  f'epilogue={bool(kw)}): error {err:.3g} is {rel:.3g} of '
-                  f'max |ref|, above {TOL}')
-            errs.append(err)
-            rels.append(rel)
-            elems.append(float((diff / mag.clamp_min(1e-30)).max()))
-        # scale of the conv's sums on the active rows (``want`` is the
-        # call without epilogue)
-        active = want[(rows >= 0).any(1)].abs()
-        median = float(active.median()) if active.numel() else 0.0
-        hits = int((rows >= 0).sum())
-        n_epi = sum(kwargs.get(k) is not None for k in ('scale', 'shift'))
-        nbytes = 4 * (feats.numel() + weights.numel() + n_epi * cout
-                      + k_out * cout) + plan_bytes
-        if kwargs.get('out_valid') is not None:
-            nbytes += k_out
-        rec = dict(
-            cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
-            hits=hits, err=max(errs), rel=max(rels), elem=max(elems),
-            median=median, max_ref=float(active.max()) if active.numel()
-            else 0.0,
-            ms=cuda_ms(lambda: conv(*args, **kwargs), reps),
-            plain_ms=cuda_ms(lambda: plain(*args, **kwargs), plain_reps),
-            library_ms=None,
-            bytes_ms=nbytes / PEAK_BYTES * 1e3,
-            ops_ms=2.0 * hits * cin * cout / peak * 1e3)
+        rec = conv_record(name, i, args, kwargs, order, reps, plain_reps)
         extra = ''
         if order is not None:
-            rec['staged'] = conv_staged_row_taps(order, ta)
-            extra += f"useful={hits / max(rec['staged'], 1):.3f} "
+            rec['staged'] = conv_staged_row_taps(order, rec['ta'])
+            extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+        if name == 'gather_gemm_conv_x3':
+            with switches(HIGHEST['env']):
+                rec['ffma'] = conv_record('gather_gemm_conv', i, args,
+                                          kwargs, None, reps, plain_reps)
+            extra += ffma_ratio(rec)
         extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
-        print(f"{label}[{i}] {cin}->{cout} K_in={rec['k_in']} "
-              f"K_out={k_out} Ta={ta} hits={hits} "
+        print(f"{label}[{i}] {rec['cin']}->{rec['cout']} K_in={rec['k_in']} "
+              f"K_out={rec['k_out']} Ta={rec['ta']} hits={rec['hits']} "
               f"epilogue={sorted(k for k, v in kwargs.items() if v is not None and v is not False)} "
               f"max_abs_err={rec['err']:.3g} ({rec['rel']:.3g} of max "
               f"|ref|; |ref| max {rec['max_ref']:.3g} median "
-              f"{median:.3g}) worst |err|/|sum| {rec['elem']:.3g} "
+              f"{rec['median']:.3g}) worst |err|/|sum| {rec['elem']:.3g}"
+              f"{' (exact: %.3g)' % rec['elem_exact'] if mc.x3() else ''} "
               f"(limit {TOL}) ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
               f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
@@ -1003,15 +1145,17 @@ def kernel_summary(name, recs, launches):
         plain_ms=sum(r['plain_ms'] for r in recs),
         bound_ms=sum(max(r['bytes_ms'], r['ops_ms']) for r in recs),
         bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
-        library_ms=None if None in lib else sum(lib), **packed_shares(recs),
+        library_ms=None if None in lib else sum(lib), **route_shares(recs),
         **(rows_ratios(recs) if name in ('rows_affine', 'rows_queries')
            else {}))
 
 
-def packed_shares(recs):
-    """Of the packed kernels' records: hits over the row-taps or pairs
-    they stage (``useful_share``) and their time over the fp32 kernel's on
-    the same calls (``fp32_ratio``), where the records carry them."""
+def route_shares(recs):
+    """Of the tensor-core kernels' records: hits over the row-taps or
+    pairs they stage (``useful_share``), the packed ones' time over the
+    fp32 engine's (x3) kernel's on the same calls (``fp32_ratio``) and the
+    x3 ones' over the exact (FFMA) kernel's (``ffma_ratio``), where the
+    records carry them."""
     out = {}
     if recs and all('staged' in r for r in recs):
         out['useful_share'] = sum(r['hits'] for r in recs) / max(
@@ -1019,6 +1163,9 @@ def packed_shares(recs):
     if recs and all('fp32_ms' in r for r in recs):
         out['fp32_ratio'] = sum(r['ms'] for r in recs) / sum(
             r['fp32_ms'] for r in recs)
+    if recs and all('ffma' in r for r in recs):
+        out['ffma_ratio'] = sum(r['ms'] for r in recs) / sum(
+            r['ffma']['ms'] for r in recs)
     return out
 
 
@@ -1106,6 +1253,32 @@ class ReorderedSums:
         return False
 
 
+class X3Plain:
+    """Inside the scope the plain conv and weight gradient compute the x3
+    product wherever the kernels do (``matchconv.x3()`` at the call), not
+    the exact one that a CPU tensor takes: the all-plain twin of a path on
+    the x3 kernels then differs from it by the order of fp32 sums alone.
+    Enter it before ``ReorderedSums`` and ``PinnedRounding.replay()``,
+    which call what it leaves in place."""
+
+    def __enter__(self):
+        from msmdfusion_torch.ops.sparse import matchconv as mc
+        self._mc = mc
+        self._orig = conv, dw = mc.gather_gemm_conv_plain, mc.conv_dw_plain
+
+        def gemm():
+            return 'x3' if mc.x3() else 'exact'
+        mc.gather_gemm_conv_plain = lambda *a, **k: conv(
+            *a, **dict(dict(gemm=gemm()), **k))
+        mc.conv_dw_plain = lambda *a, **k: dw(
+            *a, **dict(dict(gemm=gemm()), **k))
+        return self
+
+    def __exit__(self, *exc):
+        self._mc.gather_gemm_conv_plain, self._mc.conv_dw_plain = self._orig
+        return False
+
+
 class HeadInput:
     """Keep the BEV map the detection head is called on inside the scope."""
 
@@ -1125,11 +1298,13 @@ class HeadInput:
 
 
 def pinned_forward(model, inputs, index, *scopes):
-    """(head input, preds, boxes) of one forward decoding ``index``."""
+    """(head input, preds, boxes) of one forward decoding ``index`` (its
+    own proposals where ``index`` is None)."""
     with contextlib.ExitStack() as stack:
         for scope in scopes:
             stack.enter_context(scope)
-        stack.enter_context(PinnedProposals(index))
+        if index is not None:
+            stack.enter_context(PinnedProposals(index))
         head_in = stack.enter_context(HeadInput(model.pts_bbox_head))
         preds, boxes = forward(model, inputs)
     return dict(preds, **boxes, head_input=head_in.x)
@@ -1233,6 +1408,10 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
                 recs[name] = conv_calls(
                     rec.calls[wrapper], spec['widths'], reps['kernel'] // 2,
                     card, fp32=(fp32 or {}).get(name))
+                if name == 'gather_gemm_conv_x3':
+                    # the exact (FFMA) kernel on the same calls
+                    recs['gather_gemm_conv'] = [r['ffma']
+                                                for r in recs[name]]
         if rec.calls['masked_nn']:
             recs['masked_nn'] = nn_calls(rec.calls['masked_nn'],
                                          reps['kernel'], card)
@@ -1266,20 +1445,30 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
     print(f'{label}: stage ms by the host clock {json.dumps(host_ms)} '
           f'[{card}]', flush=True)
 
-    # the same forward on the plain versions (and with reordered sums),
-    # decoding the kernel path's proposals: a near-tie at the top-k cut may
-    # not swap one
+    # the kernel path once more, keeping its conv operands, and the same
+    # forward on the plain versions (and with reordered sums) replaying
+    # them and decoding that kernel forward's proposals: a near-tie at the
+    # top-k cut may not swap one. The x3 and packed routes turn the port's
+    # ulp-level run-to-run noise into rounding steps, so the counted
+    # forward above is not the execution the twin replays; how far it lies
+    # from it is printed, not held
     with torch.no_grad():
-        index = proposal_index(preds)
-        pins = PinnedRounding(on=spec.get('pin_rounding', False))
-        run = pinned_forward(model, inputs, index, pins)
+        pins = PinnedRounding()
+        run = pinned_forward(model, inputs, None, pins)
+        index = proposal_index(run)
         ref = pinned_forward(model, inputs, index, kernels.plain_kernels(),
-                             pins.replay())
+                             X3Plain(), pins.replay())
         alt = pinned_forward(model, inputs, index, kernels.plain_kernels(),
-                             ReorderedSums(), pins.replay())
+                             X3Plain(), ReorderedSums(), pins.replay())
         excess, differ = check_proposals(model.pts_bbox_head, index, ref)
         worst = compare_outputs(run, ref, alt)
+        again = rel_err(preds['dense_heatmap'], run['dense_heatmap'])[1]
+        moved = int((~(proposal_index(preds)[:, :, None]
+                       == index[:, None, :]).any(-1)).sum())
         del run, ref, alt, pins
+    print(f'{label}: the counted forward against the one the twin replays: '
+          f'dense_heatmap {again:.3g} of max, {moved} proposals differ',
+          flush=True)
     for key, (rel, limit, floor, median) in worst.items():
         print(f'{label}: kernel vs plain path: {key} {rel:.3g} of max |ref| '
               f'(limit {limit:.3g}; plain path with reordered sums '
@@ -1316,9 +1505,9 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
     return recs, launches
 
 
-def fp32_outputs(model, inputs):
-    """The fp32 path's own proposals and its head input, heatmap and boxes
-    on them, for the packed path's comparison."""
+def path_outputs(model, inputs):
+    """A path's own proposals and its head input, heatmap and boxes on
+    them, for another path's comparison."""
     import torch
     with torch.no_grad():
         index = proposal_index(forward(model, inputs)[0])
@@ -1327,22 +1516,48 @@ def fp32_outputs(model, inputs):
                                 'scores')} | dict(index=index)
 
 
-def packed_vs_fp32(model, inputs, fp32):
-    """How far the packed path lies from the fp32 path on the fp32 path's
-    proposals, and how many of its own proposals differ (printed, not
-    held: bf16 keeps 8 bits)."""
+def path_vs(label, model, inputs, ref):
+    """How far the path the switches pick lies from another path
+    (``path_outputs``) on that path's proposals, and how many of its own
+    proposals differ (printed, not held: another rounding)."""
     import torch
     with torch.no_grad():
         own = proposal_index(forward(model, inputs)[0])
-        run = pinned_forward(model, inputs, fp32['index'])
-    differ = int((~(own[:, :, None] == fp32['index'][:, None, :])
+        run = pinned_forward(model, inputs, ref['index'])
+    differ = int((~(own[:, :, None] == ref['index'][:, None, :])
                   .any(-1)).sum())
     for key in ('head_input', 'dense_heatmap', 'bboxes', 'scores'):
-        err, rel = rel_err(run[key], fp32[key])
-        print(f'MSMDFusion packed bf16 vs fp32 path: {key} {err:.4g} '
-              f'({rel:.4g} of max |fp32|) on the fp32 proposals', flush=True)
-    print(f'MSMDFusion packed bf16 vs fp32 path: {differ} of '
-          f'{own.numel()} own proposals differ', flush=True)
+        err, rel = rel_err(run[key], ref[key])
+        print(f'{label}: {key} {err:.4g} ({rel:.4g} of max |ref|) on its '
+              'proposals', flush=True)
+    print(f'{label}: {differ} of {own.numel()} own proposals differ',
+          flush=True)
+
+
+def highest_frame(model, inputs, card, expected):
+    """Phase 4's frame on the exact fp32 product (``MSMD_CONV_GEMM=
+    highest``, set around it only): the FFMA kernel's launches on the main
+    path, counted and held to ``expected``, no row dropped; then how far
+    the default x3 path lies from it (printed, not held). Returns its
+    launches."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.utils import overflow
+    with switches(HIGHEST['env']), torch.no_grad():
+        kernels.reset_launches()
+        with overflow.capture() as cap:
+            forward(model, inputs)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+        print(f'MSMDFusion highest: launches on the main path: {launches}',
+              flush=True)
+        check_launches('MSMDFusion highest', launches, expected)
+        check(cap.total() == 0, f'MSMDFusion highest: overflow '
+              f'{cap.counters()}')
+        exact = path_outputs(model, inputs)
+    path_vs(f'MSMDFusion x3 vs exact (highest) path [{card}]', model, inputs,
+            exact)
+    return launches
 
 
 def dense_engines(model, inputs, card, reps=3):
@@ -1466,33 +1681,43 @@ class ReluMasks:
 
 
 class PinnedRounding:
-    """The packed bf16 engine's rounding decisions, pinned like the ReLU
-    masks. Each of its convs rounds its input features (in the backward
-    the gradient, and both operands of ``dw``) to bf16, so an fp32 sum one
-    ulp apart in two paths (another order of the sums) can round to
-    neighbouring bf16 values, 2^-8 apart, and a deep stack of such convs
-    turns fp32 ulps into bf16 steps. Inside the scope (``on``), the
-    kernel path's ``gather_gemm_conv`` and ``conv_dw`` calls keep their
-    operands as rounded, in call order; inside ``replay()`` each plain
+    """The rounding decisions of the rulebook engine's tensor-core routes,
+    pinned like the ReLU masks. Each packed conv rounds its input features
+    (in the backward the gradient, and both operands of ``dw``) to bf16,
+    and each x3 conv splits them into bf16 hi + lo; so an fp32 sum one ulp
+    apart in two paths (another order of the sums) can round to
+    neighbouring bf16 values, 2^-8 apart, or split into another hi/lo pair
+    whose product moves by up to ~2^-17 (the dropped lo.lo and lo's own
+    rounding), and a deep stack of such convs turns fp32 ulps into those
+    steps (the x3 path and its x3 twin, unpinned: 5-9e-5 of the head
+    input's largest value on an H100 at full scale, against 1e-5 for the
+    exact kernels and their exact twin). Inside the scope, on the packed
+    or the x3 route, the kernel path's ``gather_gemm_conv`` and
+    ``conv_dw`` calls keep their operands (as rounded to bf16, packed; as
+    given, x3), in call order; inside ``replay()`` each plain
     ``gather_gemm_conv_plain``/``conv_dw_plain`` call takes those values
-    wherever its own rounding lands within one bf16 step of them, so that
-    both paths multiply the same bf16 operands and differ by fp32 sum
-    order alone. Off (the fp32 and one-hot engines) both scopes do
-    nothing."""
+    wherever its own lie within one step of them (one bf16 step, packed;
+    2^-16 of the binade, x3), so that both paths multiply the same bf16
+    operands and differ by fp32 sum order alone. On the exact and one-hot
+    routes both scopes do nothing."""
 
-    def __init__(self, on=True, kept=None):
-        self.on, self.replaying = on, kept is not None
+    def __init__(self, kept=None, bits=None):
+        from msmdfusion_torch.ops.sparse import matchconv as mc
+        self.replaying = kept is not None
         self.kept = [] if kept is None else kept
+        # the operands' resolution on the route: 8 bits (bf16), 16 (x3)
+        self.bits = bits if self.replaying else (
+            8 if mc.packed() else 16 if mc.x3() else None)
         self.calls = 0
 
     def replay(self):
-        return PinnedRounding(self.on, self.kept)
+        return PinnedRounding(self.kept, self.bits)
 
-    @staticmethod
-    def _step(x):
-        """One bf16 step (2^-8 of the binade) at |x|."""
+    def _step(self, x):
+        """One step of the route's resolution at |x|: 2^-bits of the
+        binade."""
         import torch
-        return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+        return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - self.bits)
 
     def _pin(self, x):
         import torch
@@ -1501,7 +1726,7 @@ class PinnedRounding:
         check(kept.shape == x.shape, f'pinned rounding call {self.calls}: '
               f'shape {tuple(x.shape)}, kept {tuple(kept.shape)}')
         self.calls += 1
-        mine = mc.bf16_round(x)
+        mine = mc.bf16_round(x) if self.bits == 8 else x
         near = (mine - kept).abs() <= self._step(
             torch.maximum(mine.abs(), kept.abs()))
         return torch.where(near, kept, x)
@@ -1509,12 +1734,13 @@ class PinnedRounding:
     def _keep(self, x):
         import torch
         from msmdfusion_torch.ops.sparse import matchconv as mc
-        self.kept.append(mc.bf16_round(x).to(torch.bfloat16))
+        self.kept.append(mc.bf16_round(x).to(torch.bfloat16)
+                         if self.bits == 8 else x.detach().clone())
 
     def __enter__(self):
         from msmdfusion_torch.ops.sparse import matchconv as mc
         self._mc = mc
-        if not self.on:
+        if self.bits is None:
             return self
         if self.replaying:
             names = ('gather_gemm_conv_plain', 'conv_dw_plain')
@@ -1540,7 +1766,7 @@ class PinnedRounding:
         return self
 
     def __exit__(self, *exc):
-        if not self.on:
+        if self.bits is None:
             return False
         for name, orig in zip(self._names, self._orig):
             setattr(self._mc, name, orig)
@@ -1660,7 +1886,7 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
 
     # one step's kernel calls, each against its plain version
     relu = ReluMasks()
-    pins = PinnedRounding(on=spec.get('pin_rounding', False))
+    pins = PinnedRounding()
     with Recorder() as rec:
         run = train_pass(model, inputs, gt, rec=rec, scopes=[relu, pins])
     restore_buffers()
@@ -1699,9 +1925,14 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
                                              else '_fwd')
                 recs[name] = conv_calls(calls, set(), 5, card, label=name,
                                         fp32=fp32.get(name))
+        # the exact (FFMA) kernels on the x3 kernels' calls
+        for x3, ffma in (('conv_dw_x3', 'conv_dw'),
+                         ('gather_gemm_conv_x3_bwd', 'gather_gemm_conv_bwd')):
+            if x3 in recs:
+                recs[ffma] = [r['ffma'] for r in recs[x3]]
     del rec
     for name, rs in recs.items():
-        extra = ''.join(f'{k}={v:.3f} ' for k, v in packed_shares(rs).items())
+        extra = ''.join(f'{k}={v:.3f} ' for k, v in route_shares(rs).items())
         print(f'{label}: {name} sums over one step: '
               f'{len(rs)} calls, ms={sum(r["ms"] for r in rs):.3f} '
               f'plain_ms={sum(r["plain_ms"] for r in rs):.3f} bound_ms='
@@ -1715,12 +1946,12 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
         pinned = dict(targets=run['targets'], index=run['index'],
                       head_grad=run['head_grad'])
         ref = train_pass(model, inputs, gt, scopes=[
-            kernels.plain_kernels(), ReluMasks(relu.masks), pins.replay()],
-            **pinned)
+            kernels.plain_kernels(), X3Plain(), ReluMasks(relu.masks),
+            pins.replay()], **pinned)
         restore_buffers()
         alt = train_pass(model, inputs, gt, scopes=[
-            kernels.plain_kernels(), ReorderedSums(), ReluMasks(relu.masks),
-            pins.replay()], **pinned)
+            kernels.plain_kernels(), X3Plain(), ReorderedSums(),
+            ReluMasks(relu.masks), pins.replay()], **pinned)
         restore_buffers()
         if spec['extras']:
             # what the masks are for: the kernel path once more with its
@@ -1876,23 +2107,30 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                                                       ONEHOT)):
     """Phases 4-7 on the calibrated flagship (``specs``: the fp32, packed
     and one-hot inference specs). Returns [(records, launches)] of the
-    seven drives in order."""
+    seven drives in order, then of phase 4's exact (FFMA) conv kernel: its
+    records on the x3 kernel's calls and the launches of the frame on
+    ``MSMD_CONV_GEMM=highest``."""
     fp32_spec, packed, onehot = specs
     calibrated = {k: v.detach().clone()
                   for k, v in model.state_dict().items()}
     phases = [drive('MSMDFusion', model, inputs, fp32_spec, card,
                     reps=dict(kernel=10, frame=10))]
-    fp32 = fp32_outputs(model, inputs)
+    exact = ({'gather_gemm_conv': phases[0][0]['gather_gemm_conv']},
+             highest_frame(model, inputs, card,
+                           highest_launches(fp32_spec['launches'])))
+    fp32 = path_outputs(model, inputs)
     dense_engines(model, inputs, card)
 
     # 5. the MSMDFusion train step
     phases.append(drive_train(model, inputs, gt, card))
-    # the fp32 kernels' records of the calls the packed ones make again
+    # the fp32 engine's (x3) kernels' records of the calls the packed ones
+    # make again
     same_calls = dict(
-        inference={'gather_gemm_conv_bf16': phases[0][0]['gather_gemm_conv']},
-        train={'conv_dw_bf16': phases[1][0]['conv_dw'],
+        inference={'gather_gemm_conv_bf16':
+                   phases[0][0]['gather_gemm_conv_x3']},
+        train={'conv_dw_bf16': phases[1][0]['conv_dw_x3'],
                'gather_gemm_conv_bf16_bwd':
-                   phases[1][0]['gather_gemm_conv_bwd']})
+                   phases[1][0]['gather_gemm_conv_x3_bwd']})
 
     # 6. the packed bf16 engine, 7. the one-hot engine: the calibrated
     # model again, the switch set around the phase only
@@ -1906,16 +2144,17 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                                 card, reps=dict(kernel=4, frame=5),
                                 fp32=ratios.get('inference')))
             if spec is packed:
-                packed_vs_fp32(model, inputs, fp32)
+                path_vs(f'MSMDFusion packed bf16 vs fp32 (x3) path [{card}]',
+                        model, inputs, fp32)
             phases.append(drive_train(model, inputs, gt, card, spec['train'],
                                       label=f'MSMDFusion {name} train',
                                       fp32=ratios.get('train')))
     model.load_state_dict(calibrated)
     model.eval()
     engines_interleaved(model, inputs, card, (
-        ('fp32', {}), ('packed bf16', packed['env']),
-        ('one-hot', onehot['env'])))
-    return phases
+        ('fp32', {}), ('fp32 highest', HIGHEST['env']),
+        ('packed bf16', packed['env']), ('one-hot', onehot['env'])))
+    return phases + [exact]
 
 
 def engines_interleaved(model, inputs, card, engines, rounds=6):
@@ -1995,11 +2234,16 @@ def report(phases, card):
         check(all(r['masked'] == masked for r in recs),
               f'{label}: calls with{"out" if masked else ""} masks')
         print(f'{rows_sums(label, recs)} [{card}]', flush=True)
-    # each kernel's records and launches from the first phase that ran it
+    # each kernel's records and launches from the first phase that has
+    # its records and launched it on its main path (the exact kernels run
+    # the x3 ones' calls in phases 4 and 5, on launches of 0 there: the
+    # conv's launches come from phase 4's frame on highest, conv_dw's from
+    # the one-hot step, which runs it)
     picked = {}
     for recs, launches in phases:
         for name in recs:
-            if name in KERNEL_INFO and name not in picked:
+            if name in KERNEL_INFO and name not in picked and \
+                    launches.get(name):
                 picked[name] = (recs[name], launches)
     check(set(picked) == set(KERNEL_INFO),
           f'kernels never checked: {sorted(set(KERNEL_INFO) - set(picked))}')
@@ -2008,7 +2252,8 @@ def report(phases, card):
 
 
 CARD_TESTS = ('tests/test_torch_rows_card.py',
-              'tests/test_torch_conv_bf16_card.py')
+              'tests/test_torch_conv_bf16_card.py',
+              'tests/test_torch_conv_x3_card.py')
 
 
 def card_tests():

@@ -1,6 +1,7 @@
-// Device helpers of the packed bf16 kernels (sm_80 and later): cp.async
-// copies into shared memory, fp32 pairs rounded into bf16x2 registers, and
-// the m16n8k16 bf16 tensor-core product with fp32 accumulators.
+// Device helpers of the bf16 tensor-core kernels (sm_80 and later):
+// cp.async copies into shared memory, fp32 pairs rounded (or split into
+// bf16 hi + lo, the x3 route) into bf16x2 registers, and the m16n8k16 bf16
+// tensor-core product with fp32 accumulators.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, c = lane % 4):
 //   A (16 x 16, row-major): a[0] rows g, cols 2c, 2c+1; a[1] rows g+8;
@@ -49,6 +50,18 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the x3 split of an fp32 pair (x, y), x in the low half: *h = its bf16
+// rounding, *l = the bf16 rounding of what that leaves (x - float(bf16(x)),
+// exact in fp32); *h + *l is the pair to ~2^-16 of each value
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t* h,
+                                           uint32_t* l) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  const float2 r = __bfloat1622float2(v);
+  __nv_bfloat162 w = __floats2bfloat162_rn(x - r.x, y - r.y);
+  *h = *reinterpret_cast<uint32_t*>(&v);
+  *l = *reinterpret_cast<uint32_t*>(&w);
 }
 
 // c += a @ b on one m16n8k16 tile

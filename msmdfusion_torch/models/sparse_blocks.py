@@ -12,10 +12,12 @@ ReLU) folded into its epilogue. In training mode the conv runs through
 the differentiable ``MatchConv`` with no epilogue, then a masked batch
 norm on the batch's valid rows and a masked ReLU; a strided conv also
 builds its transpose ("dual") plan (and its rows) once per
-``indice_key``, for the backward. Under ``MSMD_CONV_DTYPE=bfloat16``
-``attach_rows(..., order=True)`` also caches the ``RowOrder`` of each
-plan's rows (and its dual's) for the packed kernels, inside stage
-``plans``; in training mode with the weight gradient's pair lists. The
+``indice_key``, for the backward. Where the rulebook engine's kernels
+read it (``needs_order()``: the default x3 product and the packed bf16
+engine, not ``MSMD_CONV_GEMM=highest``), ``attach_rows(..., order=True)``
+also caches the ``RowOrder`` of each plan's rows (and its dual's),
+inside stage ``plans``; in training mode with the weight gradient's pair
+lists. The
 JAX package's ``MSMD_SPARSE_BACKEND`` (read by every conv) and
 ``MSMD_FUSE_BN`` (read in eval mode) are not ported: a value that selects
 another path there raises (``utils/switches.py``).
@@ -37,7 +39,7 @@ from ..ops.sparse.conv import downsample_out_coords, triple
 from ..ops.sparse.matchconv import (apply_match_conv, attach_rows,
                                     build_downsample_plan,
                                     build_dual_down_plan, build_subm_plan,
-                                    conv_algo, packed)
+                                    conv_algo, needs_order)
 from ..ops.sparse.tensor import SparseTensor
 from ..utils.switches import require_default
 from ..utils.timing import section
@@ -82,7 +84,8 @@ class SubMConv3d(_SparseConvBase):
                 plan = build_subm_plan(st, self.kernel_size)
                 if conv_algo() == 'vgather':
                     plan = attach_rows(st.keys, plan, site=self.indice_key,
-                                       order=packed(), pairs=self.training)
+                                       order=needs_order(),
+                                       pairs=self.training)
             cache[key] = plan
         with section('convs'):
             out = apply_match_conv(st, plan, self.taps(), st.coords,
@@ -123,7 +126,8 @@ class SparseConv3d(_SparseConvBase):
                 with_rows = conv_algo() == 'vgather'
                 if with_rows:
                     plan = attach_rows(st.keys, plan, site=self.indice_key,
-                                       order=packed(), pairs=self.training)
+                                       order=needs_order(),
+                                       pairs=self.training)
                 if self.training:
                     dual = build_dual_down_plan(
                         st, out_shape, self.kernel_size, self.stride,
@@ -131,7 +135,7 @@ class SparseConv3d(_SparseConvBase):
                     if with_rows:
                         dual = attach_rows(out_keys, dual,
                                            site=self.indice_key + '_dual',
-                                           order=packed())
+                                           order=needs_order())
                     plan = dataclasses.replace(plan, dual=dual,
                                                dual_keys=out_keys)
             entry = (out_keys, out_coords, out_valid, out_shape, plan)

@@ -10,7 +10,7 @@ plans of strided convs). ``attach_rows`` turns it into the rulebook ``rows
 every conv on that coordinate set then runs as a gather-GEMM over the same
 rows.
 
-Two switches, read from the environment at call time with the JAX
+Three switches, read from the environment at call time with the JAX
 package's names, values and defaults, pick the engine:
 
 - ``MSMD_CONV_ALGO`` (``conv_algo()``): ``vgather`` (default), the
@@ -22,10 +22,19 @@ package's names, values and defaults, pick the engine:
   the rulebook engine's forward and input gradient round the features and
   the weights to bf16 and multiply on the tensor cores with fp32 sums,
   and its weight gradient rounds both operands to bf16. The one-hot
-  engine ignores it, as the JAX package's ``_pallas_conv`` does.
+  engine ignores it, as the JAX package's ``_pallas_conv`` does;
+- ``MSMD_CONV_GEMM`` (``gemm_mode()``), the fp32 rulebook engine's
+  product on the card: ``x3`` (default), both operands split into bf16
+  hi + lo and three tensor-core products with fp32 sums (hi.hi + hi.lo +
+  lo.hi, ~2^-17 of each sum's magnitude from the exact product), or
+  ``highest``, the exact fp32 product (FFMA). The packed engine and the
+  one-hot engine ignore it (the one-hot weight gradient stays exact, as
+  the JAX package's ``_dw_from_rows`` is); the plain versions, which a
+  CPU tensor takes, compute the exact product either way, as the JAX
+  package's CPU fallback does.
 
 Any other value raises. The JAX package's TPU layout and engine knobs
-(``MSMD_CONV_SLAB``, ``_TILE``, ``_CW``, ``_COLW``, ``_GEMM``,
+(``MSMD_CONV_SLAB``, ``_TILE``, ``_CW``, ``_COLW``,
 ``_TAILMODE``, ``MSMD_ROWS_MIN_C``, ``MSMD_DENSE_CELLS``,
 ``MSMD_CONV_BACKEND``) have no counterpart, nor has
 ``MSMD_OVERFLOW_CHECK``: the port always counts overflow. Its switches
@@ -44,23 +53,26 @@ Hand-written CUDA kernels carry these paths (``csrc/``):
   plans either also writes each row's tap-hit mask, the key of the packed
   kernels' row order;
 - ``gather_gemm_conv``: the conv with its fused BN/ReLU/mask epilogue,
-  replacing ``_vgather_kernel`` (forward, fp32); the training backward
-  runs it again over the dual rows for the input gradient;
-- ``gather_gemm_conv_bf16``: the same conv on bf16 tensor cores,
-  replacing ``_vgather_kernel``'s packed mode; it walks the rows in the
-  plan's ``RowOrder`` (rows sorted by tap-hit mask; each 16-row slice
-  stages the OR of its masks), built by ``attach_rows`` beside the rows
-  for the sparse conv layers under ``packed()`` only;
-- ``conv_dw`` and ``conv_dw_bf16``: the weight gradient, replacing
-  ``_vgather_kernel``'s ``with_dw`` accumulator (fp32 and packed; the
-  packed one walks the ``RowOrder``'s per-tap hit pairs);
+  replacing ``_vgather_kernel`` (forward, fp32, ``MSMD_CONV_GEMM=
+  highest``); the training backward runs it again over the dual rows for
+  the input gradient;
+- ``gather_gemm_conv_bf16`` and ``gather_gemm_conv_x3``: the same conv on
+  bf16 tensor cores, replacing ``_vgather_kernel``'s packed mode and its
+  fp32 mode's default ``x3`` product; they walk the rows in the plan's
+  ``RowOrder`` (rows sorted by tap-hit mask; each 16-row slice stages the
+  OR of its masks), built by ``attach_rows`` beside the rows for the
+  sparse conv layers where ``needs_order()``;
+- ``conv_dw``, ``conv_dw_bf16`` and ``conv_dw_x3``: the weight gradient,
+  replacing ``_vgather_kernel``'s ``with_dw`` accumulator (fp32 exact,
+  packed and x3; the last two walk the ``RowOrder``'s per-tap hit
+  pairs);
 - ``match_conv``: the one-hot engine's conv, search and product fused,
   replacing ``_match_kernel``.
 
 Each wrapper launches its kernel for a CUDA tensor, raising if the build
 or the launch fails, and runs its plain PyTorch version for a CPU tensor
 (or inside ``kernels.plain_kernels()``). The TPU plan's slab brackets,
-column windows, duplicated sublanes and bf16 splits have no counterpart:
+column windows and duplicated sublanes have no counterpart:
 a key window that overflows the rows kernels' buffer is indexed, never
 cut, so no match is ever dropped.
 """
@@ -101,14 +113,49 @@ def conv_dtype() -> str:
     return dtype
 
 
+def gemm_mode() -> str:
+    """``MSMD_CONV_GEMM``: 'x3' (default: bf16 hi/lo split of both
+    operands, three tensor-core products) or 'highest' (the exact fp32
+    product), the fp32 rulebook engine's product on the card."""
+    mode = os.environ.get('MSMD_CONV_GEMM', 'x3')
+    if mode not in ('x3', 'highest'):
+        raise ValueError(f'MSMD_CONV_GEMM={mode!r}: expected x3 or highest')
+    return mode
+
+
 def packed() -> bool:
     """The rulebook engine in bf16 (the JAX package's packed mode)."""
     return conv_algo() == 'vgather' and conv_dtype() == 'bfloat16'
 
 
+def x3() -> bool:
+    """The rulebook engine in fp32 on its default ``x3`` product."""
+    return conv_algo() == 'vgather' and conv_dtype() == 'float32' and \
+        gemm_mode() == 'x3'
+
+
+def needs_order() -> bool:
+    """The rulebook engine's kernels read each plan's ``RowOrder``: the
+    packed and the x3 kernels do, the exact fp32 (``highest``) ones do
+    not."""
+    return packed() or x3()
+
+
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """fp32 values rounded to bf16 (to nearest, ties to even), as fp32."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_hi_lo(x: torch.Tensor):
+    """(hi, lo), fp32 tensors of bf16 values: ``hi = bf16(x)``, ``lo =
+    bf16(x - hi)`` (the subtraction is exact in fp32), so that ``hi + lo``
+    is ``x`` to ~2^-16 of its magnitude: the x3 kernels' split, the JAX
+    package's ``_split_hi_lo``."""
+    hi = bf16_round(x)
+    return hi, bf16_round(x - hi)
+
+
+GEMMS = ('exact', 'x3')     # the plain versions' products
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +174,8 @@ class MatchPlan:
     dkey: Optional[torch.Tensor] = None    # [Ta] int32 key offset per tap
     queries: Optional[torch.Tensor] = None  # [K_out, Ta] int32
     rows: Optional[torch.Tensor] = None   # [K_out, Ta] int32, -1 = miss
-    # the packed kernels' walk of ``rows`` (``row_order``; packed only)
+    # the tensor-core kernels' walk of ``rows`` (``row_order``; built
+    # where ``needs_order()``)
     order: Optional['RowOrder'] = None
     # centre-symmetric taps (dkey[Ta-1-t] == -dkey[t]): the plan is its own
     # transpose, with tap u <-> Ta-1-u
@@ -385,9 +433,9 @@ def plan_rows_plain(in_keys, plan: MatchPlan) -> torch.Tensor:
 def attach_rows(in_keys, plan: MatchPlan, site: str = '',
                 order: bool = False, pairs: bool = False) -> MatchPlan:
     """The plan with its rulebook rows (once per indice_key); with
-    ``order`` (the packed engine's plans) also with the packed kernels'
-    ``row_order`` of them, sorted by the masks the rows kernel writes in
-    the same launch (with the weight gradient's pair lists where
+    ``order`` (where ``needs_order()``) also with the tensor-core
+    kernels' ``row_order`` of them, sorted by the masks the rows kernel
+    writes in the same launch (with the weight gradient's pair lists where
     ``pairs``: a training plan's forward rows, not a dual's, which only the
     input gradient's conv reads)."""
     if order:
@@ -404,12 +452,13 @@ def attach_rows(in_keys, plan: MatchPlan, site: str = '',
     return dataclasses.replace(plan, rows=rows, order=walk)
 
 
-SLICE_ROWS = 16     # rows of one mma.sync tile: the packed conv's skip unit
+SLICE_ROWS = 16     # rows of an mma.sync tile: the tensor-core convs' skip
 
 
 @dataclasses.dataclass(frozen=True)
 class RowOrder:
-    """How the packed bf16 kernels walk a rulebook ``rows [K, Ta]``.
+    """How the tensor-core kernels (packed bf16 and x3) walk a rulebook
+    ``rows [K, Ta]``.
 
     ``perm[s]`` is the row at sorted position ``s``: the rows stably
     sorted by their tap-hit mask (bit t set where ``rows[r, t] >= 0``), so
@@ -484,9 +533,22 @@ def apply_epilogue(out, out_valid=None, scale=None, shift=None,
     return out
 
 
-def _rows_product(feats, rows, weights):
+def _check_gemm(gemm: str) -> None:
+    if gemm not in GEMMS:
+        raise ValueError(f'gemm={gemm!r}: expected one of {GEMMS}')
+
+
+def _rows_product(feats, rows, weights, gemm: str = 'exact'):
     """sum_t feats[rows[:, t]] @ weights[t] in fp32, per-tap index_select
-    and matmul."""
+    and matmul; ``gemm='x3'``: hi.hi + hi.lo + lo.hi of both operands'
+    ``split_hi_lo``, one matmul of the bf16-valued fp32 parts per tap
+    (products exact, sums in fp32)."""
+    _check_gemm(gemm)
+    if gemm == 'x3':
+        hi, lo = split_hi_lo(feats)
+        feats = torch.cat([hi, hi, lo], 1)
+        w_hi, w_lo = split_hi_lo(weights)
+        weights = torch.cat([w_hi, w_lo, w_hi], 1)
     k_out, ta = rows.shape
     out = feats.new_zeros((k_out, weights.shape[2]))
     for t in range(ta):
@@ -498,16 +560,21 @@ def _rows_product(feats, rows, weights):
 
 
 def gather_gemm_conv_plain(feats, rows, weights, scale=None, shift=None,
-                           relu: bool = False, out_valid=None, order=None):
-    """Plain version of ``gather_gemm_conv`` (and, under ``packed()``, of
+                           relu: bool = False, out_valid=None, order=None,
+                           gemm: str = 'exact'):
+    """Plain version of ``gather_gemm_conv``: the exact fp32 product
+    (``gemm='exact'``, the ``highest`` kernel's function and the CPU
+    path's) or the x3 kernel's (``gemm='x3'``, the operands split as the
+    kernel splits them); under ``packed()``, whatever ``gemm``, that of
     ``gather_gemm_conv_bf16``: features and unscaled weights rounded to
-    bf16, products and sums in fp32, the epilogue on the fp32 sum). It
+    bf16, products and sums in fp32. The epilogue runs on the fp32 sum. It
     sums in row order: ``order`` is taken and not needed."""
     del order
     if packed():
-        feats, weights = bf16_round(feats), bf16_round(weights)
-    return apply_epilogue(_rows_product(feats, rows, weights), out_valid,
-                          scale, shift, relu)
+        feats, weights, gemm = bf16_round(feats), bf16_round(weights), \
+            'exact'
+    return apply_epilogue(_rows_product(feats, rows, weights, gemm),
+                          out_valid, scale, shift, relu)
 
 
 def _check_epilogue(dev, k_out, cout, scale, shift, out_valid):
@@ -550,18 +617,37 @@ def _check_order(name, order: Optional[RowOrder], rows, pairs) -> None:
                          f'{tuple(rows.shape)}')
 
 
-def packed_weights(weights):
-    """(wt, np, kc): the weights [Ta, Cin, Cout] rounded to bf16 once, as
-    [Ta, Cout padded to np (times column blocks), Cin padded to kc] with
-    Cin fastest, the layout ``gather_gemm_conv_bf16`` stages; kc, the
-    depth of one staged chunk, is 32 where it divides Cin, else 16."""
+def _weights_layout(weights):
+    """(wt, np, kc): the weights [Ta, Cin, Cout] as [Ta, Cout padded to np
+    (times column blocks), Cin padded to kc] with Cin fastest, fp32; kc,
+    the depth of one staged chunk, is 32 where it divides Cin, else 16."""
     _, cin, cout = weights.shape
     np_ = next((w for w in PACKED_WIDTHS if w >= cout), PACKED_WIDTHS[-1])
     kc = 32 if cin % 32 == 0 else 16
     wt = torch.nn.functional.pad(weights.transpose(1, 2),
                                  (0, -cin % kc, 0, -cout % np_))
-    return wt.to(torch.bfloat16, memory_format=torch.contiguous_format), \
-        np_, kc
+    return wt, np_, kc
+
+
+def _as_bf16(x):
+    return x.to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def packed_weights(weights):
+    """(wt, np, kc): the weights [Ta, Cin, Cout] rounded to bf16 once, in
+    the layout ``gather_gemm_conv_bf16`` stages (``_weights_layout``)."""
+    wt, np_, kc = _weights_layout(weights)
+    return _as_bf16(wt), np_, kc
+
+
+def x3_weights(weights):
+    """(hi, lo, np, kc): the weights' ``split_hi_lo`` parts as bf16, once
+    per call, each in ``packed_weights``' layout: what
+    ``gather_gemm_conv_x3`` stages (the same values in fewer launches: the
+    frame is host-bound)."""
+    wt, np_, kc = _weights_layout(weights)
+    hi = _as_bf16(wt)
+    return hi, _as_bf16(wt - hi.float()), np_, kc
 
 
 def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
@@ -571,11 +657,14 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
 
     feats [K_in, Cin] f32; rows [K_out, Ta] int32 (-1 = miss); weights
     [Ta, Cin, Cout] f32; scale/shift [Cout] f32; out_valid [K_out] bool.
-    fp32 (kernel ``gather_gemm_conv``), or under ``packed()`` bf16
-    operands with fp32 sums (kernel ``gather_gemm_conv_bf16``), which walks
-    the rows in ``order``: the plan's ``row_order(rows)``, which the sparse
-    conv layers have ``attach_rows`` build under ``packed()``; a CUDA call
-    without it raises.
+    On the card: the x3 product (kernel ``gather_gemm_conv_x3``, the
+    default), the exact fp32 one under ``MSMD_CONV_GEMM=highest`` (kernel
+    ``gather_gemm_conv``), or under ``packed()`` bf16 operands with fp32
+    sums (kernel ``gather_gemm_conv_bf16``). The x3 and packed kernels
+    walk the rows in ``order``: the plan's ``row_order(rows)``, which the
+    sparse conv layers have ``attach_rows`` build where ``needs_order()``;
+    a CUDA call without it raises. A CPU tensor takes the plain version's
+    exact product (bf16 operands under ``packed()``).
     """
     dev = feats.device
     check_tensor('feats', feats, torch.float32, 2, dev)
@@ -593,17 +682,22 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     out = torch.empty((k_out, cout), dtype=torch.float32, device=dev)
     epilogue = (_ptr(scale), _ptr(shift), int(relu), _ptr(out_valid),
                 out.data_ptr())
-    if not packed():
+    if packed() or x3():
+        name = 'gather_gemm_conv_bf16' if packed() else 'gather_gemm_conv_x3'
+        _check_order(name, order, rows, pairs=False)
+        if packed():
+            wt, np_, kc = packed_weights(weights)
+            parts = (wt.data_ptr(),)
+        else:
+            wt, lo, np_, kc = x3_weights(weights)
+            parts = (wt.data_ptr(), lo.data_ptr())
+        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
+                order.perm.data_ptr(), order.masks.data_ptr(), *parts, np_,
+                kc, wt.shape[2], cout, *epilogue)
+    else:
         name = 'gather_gemm_conv'
         args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
                 weights.data_ptr(), cout, *epilogue)
-    else:
-        name = 'gather_gemm_conv_bf16'
-        _check_order(name, order, rows, pairs=False)
-        wt, np_, kc = packed_weights(weights)
-        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
-                order.perm.data_ptr(), order.masks.data_ptr(),
-                wt.data_ptr(), np_, kc, wt.shape[2], cout, *epilogue)
     fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
         kernels.check(name, fn(*args,
@@ -681,19 +775,32 @@ def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
 # kernel D: the weight gradient
 # ---------------------------------------------------------------------------
 
-def conv_dw_plain(feats, rows, g, order=None) -> torch.Tensor:
-    """Plain version of ``conv_dw`` (and, under ``packed()``, of
-    ``conv_dw_bf16``: both operands rounded to bf16, fp32 sums): per-tap
-    index_select and product over all rows (``order`` is not needed)."""
+def conv_dw_plain(feats, rows, g, order=None,
+                  gemm: str = 'exact') -> torch.Tensor:
+    """Plain version of ``conv_dw``: the exact fp32 product (``gemm=
+    'exact'``) or the x3 kernel's (``gemm='x3'``: hi.hi + hi.lo + lo.hi of
+    both operands' ``split_hi_lo``, one matmul of the bf16-valued parts
+    per tap, products exact, fp32 sums); under ``packed()``, whatever
+    ``gemm``, that of ``conv_dw_bf16``: both operands rounded to bf16,
+    fp32 sums. Per-tap index_select and product over all rows (``order``
+    is not needed)."""
     del order
+    _check_gemm(gemm)
     if packed():
-        feats, g = bf16_round(feats), bf16_round(g)
+        feats, g, gemm = bf16_round(feats), bf16_round(g), 'exact'
+    if gemm == 'x3':
+        g_hi, g_lo = split_hi_lo(g)
+        g = torch.cat([g_hi, g_lo, g_hi], 0)
     k_out, ta = rows.shape
     dw = feats.new_empty((ta, feats.shape[1], g.shape[1]))
     for t in range(ta):
         r = rows[:, t]
         gath = feats.index_select(0, torch.clamp(r, min=0).to(torch.int64))
-        dw[t] = torch.where((r >= 0)[:, None], gath, 0.0).T @ g
+        x = torch.where((r >= 0)[:, None], gath, 0.0)
+        if gemm == 'x3':
+            hi, lo = split_hi_lo(x)
+            x = torch.cat([hi, hi, lo], 0)
+        dw[t] = x.T @ g
     return dw
 
 
@@ -748,12 +855,16 @@ def conv_dw(feats, rows, g, order: Optional[RowOrder] = None) -> torch.Tensor:
     weight gradient of ``gather_gemm_conv(feats, rows, w)`` under the
     output gradient ``g`` [K_out, Cout]. The sum over the rows runs in a
     fixed order (per-chunk partials, then their sum in chunk order), so
-    repeated calls give the same bits. Under ``packed()`` kernel
-    ``conv_dw_bf16`` rounds both operands to bf16 and walks each tap's hit
+    repeated calls give the same bits. On the card: the rulebook engine's
+    x3 product by default (kernel ``conv_dw_x3``), bf16 operands under
+    ``packed()`` (kernel ``conv_dw_bf16``), both walking each tap's hit
     pairs only: ``order``, the plan's ``row_order(rows)`` with its pair
-    lists, which the training layers have ``attach_rows`` build under
-    ``packed()``; a CUDA call without them raises. Same fixed-order
-    sums."""
+    lists, which the training layers have ``attach_rows`` build where
+    ``needs_order()``; a CUDA call without them raises. The exact fp32
+    product (kernel ``conv_dw``) under ``MSMD_CONV_GEMM=highest`` and for
+    the one-hot engine, whose rows carry no order. Same fixed-order sums
+    throughout. A CPU tensor takes the plain version's exact product
+    (bf16 operands under ``packed()``)."""
     dev = feats.device
     check_tensor('feats', feats, torch.float32, 2, dev)
     check_tensor('rows', rows, torch.int32, 2, dev)
@@ -766,17 +877,8 @@ def conv_dw(feats, rows, g, order: Optional[RowOrder] = None) -> torch.Tensor:
     if not kernels.use_kernel(feats):
         return conv_dw_plain(feats, rows, g)
     dw = torch.empty((ta, cin, cout), dtype=torch.float32, device=dev)
-    if not packed():
-        name = 'conv_dw'
-        tile, n_chunks, chunk_rows = conv_dw_launch(k_out, ta, cin, cout)
-        partials = (torch.empty((n_chunks, ta, cin, cout),
-                                dtype=torch.float32, device=dev)
-                    if n_chunks > 1 else None)
-        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
-                g.data_ptr(), cout, tile, n_chunks, chunk_rows,
-                _ptr(partials), dw.data_ptr())
-    else:
-        name = 'conv_dw_bf16'
+    if packed() or x3():
+        name = 'conv_dw_bf16' if packed() else 'conv_dw_x3'
         _check_order(name, order, rows, pairs=True)
         tile, chunk, n_chunks = conv_dw_bf16_launch(order.tap_hits, cin,
                                                     cout)
@@ -786,6 +888,15 @@ def conv_dw(feats, rows, g, order: Optional[RowOrder] = None) -> torch.Tensor:
                 order.pair_in.data_ptr(), order.pair_out.data_ptr(),
                 order.tap_start.data_ptr(), tile, chunk, n_chunks,
                 partials.data_ptr(), dw.data_ptr())
+    else:
+        name = 'conv_dw'
+        tile, n_chunks, chunk_rows = conv_dw_launch(k_out, ta, cin, cout)
+        partials = (torch.empty((n_chunks, ta, cin, cout),
+                                dtype=torch.float32, device=dev)
+                    if n_chunks > 1 else None)
+        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
+                g.data_ptr(), cout, tile, n_chunks, chunk_rows,
+                _ptr(partials), dw.data_ptr())
     fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
         kernels.check(name, fn(*args,
@@ -804,9 +915,10 @@ class MatchConv(torch.autograd.Function):
       weights tap-flipped and transposed (a submanifold plan is its own
       transpose; a strided plan carries its ``dual``, matched against
       ``dual_keys``), only when the features need a gradient;
-    - ``d_weights``: kernel ``conv_dw`` over the forward rows; the one-hot
-      engine builds them here, one ``rows_affine``/``rows_queries`` launch
-      per conv, as the JAX package's ``_pallas_bwd`` does.
+    - ``d_weights``: ``conv_dw`` over the forward rows (with the plan's
+      order); the one-hot engine builds them here, one
+      ``rows_affine``/``rows_queries`` launch per conv, as the JAX
+      package's ``_pallas_bwd`` does, and takes the exact product.
     """
 
     @staticmethod
@@ -861,7 +973,8 @@ def dual_rows(plan: MatchPlan) -> torch.Tensor:
 
 
 def dual_order(plan: MatchPlan) -> Optional[RowOrder]:
-    """The ``row_order`` of ``dual_rows(plan)`` (None off ``packed()``)."""
+    """The ``row_order`` of ``dual_rows(plan)`` (None where the plans
+    carry none)."""
     return plan.order if plan.self_transpose else plan.dual.order
 
 

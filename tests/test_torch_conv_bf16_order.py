@@ -16,10 +16,12 @@ seed (submanifold, strided and the strided conv's dual):
   compared;
 - the rows wrappers return each row's tap-hit mask beside the rows when
   asked (the kernels write it in the same launch);
-- the order is built only under ``packed()`` (fp32 and one-hot plans carry
-  none), by ``attach_rows`` beside the rows and cached on the plan and its
-  dual, and ``MatchConv`` hands the plan's orders to the packed kernels,
-  which refuse to run without them;
+- the order is built where ``needs_order()``: under ``packed()`` and on
+  the fp32 engine's default x3 route, whose kernels walk it too
+  (``MSMD_CONV_GEMM=highest`` and one-hot plans carry none), by
+  ``attach_rows`` beside the rows and cached on the plan and its dual, and
+  ``MatchConv`` hands the plan's orders to the packed kernels, which
+  refuse to run without them;
 - the weight gradient's chunking is a function of the plan and shapes.
 
 ``test_torch_conv_bf16_card.py`` holds the kernels themselves to their
@@ -261,13 +263,15 @@ def test_order_only_under_packed(monkeypatch):
     subm_layer = sparse_blocks.SubMConv3d(8, 8, 3, indice_key='s').train()
     down_layer = sparse_blocks.SparseConv3d(8, 8, 3, stride=2, padding=1,
                                             indice_key='d').train()
-    for env, packed in (({}, False), ({'MSMD_CONV_DTYPE': 'bfloat16'}, True),
+    for env, packed in (({}, True), ({'MSMD_CONV_DTYPE': 'bfloat16'}, True),
+                        ({'MSMD_CONV_GEMM': 'highest'}, False),
                         ({'MSMD_CONV_ALGO': 'onehot'}, False)):
-        for k in ('MSMD_CONV_DTYPE', 'MSMD_CONV_ALGO'):
+        for k in ('MSMD_CONV_DTYPE', 'MSMD_CONV_ALGO', 'MSMD_CONV_GEMM'):
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)
-        assert tmc.packed() == packed
+        # the packed and the (default) x3 kernels walk the order
+        assert tmc.needs_order() == packed
         _, cache = subm_layer(t, {})
         _, cache = down_layer(t, cache)
         subm = cache[('subm', 's')]
@@ -275,7 +279,7 @@ def test_order_only_under_packed(monkeypatch):
         assert (subm.order is not None) == packed
         assert (plan.order is not None) == packed
         assert (plan.dual.order is not None) == packed
-        # without the switch the plans carry no order; one-hot no rows
+        # under highest the plans carry no order; one-hot no rows
         assert (subm.rows is not None) == (env != {'MSMD_CONV_ALGO':
                                                    'onehot'})
         if packed:
@@ -300,6 +304,8 @@ def test_order_only_under_packed(monkeypatch):
 
 @pytest.mark.parametrize('packed', [False, True])
 def test_sparse_blocks_cache_the_order(packed, monkeypatch):
+    # packed, or the fp32 engine's default x3 route: both walk the order
+    monkeypatch.delenv('MSMD_CONV_GEMM', raising=False)
     if packed:
         monkeypatch.setenv('MSMD_CONV_DTYPE', 'bfloat16')
     rng = np.random.RandomState(44)
@@ -314,17 +320,16 @@ def test_sparse_blocks_cache_the_order(packed, monkeypatch):
     out, cache = down(out, cache)
     plan = cache[('subm', 's')]
     dplan = cache[('spconv', 'd')][-1]
-    assert (plan.order is not None) == packed
-    assert (dplan.order is not None) == packed
-    assert (dplan.dual.order is not None) == packed
+    assert plan.order is not None
+    assert dplan.order is not None
+    assert dplan.dual.order is not None
     assert isinstance(out, SparseTensor)
-    if packed:
-        # training-mode layers build the weight gradient's pair lists
-        assert plan.order.tap_hits is not None
-        assert dplan.order.tap_hits is not None
-        subm.eval()
-        _, cache = subm(st, {})
-        assert cache[('subm', 's')].order.tap_hits is None
+    # training-mode layers build the weight gradient's pair lists
+    assert plan.order.tap_hits is not None
+    assert dplan.order.tap_hits is not None
+    subm.eval()
+    _, cache = subm(st, {})
+    assert cache[('subm', 's')].order.tap_hits is None
 
 
 def test_matchconv_hands_the_plans_orders_to_the_kernels(bf16, monkeypatch):
