@@ -13,8 +13,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
    process per source, all started together, into
    ``msmdfusion_torch/_build/``; then the kernels' card tests
    (``tests/test_torch_rows_card.py``, ``tests/test_torch_conv_bf16_card.py``,
-   ``tests/test_torch_conv_x3_card.py``: JAX-free, every test must pass) in
-   a child process;
+   ``tests/test_torch_conv_x3_card.py``,
+   ``tests/test_torch_match_conv_card.py``: JAX-free, every test must
+   pass) in a child process;
 3. TransFusion-L: ``configs/transfusion_nusc_voxel_L.py`` at full width
    (1440 x 1440 x 41 grid, 160k voxel capacity, the flagship's measured
    encoder stage capacities), weights drawn from a seed, one 250k-point
@@ -76,15 +77,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
    engine's kernel's (x3) on the same call in phase 4 or 5
    (``fp32_ratio``);
 7. the one-hot engine (``MSMD_CONV_ALGO=onehot``): no rulebook rows, every
-   conv matches its plan's queries in kernel ``match_conv``: the path
-   below with every call held to its plain version, launches (37/8/3, no
-   rows kernel), the twin and ms/frame; then the train step with the
-   forward and backward ``match_conv`` calls, the 37 ``rows_affine`` calls
-   that build each conv's ``dw`` rows in the backward and ``conv_dw``
-   against their plain versions, a counted step (launches 37/73/37/8/3)
-   and 2 timed steps (its ``dw`` stays on the exact kernel
-   ``conv_dw``, whatever ``MSMD_CONV_GEMM``). Last, the engines' frames
-   interleaved (fp32 x3, fp32 highest, packed, one-hot: one of each per
+   conv matches its plan's queries inside its kernel, on the x3 product
+   by default (kernel ``match_conv_x3``): the path below with every call
+   held to its x3 plain version and the exact one, run again on the exact
+   (FFMA) kernel ``match_conv`` under ``MSMD_CONV_GEMM=highest`` (set
+   around that call only: ``ffma_ratio``), with its useful share (hits
+   over the row-taps the kernel stages with each block's rows sorted by
+   tap-hit mask), launches (37/8/3, no rows kernel), the twin on the
+   x3 plain versions with the x3 split pinned as in phases 4-5, and
+   ms/frame; one counted frame on ``highest`` (launches 37/8/3 with
+   ``match_conv``); then ``match_conv_bf16``, the bf16-feature mode no
+   model reaches yet, on the frame's 37 calls with their features rounded
+   to bf16 (``match_bf16_calls``: its path's launches, each call within
+   one bf16 ulp of the plain bf16 version plus 1e-4 of its sum's
+   magnitude and bit-equal to it on at least ``BF16_EQUAL`` of its
+   elements, timed); then the train step with the forward and backward
+   ``match_conv_x3`` calls (held and timed as above), the 37
+   ``rows_affine`` calls that build each conv's ``dw`` rows in the
+   backward and the exact ``conv_dw`` (the one-hot ``dw`` stays exact
+   whatever ``MSMD_CONV_GEMM``, as the JAX package's ``HIGHEST``
+   ``_dw_from_rows`` is) against their plain versions, a counted step
+   (launches 37/73/37/8/3) and 2 timed steps. Last, the engines' frames
+   interleaved (fp32 x3, fp32 highest, packed, one-hot x3: one of each per
    round, 6 rounds), the frame and its stage ``plans`` per engine, so that
    a slow stretch of the host falls on all of them.
 
@@ -119,14 +133,17 @@ are set to 0, one forward + decode runs, and the counts are read and
 asserted; boxes must be finite, scores in [0, 1], no row dropped at any
 capacity; the kernel path once more, keeping its conv operands
 (``PinnedRounding``), and the same forward on the plain versions,
-replaying them and decoding that kernel forward's proposals, must give a
-top-k choice of its heatmap and agree
+replaying them and decoding that kernel forward's proposals
+(``PinnedProposals``: its cells, kept by the local-max NMS), must agree
 within 1e-4 of max up to the head's decoder (the head's input and the
-dense heatmap), and after it (decoder outputs, boxes) within 10 times the
-plain path's own spread under reordered sums (never less than 1e-4): the
+dense heatmap), and after it (decoder outputs, boxes; a box's yaw through
+the head's ``rot``, of which it is the angle) within 10 times the plain
+path's own spread under reordered sums (never less than 1e-4): the
 decoder's attention amplifies rounding (how far the counted forward lies
 from the replayed one is printed: the x3 and packed routes turn ulp-level
-run-to-run noise into rounding steps); then per-stage CUDA-event times,
+run-to-run noise into rounding steps); the proposals must be the head's
+own choice on a heatmap within 1e-4 of max of the plain one
+(``check_proposals``: the kernel path's); then per-stage CUDA-event times,
 ms/frame, frames/s, peak memory and a profile with the device's idle
 share.
 
@@ -143,11 +160,13 @@ masks, which the x3 kernels' row order needs), ``gather_gemm_conv_x3``,
 ``gather_gemm_conv`` timed on phase 4's calls with the launches of the
 frame on ``highest``, phase 6's inference for ``gather_gemm_conv_bf16``
 and train step for ``conv_dw_bf16``, phase 7's inference for
-``match_conv`` and train step for the exact ``conv_dw``. The bf16 and x3
-kernels' bound takes the card's dense bf16 tensor rate (three products
-for x3); their entries also carry ``useful_share``, the packed ones
-``fp32_ratio`` and the x3 ones ``ffma_ratio``, the rows kernels'
-``searchsorted_ratio`` (back to back), ``device_ms`` and
+``match_conv_x3``, its frame on ``highest`` for the exact ``match_conv``
+(timed on the x3 kernel's calls), its bf16 check for ``match_conv_bf16``
+and its train step for the exact ``conv_dw``. The bf16 and x3 kernels'
+bound takes the card's dense bf16 tensor rate (``TENSOR_PASSES``: three
+products for x3, two for the one-hot bf16 kernel); their entries also
+carry ``useful_share``, the packed ones ``fp32_ratio``, the x3 ones
+``ffma_ratio``, the rows kernels' ``searchsorted_ratio`` (back to back), ``device_ms`` and
 ``device_ratio`` (the device's time alone) and ``design_bound_ms``. The
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -173,6 +192,10 @@ TOL = 1e-4                      # of the largest |reference| value
 # after the head's decoder: times the plain path's own spread under
 # reordered sums
 FLOOR_MARGIN = 10
+# share of a bf16 kernel's elements bit-equal to its plain version: the two
+# differ by fp32 sum order alone, which flips a bf16 rounding rarely; a
+# dropped weight pass (W_hi alone) flips a fifth to a half of them
+BF16_EQUAL = 0.999
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, fp32 FLOP/s outside the tensor
 # cores (the exact kernels run fp32 FFMA), both at the 700 W power limit
 PEAK_BYTES = 3.35e12
@@ -231,10 +254,9 @@ HIGHEST = dict(env={'MSMD_CONV_GEMM': 'highest'})
 
 
 def highest_launches(launches):
-    """The launches of a frame on ``HIGHEST`` for the fp32 path's
-    ``launches``."""
-    return {('gather_gemm_conv' if k == 'gather_gemm_conv_x3' else k): v
-            for k, v in launches.items()}
+    """The launches of a frame on ``HIGHEST`` for an fp32 path's
+    ``launches``: each x3 conv kernel's on its exact (FFMA) one."""
+    return {FFMA.get(k, k): v for k, v in launches.items()}
 # phase 6: the JAX package's benchmarked setting (bench.py:116-120), the
 # rulebook engine with bf16 operands; the same plans, rows and counts
 PACKED = dict(
@@ -247,13 +269,14 @@ PACKED = dict(
                          'masked_nn': 8, 'merge_take': 3},
                steps=3, twin=True, extras=False))
 # phase 7: the one-hot engine, no rulebook: every conv searches its
-# queries; the backward builds each conv's rows for dw (37 rows_affine)
+# queries (on the x3 product by default); the backward builds each conv's
+# rows for dw (37 rows_affine), whose product stays exact
 ONEHOT = dict(
     env={'MSMD_CONV_ALGO': 'onehot'},
-    launches={'match_conv': 37, 'masked_nn': 8, 'merge_take': 3},
+    launches={'match_conv_x3': 37, 'masked_nn': 8, 'merge_take': 3},
     widths=FLAGSHIP['widths'],
-    train=dict(launches={'rows_affine': 37, 'match_conv': 73, 'conv_dw': 37,
-                         'masked_nn': 8, 'merge_take': 3},
+    train=dict(launches={'rows_affine': 37, 'match_conv_x3': 73,
+                         'conv_dw': 37, 'masked_nn': 8, 'merge_take': 3},
                steps=2, twin=False, extras=False))
 KERNEL_INFO = {
     'rows_affine': dict(
@@ -283,6 +306,12 @@ KERNEL_INFO = {
     'match_conv': dict(
         route='cuda', source='msmdfusion_torch/csrc/match_conv.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:615'),
+    'match_conv_x3': dict(
+        route='cuda', source='msmdfusion_torch/csrc/match_conv.cu',
+        replaces='msmdfusion_tpu/ops/sparse/matchconv.py:615'),
+    'match_conv_bf16': dict(
+        route='cuda', source='msmdfusion_torch/csrc/match_conv.cu',
+        replaces='msmdfusion_tpu/ops/sparse/matchconv.py:615'),
     'masked_nn': dict(
         route='cuda', source='msmdfusion_torch/csrc/masked_nn.cu',
         replaces='msmdfusion_tpu/ops/nn_argmin.py:25'),
@@ -291,12 +320,23 @@ KERNEL_INFO = {
         replaces='msmdfusion_tpu/ops/sparse/merge_take.py:64'),
 }
 # the wrapper that launches each kernel where it is not the kernel's name:
-# the rulebook conv and dw wrappers pick their bf16 tensor-core kernels by
-# the switches
+# the conv and dw wrappers pick their bf16 tensor-core kernels by the
+# switches (and the one-hot conv by its features' dtype)
 WRAPPER = {'gather_gemm_conv_bf16': 'gather_gemm_conv',
            'conv_dw_bf16': 'conv_dw',
            'gather_gemm_conv_x3': 'gather_gemm_conv',
-           'conv_dw_x3': 'conv_dw'}
+           'conv_dw_x3': 'conv_dw',
+           'match_conv_x3': 'match_conv',
+           'match_conv_bf16': 'match_conv'}
+# each x3 kernel's exact (FFMA) counterpart, under MSMD_CONV_GEMM=highest
+FFMA = {'gather_gemm_conv_x3': 'gather_gemm_conv', 'conv_dw_x3': 'conv_dw',
+        'match_conv_x3': 'match_conv'}
+# bf16 tensor-core products a kernel's FLOP take: the packed kernels one,
+# the bf16-feature one-hot kernel two (hi and lo of the weights), the x3
+# kernels three; the others run fp32 FFMA
+TENSOR_PASSES = {'gather_gemm_conv_bf16': 1, 'conv_dw_bf16': 1,
+                 'match_conv_bf16': 2, 'gather_gemm_conv_x3': 3,
+                 'conv_dw_x3': 3, 'match_conv_x3': 3}
 
 
 def as_recorded(launches):
@@ -308,26 +348,33 @@ def as_recorded(launches):
 
 
 def kernel_of(wrapper):
-    """The kernel a conv or dw wrapper launches under the switches."""
+    """The kernel a conv or dw wrapper launches under the switches (the
+    one-hot conv on fp32 features)."""
     from msmdfusion_torch.ops.sparse import matchconv as mc
-    if wrapper in WRAPPER.values() and mc.packed():
+    if wrapper == 'match_conv':
+        return mc.match_kernel()
+    if wrapper in ('gather_gemm_conv', 'conv_dw') and mc.packed():
         return wrapper + '_bf16'
-    if wrapper in WRAPPER.values() and mc.x3():
+    if wrapper in ('gather_gemm_conv', 'conv_dw') and mc.x3():
         return wrapper + '_x3'
     return wrapper
 
 
-def ops_ms(hits, cin, cout):
-    """The least time of a rulebook conv's or dw's products on the route
-    the switches pick: 2 x hits x Cin x Cout FLOP at the fp32 rate (FFMA;
-    the one-hot engine too), at the dense bf16 tensor rate (packed), or 3
-    times that at the bf16 rate (x3: hi.hi, hi.lo and lo.hi)."""
+def x3_route():
+    """The fp32 convs run on an x3 kernel: the rulebook engine's or the
+    one-hot one's."""
     from msmdfusion_torch.ops.sparse import matchconv as mc
+    return mc.x3() or (mc.conv_algo() == 'onehot'
+                       and mc.match_kernel() == 'match_conv_x3')
+
+
+def ops_ms(name, hits, cin, cout):
+    """The least time of conv or dw kernel ``name``'s products: 2 x hits
+    x Cin x Cout FLOP at the fp32 rate (FFMA), or that times its
+    ``TENSOR_PASSES`` at the dense bf16 tensor rate."""
     flop = 2.0 * hits * cin * cout
-    if mc.packed():
-        return flop / PEAK_BF16 * 1e3
-    if mc.x3():
-        return 3 * flop / PEAK_BF16 * 1e3
+    if name in TENSOR_PASSES:
+        return TENSOR_PASSES[name] * flop / PEAK_BF16 * 1e3
     return flop / PEAK_FP32 * 1e3
 
 
@@ -827,7 +874,7 @@ def dw_record(name, i, args, kwargs, reps, plain_reps):
         plain_ms=cuda_ms(lambda: mc.conv_dw_plain(*args, gemm=gemm),
                          plain_reps),
         library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
-        ops_ms=ops_ms(hits, cin, cout))
+        ops_ms=ops_ms(name, hits, cin, cout))
 
 
 def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
@@ -871,6 +918,23 @@ def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
     return out
 
 
+def block_staged_row_taps(rows):
+    """Row-taps the one-hot tensor-core kernels multiply on ``rows``: 16
+    rows for each tap of each 16-row slice's mask, in each 128-row block
+    with its rows stably sorted by tap-hit mask, as the kernels do."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    block = mc.SLICE_ROWS * 8
+    masks = mc.row_masks(rows)
+    masks = torch.nn.functional.pad(masks, (0, -masks.shape[0] % block))
+    masks = torch.sort(masks.view(-1, block), dim=1, stable=True).values
+    m = masks.reshape(-1, mc.SLICE_ROWS)
+    while m.shape[1] > 1:
+        m = m[:, :m.shape[1] // 2] | m[:, m.shape[1] // 2:]
+    return mc.SLICE_ROWS * sum(int(((m >> t) & 1).sum())
+                               for t in range(rows.shape[1]))
+
+
 def ffma_ratio(rec):
     """' ffma_ms=.. ffma_ratio=..': an x3 call's time over the exact
     (FFMA) kernel's on the same call."""
@@ -910,22 +974,149 @@ def same_call_ratio(rec, fp32, i):
     return f"fp32_ms={f['ms']:.4f} fp32_ratio={rec['ms'] / f['ms']:.3f} "
 
 
+def match_plan_bytes(in_keys, plan):
+    """Bytes a one-hot conv reads of its plan: the keys it searches and
+    the plan (inb, the queries or okeys and dkey), not rows."""
+    return 4 * in_keys.numel() + plan.inb.numel() + 4 * (
+        plan.queries.numel() if plan.queries is not None
+        else plan.okeys.numel() + plan.dkey.numel())
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits; the smallest normal's at
+    0)."""
+    import torch
+    e = torch.frexp(x.abs().clamp_min(2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def bf16_equal(got, want):
+    """(share of ``got``'s elements bit-equal to ``want``'s, whether that
+    is enough): at most 1 - BF16_EQUAL of them may differ, and one always
+    (a call of a few elements)."""
+    n = got.numel()
+    differ = int((got != want).sum())
+    return 1.0 - differ / max(n, 1), differ <= max(1, int((1 - BF16_EQUAL)
+                                                         * n))
+
+
+def match_bf16_calls(model, inputs, card, reps=2, plain_reps=2):
+    """The bf16-feature one-hot kernel ``match_conv_bf16``, which no model
+    reaches yet: one one-hot forward records its ``match_conv`` calls, and
+    those calls with their features rounded to bf16 are this kernel's path:
+    launches set to 0, each call once, the launches read and held. Then each
+    call, with its epilogue and without, against the plain bf16 version:
+    each element within one bf16 ulp of it plus TOL of the magnitude of its
+    sum (the two passes' fp32 sums in another order: where a sum's terms
+    cancel, its bf16 ulp is smaller than their rounding), at least
+    ``BF16_EQUAL`` of them bit-equal to it (``bf16_equal``: the bound alone
+    also holds a kernel that drops the ``W_lo`` pass), and timed.
+    Returns ({'match_conv_bf16': records}, launches)."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    with torch.no_grad(), Recorder() as rec:
+        forward(model, inputs)
+    calls = [((args[0].to(torch.bfloat16), *args[1:]), kwargs)
+             for args, kwargs in rec.calls['match_conv']]
+    del rec
+    name = 'match_conv_bf16'
+    with torch.no_grad():
+        kernels.reset_launches()
+        for args, kwargs in calls:
+            mc.match_conv(*args, **kwargs)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+    print(f'{name} path (the one-hot frame\'s calls on bf16 features): '
+          f'launches {launches}', flush=True)
+    check_launches(f'{name} path', launches, {name: len(calls)})
+    out = []
+    with torch.no_grad():
+        for i, (args, kwargs) in enumerate(calls):
+            feats, in_keys, plan, weights = args
+            rows = mc.plan_rows_plain(in_keys, plan)
+            k_out, ta = rows.shape
+            cin, cout = weights.shape[1], weights.shape[2]
+            magnitude = mc.gather_gemm_conv_plain(feats.float().abs(), rows,
+                                                  weights.abs())
+            err, in_ulp, equal, worst = 0.0, 1.0, 1.0, 0.0
+            for kw in (kwargs, {}):
+                got = mc.match_conv(*args, **kw)
+                want = mc.match_conv_plain(*args, **kw).float()
+                mag = magnitude
+                if kw.get('scale') is not None:
+                    mag = mag * kw['scale'].abs()
+                if kw.get('shift') is not None:
+                    mag = mag + kw['shift'].abs()
+                torch.cuda.synchronize()
+                check(got.dtype == torch.bfloat16 and bool(
+                    torch.isfinite(got).all()),
+                      f'{name} call {i}: {got.dtype} or non-finite output')
+                diff = (got.float() - want).abs()
+                ulp = bf16_ulp(want)
+                limit = ulp + TOL * mag
+                bad = int((diff > limit).sum())
+                same, enough = bf16_equal(got.float(), want)
+                check(enough, f'{name} call {i} ({cin}->{cout}, '
+                      f'epilogue={bool(kw)}): {same:.5f} of the elements '
+                      f'bit-equal to the plain version, below {BF16_EQUAL} '
+                      f'({bad} outside one bf16 ulp and {TOL} of |sum|)')
+                equal = min(equal, same)
+                check(bad == 0, f'{name} call {i} ({cin}->{cout}, epilogue='
+                      f'{bool(kw)}): {bad} elements differ from the plain '
+                      f'version by more than one bf16 ulp and {TOL} of the '
+                      'magnitude of their sum')
+                err = max(err, float(diff.max()) if diff.numel() else 0.0)
+                in_ulp = min(in_ulp, float((diff <= ulp).float().mean())
+                             if diff.numel() else 1.0)
+                worst = max(worst, float((diff / limit).max())
+                            if diff.numel() else 0.0)
+            hits = int((rows >= 0).sum())
+            n_epi = sum(kwargs.get(k) is not None for k in ('scale', 'shift'))
+            nbytes = (2 * feats.numel() + 4 * weights.numel()
+                      + 4 * n_epi * cout + 2 * k_out * cout
+                      + match_plan_bytes(in_keys, plan)
+                      + (k_out if kwargs.get('out_valid') is not None else 0))
+            rec = dict(
+                cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
+                hits=hits, err=err, staged=block_staged_row_taps(rows),
+                ms=cuda_ms(lambda: mc.match_conv(*args, **kwargs), reps),
+                plain_ms=cuda_ms(lambda: mc.match_conv_plain(*args, **kwargs),
+                                 plain_reps),
+                library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                ops_ms=ops_ms(name, hits, cin, cout))
+            out.append(rec)
+            print(f"{name}[{i}] {cin}->{cout} K_in={rec['k_in']} "
+                  f"K_out={k_out} Ta={ta} hits={hits} max_abs_err={err:.3g} "
+                  f"bit-equal {equal:.5f} (limit {BF16_EQUAL}), within one "
+                  f"bf16 ulp {in_ulp:.5f}, worst {worst:.3g} "
+                  f"of the limit (1 ulp + {TOL} of |sum|) ms={rec['ms']:.4f} "
+                  f"plain_ms={rec['plain_ms']:.4f} bound_ms="
+                  f"{max(rec['bytes_ms'], rec['ops_ms']):.4f} "
+                  f"useful={hits / max(rec['staged'], 1):.3f} [{card}]",
+                  flush=True)
+    print(f"{name} sums over the one-hot frame's {len(out)} calls: "
+          f"ms={sum(r['ms'] for r in out):.3f} "
+          f"plain_ms={sum(r['plain_ms'] for r in out):.3f} bound_ms="
+          f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in out):.3f} "
+          f"[{card}]", flush=True)
+    return {name: out}, launches
+
+
 def conv_record(name, i, args, kwargs, order, reps, plain_reps):
-    """One conv call (``gather_gemm_conv`` on the kernel the switches
-    pick, or ``match_conv``) against its plain versions (``plain_gemms``;
-    the first is the one the record's error and ``plain_ms`` are of), with
-    the recorded epilogue and without any, timed."""
+    """One conv call (``gather_gemm_conv`` or ``match_conv`` on the kernel
+    the switches pick) against its plain versions (``plain_gemms``; the
+    first is the one the record's error and ``plain_ms`` are of), with the
+    recorded epilogue and without any, timed."""
     import functools
     import torch
     from msmdfusion_torch.ops.sparse import matchconv as mc
     if len(args) == 4:                      # match_conv: no rulebook
         feats, in_keys, plan, weights = args
-        conv, plain, gemms = mc.match_conv, mc.match_conv_plain, (None,)
+        conv, plain = mc.match_conv, mc.match_conv_plain
+        gemms = ('x3', 'exact') if name == 'match_conv_x3' else ('exact',)
         rows = mc.plan_rows_plain(in_keys, plan)
-        # the keys it searches and the plan it reads, not rows
-        plan_bytes = 4 * in_keys.numel() + plan.inb.numel() + 4 * (
-            plan.queries.numel() if plan.queries is not None
-            else plan.okeys.numel() + plan.dkey.numel())
+        plan_bytes = match_plan_bytes(in_keys, plan)
     else:
         feats, rows, weights = args
         conv, plain = mc.gather_gemm_conv, mc.gather_gemm_conv_plain
@@ -947,15 +1138,13 @@ def conv_record(name, i, args, kwargs, order, reps, plain_reps):
         if kw.get('shift') is not None:
             mag = mag + kw['shift'].abs()
         for gemm in gemms:
-            want = plain(*args, **kw, **({} if gemm is None
-                                        else dict(gemm=gemm)))
+            want = plain(*args, **kw, gemm=gemm)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()),
                   f'{name} call {i}: non-finite output')
             diff = (got - want).abs()
             what = (f'{name} call {i} ({cin}->{cout}, epilogue={bool(kw)}'
-                    + (f', against the {gemm} plain version)' if gemm
-                       else ')'))
+                    f', against the {gemm} plain version)')
             bad = int((diff > TOL * mag).sum())
             check(bad == 0, f'{what}: {bad} elements differ by more than '
                   f'{TOL} of the magnitude of their sum')
@@ -978,19 +1167,18 @@ def conv_record(name, i, args, kwargs, order, reps, plain_reps):
 
     def worst(pairs, gemm):
         return max(v for g, v in pairs if g == gemm)
-    route = gemms[0]
-    plain_kw = dict(kwargs, **({} if route is None else dict(gemm=route)))
+    plain_kw = dict(kwargs, gemm=gemms[0])
     return dict(
         cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
-        hits=hits, err=worst(errs, route), rel=worst(rels, route),
-        elem=worst(elems, route), elem_exact=worst(elems, gemms[-1]),
+        hits=hits, err=worst(errs, gemms[0]), rel=worst(rels, gemms[0]),
+        elem=worst(elems, gemms[0]), elem_exact=worst(elems, gemms[-1]),
         median=median, max_ref=float(active.max()) if active.numel()
         else 0.0,
         ms=cuda_ms(lambda: conv(*args, **kwargs), reps),
         plain_ms=cuda_ms(lambda: plain(*args, **plain_kw), plain_reps),
         library_ms=None,
         bytes_ms=nbytes / PEAK_BYTES * 1e3,
-        ops_ms=ops_ms(hits, cin, cout))
+        ops_ms=ops_ms(name, hits, cin, cout))
 
 
 def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
@@ -1017,18 +1205,22 @@ def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
     for i, (args, kwargs) in enumerate(calls):
         kwargs = dict(kwargs)
         order = kwargs.pop('order', None)
-        name = 'match_conv' if len(args) == 4 else \
-            kernel_of('gather_gemm_conv')
+        name = kernel_of('match_conv' if len(args) == 4 else
+                         'gather_gemm_conv')
         label = label or name
         rec = conv_record(name, i, args, kwargs, order, reps, plain_reps)
         extra = ''
         if order is not None:
             rec['staged'] = conv_staged_row_taps(order, rec['ta'])
             extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
-        if name == 'gather_gemm_conv_x3':
+        if name == 'match_conv_x3':
+            rec['staged'] = block_staged_row_taps(
+                mc.plan_rows_plain(args[1], args[2]))
+            extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+        if name in FFMA:
             with switches(HIGHEST['env']):
-                rec['ffma'] = conv_record('gather_gemm_conv', i, args,
-                                          kwargs, None, reps, plain_reps)
+                rec['ffma'] = conv_record(FFMA[name], i, args, kwargs, None,
+                                          reps, plain_reps)
             extra += ffma_ratio(rec)
         extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
@@ -1038,8 +1230,8 @@ def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
               f"max_abs_err={rec['err']:.3g} ({rec['rel']:.3g} of max "
               f"|ref|; |ref| max {rec['max_ref']:.3g} median "
               f"{rec['median']:.3g}) worst |err|/|sum| {rec['elem']:.3g}"
-              f"{' (exact: %.3g)' % rec['elem_exact'] if mc.x3() else ''} "
-              f"(limit {TOL}) ms={rec['ms']:.4f} "
+              f"{' (exact: %.3g)' % rec['elem_exact'] if name in FFMA else ''}"
+              f" (limit {TOL}) ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} "
               f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
               f"{extra}[{card}]", flush=True)
@@ -1171,8 +1363,11 @@ def route_shares(recs):
 
 class PinnedProposals:
     """Inside the scope the TransFusion head takes the given flat proposal
-    indices [B, P] (class * H * W + cell) in place of its own top-k, so
-    that two paths can decode the same proposals."""
+    indices [B, P] (class * H * W + cell) in place of its own top-k, and
+    its local-max NMS keeps those cells, so that two paths decode the same
+    proposals: where two neighbouring cells lie within rounding of each
+    other, one path's NMS may keep the cell that the other's suppresses,
+    and the proposal's heatmap score would be 0 in that one."""
 
     def __init__(self, index):
         self.index = index
@@ -1180,13 +1375,22 @@ class PinnedProposals:
     def __enter__(self):
         import torch
         from msmdfusion_torch.models.heads import transfusion_head as th
-        self._th, self._orig = th, th.topk_lower_index_first
+        self._th = th
+        self._orig = top, nms = th.topk_lower_index_first, th.local_maximum_nms
+
+        def kept_nms(heatmap, *a, **k):
+            out = nms(heatmap, *a, **k).flatten(1)
+            out = out.scatter(1, self.index,
+                              heatmap.flatten(1).gather(1, self.index))
+            return out.view_as(heatmap)
         th.topk_lower_index_first = lambda x, k: (
             torch.gather(x, 1, self.index), self.index)
+        th.local_maximum_nms = kept_nms
         return self
 
     def __exit__(self, *exc):
-        self._th.topk_lower_index_first = self._orig
+        self._th.topk_lower_index_first, self._th.local_maximum_nms = \
+            self._orig
         return False
 
 
@@ -1195,27 +1399,47 @@ def proposal_index(preds):
     return preds['query_labels'] * (h * w) + preds['query_spatial']
 
 
-def check_proposals(head, index, preds_p):
-    """The kernel path's proposals must be a top-P choice of the plain
-    path's heatmap up to TOL: no unchosen cell may beat a chosen one by
-    more. Returns (that worst excess, proposals that differ from the plain
-    path's own choice, which a near-tie at the cut can swap)."""
+def check_proposals(head, index, run, ref):
+    """The kernel path's proposals ``index`` must be a top-P choice of the
+    plain path's heatmap up to TOL: the head's own choice (local-max NMS
+    and top-P of the sigmoid) on a heatmap within TOL of the plain one's
+    largest value, the limit ``compare_outputs`` holds the dense heatmap
+    to. The kernel path's heatmap is that heatmap: the proposals must be
+    the head's choice on it (recomputed here) and it must lie so near.
+    Both steps of the choice are discontinuous, so the kernel path may
+    choose other cells than the plain heatmap's own choice: at the top-P
+    cut where two cells lie within TOL, and at the NMS where a cell and its
+    neighbour do (a chosen cell there that the plain NMS suppresses scores
+    0 in it). Returns (the kernel heatmap's distance over the plain one's
+    largest value; how far the best unchosen local maximum of the plain
+    heatmap's sigmoid beats its lowest chosen cell, over its largest value,
+    a chosen cell that its NMS suppresses counting 0; how many chosen cells
+    it suppresses; how many proposals differ from its own choice), all
+    printed."""
     import torch
     from msmdfusion_torch.models.heads.transfusion_head import (
         local_maximum_nms, topk_lower_index_first)
-    hm = local_maximum_nms(torch.sigmoid(preds_p['dense_heatmap']),
-                           head.nms_kernel_size,
-                           head._flat_classes()).flatten(1)
+
+    def nms(preds):
+        return local_maximum_nms(torch.sigmoid(preds['dense_heatmap']),
+                                 head.nms_kernel_size,
+                                 head._flat_classes()).flatten(1)
+    mine = topk_lower_index_first(nms(run), head.num_proposals)[1]
+    check(torch.equal(mine, index), 'the kernel path\'s proposals are not '
+          'the head\'s own choice on its heatmap')
+    dist = rel_err(run['dense_heatmap'], ref['dense_heatmap'])[1]
+    check(dist <= TOL, f'the kernel path\'s heatmap lies {dist:.3g} of max '
+          f'from the plain path\'s, above {TOL:.3g}')
+    hm = nms(ref)
+    scale = float(hm.abs().max())
     chosen = torch.zeros_like(hm, dtype=torch.bool).scatter_(1, index, True)
-    lowest = torch.where(chosen, hm, float('inf')).amin(dim=1)
-    best_left = torch.where(chosen, float('-inf'), hm).amax(dim=1)
-    excess = float((best_left - lowest).max())
-    check(excess <= TOL * float(hm.abs().max()),
-          f'the kernel path chose proposals an unchosen cell of the plain '
-          f'heatmap beats by {excess:.3g}')
+    lowest = torch.where(chosen, hm, float('inf')).min(dim=1)[0]
+    best_left = torch.where(chosen, float('-inf'), hm).max(dim=1)[0]
+    excess = float((best_left - lowest).max()) / scale
+    suppressed = int((chosen & (hm == 0)).sum())
     own = topk_lower_index_first(hm, head.num_proposals)[1]
     differ = int((~(index[:, :, None] == own[:, None, :]).any(-1)).sum())
-    return excess, differ
+    return dist, excess, suppressed, differ
 
 
 class ReorderedSums:
@@ -1254,28 +1478,37 @@ class ReorderedSums:
 
 
 class X3Plain:
-    """Inside the scope the plain conv and weight gradient compute the x3
-    product wherever the kernels do (``matchconv.x3()`` at the call), not
-    the exact one that a CPU tensor takes: the all-plain twin of a path on
-    the x3 kernels then differs from it by the order of fp32 sums alone.
+    """Inside the scope the plain convs and weight gradient compute the x3
+    product wherever the kernels do (``matchconv.x3()`` for the rulebook
+    conv and ``dw``, ``match_kernel()`` for the one-hot conv, at the call),
+    not the exact one that a CPU tensor takes: the all-plain twin of a path
+    on the x3 kernels then differs from it by the order of fp32 sums alone.
     Enter it before ``ReorderedSums`` and ``PinnedRounding.replay()``,
     which call what it leaves in place."""
+
+    NAMES = ('gather_gemm_conv_plain', 'conv_dw_plain', 'match_conv_plain')
 
     def __enter__(self):
         from msmdfusion_torch.ops.sparse import matchconv as mc
         self._mc = mc
-        self._orig = conv, dw = mc.gather_gemm_conv_plain, mc.conv_dw_plain
+        self._orig = conv, dw, match = [getattr(mc, n) for n in self.NAMES]
 
-        def gemm():
+        def rulebook():
             return 'x3' if mc.x3() else 'exact'
+
+        def onehot():
+            return 'x3' if mc.match_kernel() == 'match_conv_x3' else 'exact'
         mc.gather_gemm_conv_plain = lambda *a, **k: conv(
-            *a, **dict(dict(gemm=gemm()), **k))
+            *a, **dict(dict(gemm=rulebook()), **k))
         mc.conv_dw_plain = lambda *a, **k: dw(
-            *a, **dict(dict(gemm=gemm()), **k))
+            *a, **dict(dict(gemm=rulebook()), **k))
+        mc.match_conv_plain = lambda *a, **k: match(
+            *a, **dict(dict(gemm=onehot()), **k))
         return self
 
     def __exit__(self, *exc):
-        self._mc.gather_gemm_conv_plain, self._mc.conv_dw_plain = self._orig
+        for name, orig in zip(self.NAMES, self._orig):
+            setattr(self._mc, name, orig)
         return False
 
 
@@ -1310,6 +1543,21 @@ def pinned_forward(model, inputs, index, *scopes):
     return dict(preds, **boxes, head_input=head_in.x)
 
 
+YAW = 6     # the yaw's column in a box (x, y, z, w, l, h, yaw, vx, vy)
+
+
+def boxes_part(out, key):
+    """``out[key]``, but the boxes without their yaw and the yaw alone
+    under 'bboxes' and 'yaw'."""
+    import torch
+    if key == 'yaw':
+        return out['bboxes'][..., YAW]
+    if key == 'bboxes':
+        b = out['bboxes']
+        return torch.cat([b[..., :YAW], b[..., YAW + 1:]], -1)
+    return out[key]
+
+
 def compare_outputs(run, ref, alt):
     """The kernel path ``run`` vs the plain path ``ref`` on the same
     proposals; ``alt`` is the plain path with reordered sums. Returns
@@ -1320,18 +1568,32 @@ def compare_outputs(run, ref, alt):
     to TOL of its largest value. The decoder's attention then amplifies
     rounding (softmax over logits of tens), so its outputs and the boxes
     are held to FLOOR_MARGIN times the plain path's own spread under
-    reordered sums, and never less than TOL."""
+    reordered sums, and never less than TOL. A box's yaw is the angle of
+    the head's ``rot`` (sine, cosine), which moves by the error over
+    ``rot``'s length, so that where the decoder gives a box a short
+    ``rot`` the angle's error is the product of that box's rounding alone,
+    not of the spread: the boxes are held without it, and ``rot`` itself
+    is held; the yaw is returned, not held, with its limit as NaN."""
     import torch
     worst = {}
     for key in ('head_input', 'dense_heatmap', 'heatmap', 'center', 'dim',
-                'bboxes', 'scores'):
-        rel = rel_err(run[key], ref[key])[1]
-        floor = rel_err(alt[key], ref[key])[1]
+                'rot', 'bboxes', 'scores', 'yaw'):
+        got, want, other = (boxes_part(out, key) for out in (run, ref, alt))
+        rel = rel_err(got, want)[1]
+        floor = rel_err(other, want)[1]
         limit = TOL if key in ('head_input', 'dense_heatmap') else \
             max(TOL, FLOOR_MARGIN * floor)
-        worst[key] = (rel, limit, floor, float(ref[key].abs().median()))
-        check(rel <= limit, f'{key}: kernel vs plain path {rel:.3g} of max '
-              f'|ref|, above {limit:.3g} (reordered plain path {floor:.3g})')
+        if key == 'yaw':
+            limit = float('nan')
+        worst[key] = (rel, limit, floor, float(want.abs().median()))
+        if rel > limit:
+            diff = (got - want).abs()
+            at = tuple(int(i) for i in torch.unravel_index(diff.argmax(),
+                                                           diff.shape))
+            check(False, f'{key}: kernel vs plain path {rel:.3g} of max '
+                  f'|ref|, above {limit:.3g} (reordered plain path '
+                  f'{floor:.3g}); worst at {at}: {float(got[at]):.6g} '
+                  f'against {float(want[at]):.6g}')
     for key in ('labels', 'valid'):
         check(torch.equal(run[key], ref[key]),
               f'{key} differ between the kernel and plain paths')
@@ -1408,10 +1670,9 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
                 recs[name] = conv_calls(
                     rec.calls[wrapper], spec['widths'], reps['kernel'] // 2,
                     card, fp32=(fp32 or {}).get(name))
-                if name == 'gather_gemm_conv_x3':
+                if name in FFMA:
                     # the exact (FFMA) kernel on the same calls
-                    recs['gather_gemm_conv'] = [r['ffma']
-                                                for r in recs[name]]
+                    recs[FFMA[name]] = [r['ffma'] for r in recs[name]]
         if rec.calls['masked_nn']:
             recs['masked_nn'] = nn_calls(rec.calls['masked_nn'],
                                          reps['kernel'], card)
@@ -1448,7 +1709,8 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
     # the kernel path once more, keeping its conv operands, and the same
     # forward on the plain versions (and with reordered sums) replaying
     # them and decoding that kernel forward's proposals: a near-tie at the
-    # top-k cut may not swap one. The x3 and packed routes turn the port's
+    # top-k cut or at the local-max NMS may not swap or drop one. The x3
+    # and packed routes turn the port's
     # ulp-level run-to-run noise into rounding steps, so the counted
     # forward above is not the execution the twin replays; how far it lies
     # from it is printed, not held
@@ -1460,7 +1722,8 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
                              X3Plain(), pins.replay())
         alt = pinned_forward(model, inputs, index, kernels.plain_kernels(),
                              X3Plain(), ReorderedSums(), pins.replay())
-        excess, differ = check_proposals(model.pts_bbox_head, index, ref)
+        dist, excess, suppressed, differ = check_proposals(
+            model.pts_bbox_head, index, run, ref)
         worst = compare_outputs(run, ref, alt)
         again = rel_err(preds['dense_heatmap'], run['dense_heatmap'])[1]
         moved = int((~(proposal_index(preds)[:, :, None]
@@ -1470,12 +1733,16 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
           f'dense_heatmap {again:.3g} of max, {moved} proposals differ',
           flush=True)
     for key, (rel, limit, floor, median) in worst.items():
+        held = 'not held' if key == 'yaw' else f'limit {limit:.3g}'
         print(f'{label}: kernel vs plain path: {key} {rel:.3g} of max |ref| '
-              f'(limit {limit:.3g}; plain path with reordered sums '
+              f'({held}; plain path with reordered sums '
               f'{floor:.3g}; median |ref| {median:.3g})', flush=True)
-    print(f'{label}: proposals: a top-{model.pts_bbox_head.num_proposals} '
-          f'of the plain heatmap (worst excess {excess:.3g}), {differ} '
-          'differ from its own choice', flush=True)
+    print(f'{label}: proposals: the head\'s top-'
+          f'{model.pts_bbox_head.num_proposals} on the kernel heatmap, '
+          f'{dist:.3g} of max from the plain one (limit {TOL:.3g}); on the '
+          f'plain heatmap: worst excess {excess:.3g} of max, {suppressed} '
+          f'chosen cells its NMS suppresses, {differ} differ from its own '
+          'choice', flush=True)
 
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
@@ -1534,12 +1801,12 @@ def path_vs(label, model, inputs, ref):
           flush=True)
 
 
-def highest_frame(model, inputs, card, expected):
-    """Phase 4's frame on the exact fp32 product (``MSMD_CONV_GEMM=
-    highest``, set around it only): the FFMA kernel's launches on the main
-    path, counted and held to ``expected``, no row dropped; then how far
-    the default x3 path lies from it (printed, not held). Returns its
-    launches."""
+def highest_frame(label, model, inputs, card, expected):
+    """A frame of the engine the switches pick on the exact fp32 product
+    (``MSMD_CONV_GEMM=highest``, set around it only): the FFMA kernel's
+    launches on the main path, counted and held to ``expected``, no row
+    dropped; then how far the default x3 path lies from it (printed, not
+    held). Returns its launches."""
     import torch
     from msmdfusion_torch import kernels
     from msmdfusion_torch.utils import overflow
@@ -1549,13 +1816,13 @@ def highest_frame(model, inputs, card, expected):
             forward(model, inputs)
         launches = dict(kernels.launches)
         torch.cuda.synchronize()
-        print(f'MSMDFusion highest: launches on the main path: {launches}',
+        print(f'{label} highest: launches on the main path: {launches}',
               flush=True)
-        check_launches('MSMDFusion highest', launches, expected)
-        check(cap.total() == 0, f'MSMDFusion highest: overflow '
+        check_launches(f'{label} highest', launches, expected)
+        check(cap.total() == 0, f'{label} highest: overflow '
               f'{cap.counters()}')
         exact = path_outputs(model, inputs)
-    path_vs(f'MSMDFusion x3 vs exact (highest) path [{card}]', model, inputs,
+    path_vs(f'{label} x3 vs exact (highest) path [{card}]', model, inputs,
             exact)
     return launches
 
@@ -1692,14 +1959,15 @@ class PinnedRounding:
     steps (the x3 path and its x3 twin, unpinned: 5-9e-5 of the head
     input's largest value on an H100 at full scale, against 1e-5 for the
     exact kernels and their exact twin). Inside the scope, on the packed
-    or the x3 route, the kernel path's ``gather_gemm_conv`` and
-    ``conv_dw`` calls keep their operands (as rounded to bf16, packed; as
-    given, x3), in call order; inside ``replay()`` each plain
-    ``gather_gemm_conv_plain``/``conv_dw_plain`` call takes those values
-    wherever its own lie within one step of them (one bf16 step, packed;
-    2^-16 of the binade, x3), so that both paths multiply the same bf16
-    operands and differ by fp32 sum order alone. On the exact and one-hot
-    routes both scopes do nothing."""
+    or an x3 route (the rulebook engine's or the one-hot one's,
+    ``x3_route()``), the kernel path's ``gather_gemm_conv``, ``conv_dw``
+    and ``match_conv`` calls keep their operands (as rounded to bf16,
+    packed; as given, x3), in call order; inside ``replay()`` each plain
+    ``gather_gemm_conv_plain``/``conv_dw_plain``/``match_conv_plain`` call
+    takes those values wherever its own lie within one step of them (one
+    bf16 step, packed; 2^-16 of the binade, x3), so that both paths
+    multiply the same bf16 operands and differ by fp32 sum order alone. On
+    the exact routes both scopes do nothing."""
 
     def __init__(self, kept=None, bits=None):
         from msmdfusion_torch.ops.sparse import matchconv as mc
@@ -1707,7 +1975,7 @@ class PinnedRounding:
         self.kept = [] if kept is None else kept
         # the operands' resolution on the route: 8 bits (bf16), 16 (x3)
         self.bits = bits if self.replaying else (
-            8 if mc.packed() else 16 if mc.x3() else None)
+            8 if mc.packed() else 16 if x3_route() else None)
         self.calls = 0
 
     def replay(self):
@@ -1743,15 +2011,18 @@ class PinnedRounding:
         if self.bits is None:
             return self
         if self.replaying:
-            names = ('gather_gemm_conv_plain', 'conv_dw_plain')
-            conv, dw = self._orig = [getattr(mc, n) for n in names]
+            names = ('gather_gemm_conv_plain', 'conv_dw_plain',
+                     'match_conv_plain')
+            conv, dw, match = self._orig = [getattr(mc, n) for n in names]
             mc.gather_gemm_conv_plain = lambda feats, *a, **k: \
                 conv(self._pin(feats), *a, **k)
             mc.conv_dw_plain = lambda feats, rows, g: \
                 dw(self._pin(feats), rows, self._pin(g))
+            mc.match_conv_plain = lambda feats, *a, **k: \
+                match(self._pin(feats), *a, **k)
         else:
-            names = ('gather_gemm_conv', 'conv_dw')
-            conv, dw = self._orig = [getattr(mc, n) for n in names]
+            names = ('gather_gemm_conv', 'conv_dw', 'match_conv')
+            conv, dw, match = self._orig = [getattr(mc, n) for n in names]
 
             def kept_conv(feats, *a, **k):
                 self._keep(feats)
@@ -1761,7 +2032,12 @@ class PinnedRounding:
                 self._keep(feats)
                 self._keep(g)
                 return dw(feats, rows, g, **k)
-            mc.gather_gemm_conv, mc.conv_dw = kept_conv, kept_dw
+
+            def kept_match(feats, *a, **k):
+                self._keep(feats)
+                return match(feats, *a, **k)
+            mc.gather_gemm_conv, mc.conv_dw, mc.match_conv = \
+                kept_conv, kept_dw, kept_match
         self._names = names
         return self
 
@@ -1927,7 +2203,9 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
                                         fp32=fp32.get(name))
         # the exact (FFMA) kernels on the x3 kernels' calls
         for x3, ffma in (('conv_dw_x3', 'conv_dw'),
-                         ('gather_gemm_conv_x3_bwd', 'gather_gemm_conv_bwd')):
+                         ('gather_gemm_conv_x3_bwd', 'gather_gemm_conv_bwd'),
+                         ('match_conv_x3_fwd', 'match_conv_fwd'),
+                         ('match_conv_x3_bwd', 'match_conv_bwd')):
             if x3 in recs:
                 recs[ffma] = [r['ffma'] for r in recs[x3]]
     del rec
@@ -2106,17 +2384,18 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
 def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                                                       ONEHOT)):
     """Phases 4-7 on the calibrated flagship (``specs``: the fp32, packed
-    and one-hot inference specs). Returns [(records, launches)] of the
-    seven drives in order, then of phase 4's exact (FFMA) conv kernel: its
-    records on the x3 kernel's calls and the launches of the frame on
-    ``MSMD_CONV_GEMM=highest``."""
+    and one-hot inference specs). Returns [(records, launches)] of the six
+    drives in order; then of phase 4's and phase 7's exact (FFMA) conv
+    kernels: their records on the x3 kernel's calls and the launches of a
+    frame on ``MSMD_CONV_GEMM=highest``; then of ``match_conv_bf16`` on
+    phase 7's calls (``match_bf16_calls``)."""
     fp32_spec, packed, onehot = specs
     calibrated = {k: v.detach().clone()
                   for k, v in model.state_dict().items()}
     phases = [drive('MSMDFusion', model, inputs, fp32_spec, card,
                     reps=dict(kernel=10, frame=10))]
     exact = ({'gather_gemm_conv': phases[0][0]['gather_gemm_conv']},
-             highest_frame(model, inputs, card,
+             highest_frame('MSMDFusion', model, inputs, card,
                            highest_launches(fp32_spec['launches'])))
     fp32 = path_outputs(model, inputs)
     dense_engines(model, inputs, card)
@@ -2146,6 +2425,15 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
             if spec is packed:
                 path_vs(f'MSMDFusion packed bf16 vs fp32 (x3) path [{card}]',
                         model, inputs, fp32)
+            else:
+                # the exact (FFMA) one-hot conv: its records on the x3
+                # kernel's calls, the launches of a frame on highest; then
+                # the bf16-feature kernel on the frame's calls
+                onehot_extra = [
+                    ({'match_conv': phases[-1][0]['match_conv']},
+                     highest_frame('MSMDFusion one-hot', model, inputs, card,
+                                   highest_launches(spec['launches']))),
+                    match_bf16_calls(model, inputs, card)]
             phases.append(drive_train(model, inputs, gt, card, spec['train'],
                                       label=f'MSMDFusion {name} train',
                                       fp32=ratios.get('train')))
@@ -2154,7 +2442,7 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
     engines_interleaved(model, inputs, card, (
         ('fp32', {}), ('fp32 highest', HIGHEST['env']),
         ('packed bf16', packed['env']), ('one-hot', onehot['env'])))
-    return phases + [exact]
+    return phases + [exact] + onehot_extra
 
 
 def engines_interleaved(model, inputs, card, engines, rounds=6):
@@ -2253,7 +2541,8 @@ def report(phases, card):
 
 CARD_TESTS = ('tests/test_torch_rows_card.py',
               'tests/test_torch_conv_bf16_card.py',
-              'tests/test_torch_conv_x3_card.py')
+              'tests/test_torch_conv_x3_card.py',
+              'tests/test_torch_match_conv_card.py')
 
 
 def card_tests():

@@ -60,6 +60,12 @@ ENTRY_POINTS = {
     'match_conv': ('match_conv', 'msmd_match_conv',
                    (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
                     _I, _P, _P, _P)),
+    'match_conv_x3': ('match_conv', 'msmd_match_conv_x3',
+                      (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                       _I, _I, _I, _P, _P, _I, _P, _P, _P)),
+    'match_conv_bf16': ('match_conv', 'msmd_match_conv_bf16',
+                        (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                         _I, _I, _I, _P, _P, _I, _P, _P, _P)),
     'masked_nn': ('masked_nn', 'msmd_masked_nn',
                   (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P)),
     'merge_take': ('merge_take', 'msmd_merge_take',

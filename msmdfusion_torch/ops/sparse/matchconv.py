@@ -23,15 +23,18 @@ package's names, values and defaults, pick the engine:
   the weights to bf16 and multiply on the tensor cores with fp32 sums,
   and its weight gradient rounds both operands to bf16. The one-hot
   engine ignores it, as the JAX package's ``_pallas_conv`` does;
-- ``MSMD_CONV_GEMM`` (``gemm_mode()``), the fp32 rulebook engine's
-  product on the card: ``x3`` (default), both operands split into bf16
-  hi + lo and three tensor-core products with fp32 sums (hi.hi + hi.lo +
-  lo.hi, ~2^-17 of each sum's magnitude from the exact product), or
-  ``highest``, the exact fp32 product (FFMA). The packed engine and the
-  one-hot engine ignore it (the one-hot weight gradient stays exact, as
-  the JAX package's ``_dw_from_rows`` is); the plain versions, which a
-  CPU tensor takes, compute the exact product either way, as the JAX
-  package's CPU fallback does.
+- ``MSMD_CONV_GEMM`` (``gemm_mode()``), the fp32 convs' product on the
+  card: ``x3`` (default), both operands split into bf16 hi + lo and three
+  tensor-core products with fp32 sums (hi.hi + hi.lo + lo.hi, ~2^-17 of
+  each sum's magnitude from the exact product), or ``highest``, the exact
+  fp32 product (FFMA). It picks the fp32 rulebook engine's conv and weight
+  gradient, and the one-hot engine's conv (forward and input gradient);
+  the packed engine ignores it, and the one-hot weight gradient stays
+  exact, as the JAX package's ``_dw_from_rows`` is (the JAX one-hot
+  kernel does not read it: it takes a ``HIGHEST`` or an x3 weight product
+  per conv by VMEM fit, both in the ~2^-16 class of its hi/lo gather).
+  The plain versions, which a CPU tensor takes, compute the exact product
+  either way, as the JAX package's CPU fallback does.
 
 Any other value raises. The JAX package's TPU layout and engine knobs
 (``MSMD_CONV_SLAB``, ``_TILE``, ``_CW``, ``_COLW``,
@@ -66,8 +69,11 @@ Hand-written CUDA kernels carry these paths (``csrc/``):
   replacing ``_vgather_kernel``'s ``with_dw`` accumulator (fp32 exact,
   packed and x3; the last two walk the ``RowOrder``'s per-tap hit
   pairs);
-- ``match_conv``: the one-hot engine's conv, search and product fused,
-  replacing ``_match_kernel``.
+- ``match_conv_x3``, ``match_conv`` and ``match_conv_bf16``: the one-hot
+  engine's conv, search and product fused, replacing ``_match_kernel``:
+  fp32 features on the x3 product (default) or the exact one (FFMA,
+  ``MSMD_CONV_GEMM=highest``), bf16 features (its ``parts=1`` mode) on
+  the tensor cores against the weights' hi and lo.
 
 Each wrapper launches its kernel for a CUDA tensor, raising if the build
 or the launch fails, and runs its plain PyTorch version for a CPU tensor
@@ -711,27 +717,66 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
 # ---------------------------------------------------------------------------
 
 def match_conv_plain(feats, in_keys, plan: MatchPlan, weights, scale=None,
-                     shift=None, relu: bool = False, out_valid=None):
+                     shift=None, relu: bool = False, out_valid=None,
+                     gemm: str = 'exact'):
     """Plain version of ``match_conv``: the plan's rows by searchsorted,
-    then the fp32 gather-GEMM and the epilogue."""
-    return apply_epilogue(
-        _rows_product(feats, plan_rows_plain(in_keys, plan), weights),
-        out_valid, scale, shift, relu)
+    then the gather-GEMM and the epilogue. fp32 features: the exact product
+    (``gemm='exact'``, the ``highest`` kernel's function and the CPU
+    path's) or the x3 kernel's (``gemm='x3'``, ``_rows_product``'s split);
+    bf16 features, whatever ``gemm``: that of ``match_conv_bf16``, the
+    bf16 values against the weights' ``split_hi_lo`` parts (``[f, f] @
+    [W_hi; W_lo]``, products exact, sums in fp32), the epilogue in fp32,
+    the result rounded once to bf16."""
+    rows = plan_rows_plain(in_keys, plan)
+    if feats.dtype != torch.bfloat16:
+        return apply_epilogue(_rows_product(feats, rows, weights, gemm),
+                              out_valid, scale, shift, relu)
+    _check_gemm(gemm)
+    f = feats.to(torch.float32)
+    out = _rows_product(torch.cat([f, f], 1), rows,
+                        torch.cat(split_hi_lo(weights), 1))
+    return apply_epilogue(out, out_valid, scale, shift,
+                          relu).to(torch.bfloat16)
+
+
+MATCH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def match_kernel(dtype=torch.float32) -> str:
+    """The kernel ``match_conv`` launches on the card for features of
+    ``dtype``: ``match_conv_bf16`` for bf16 (whatever the switches), for
+    fp32 by ``gemm_mode()``: ``match_conv_x3`` (x3, the default) or the
+    exact FFMA ``match_conv`` (highest)."""
+    if dtype not in MATCH_DTYPES:
+        raise TypeError(f'match_conv takes float32 or bfloat16 features, '
+                        f'not {dtype}')
+    if dtype == torch.bfloat16:
+        return 'match_conv_bf16'
+    return 'match_conv_x3' if gemm_mode() == 'x3' else 'match_conv'
 
 
 def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
-               shift=None, relu: bool = False,
-               out_valid=None) -> torch.Tensor:
-    """out [K_out, Cout] = epi(sum_t feats[match(query[r, t])] @ W[t]), fp32.
+               shift=None, relu: bool = False, out_valid=None) -> torch.Tensor:
+    """out [K_out, Cout] = epi(sum_t feats[match(query[r, t])] @ W[t]), in
+    the features' dtype (fp32 or bf16).
 
     The one-hot engine: no rulebook is stored. Each query (``okeys[r] +
     dkey[t]``, or ``queries[r, t]``) where ``inb[r, t]`` holds and the row
     or query is not INT_MAX is searched in ``in_keys`` [K_in] (ascending,
     INT_MAX tail) inside the kernel; a miss adds nothing. feats [K_in,
-    Cin] f32; weights [Ta, Cin, Cout] f32; epilogue as ``gather_gemm_conv``.
+    Cin] f32 or bf16; weights [Ta, Cin, Cout] f32; epilogue as
+    ``gather_gemm_conv``, in fp32. On the card (``match_kernel``): fp32
+    features on the x3 product (kernel ``match_conv_x3``, the default) or,
+    under ``MSMD_CONV_GEMM=highest``, the exact one (kernel
+    ``match_conv``); bf16 features against the weights' hi and lo (kernel
+    ``match_conv_bf16``, bf16 out). The tensor-core kernels split the
+    weights once per call (``x3_weights``) and order each block's rows by
+    tap-hit mask themselves. A CPU tensor takes the plain version: the
+    exact product for fp32, the bf16 kernel's for bf16.
     """
     dev = feats.device
-    check_tensor('feats', feats, torch.float32, 2, dev)
+    name = match_kernel(feats.dtype)
+    check_tensor('feats', feats, feats.dtype, 2, dev)
     check_tensor('in_keys', in_keys, torch.int32, 1, dev)
     check_tensor('weights', weights, torch.float32, 3, dev)
     check_tensor('inb', plan.inb, torch.bool, 2, dev)
@@ -757,17 +802,24 @@ def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
     if not kernels.use_kernel(feats):
         return match_conv_plain(feats, in_keys, plan, weights, scale, shift,
                                 relu, out_valid)
-    fn = kernels.entry_point('match_conv')
-    out = torch.empty((k_out, cout), dtype=torch.float32, device=dev)
+    out = torch.empty((k_out, cout), dtype=feats.dtype, device=dev)
+    plan_args = (in_keys.data_ptr(), k_in, _ptr(plan.okeys),
+                 _ptr(plan.dkey), _ptr(plan.queries), plan.inb.data_ptr(),
+                 k_out, ta)
+    epilogue = (_ptr(scale), _ptr(shift), int(relu), _ptr(out_valid))
+    if name == 'match_conv':
+        args = (feats.data_ptr(), cin, *plan_args, weights.data_ptr(), cout,
+                *epilogue, out.data_ptr())
+    else:
+        hi, lo, np_, kc = x3_weights(weights)
+        args = (feats.data_ptr(), cin, *plan_args, hi.data_ptr(),
+                lo.data_ptr(), np_, kc, hi.shape[2], cout, *epilogue,
+                out.data_ptr())
+    fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.check('match_conv', fn(
-            feats.data_ptr(), cin, in_keys.data_ptr(), k_in,
-            _ptr(plan.okeys), _ptr(plan.dkey), _ptr(plan.queries),
-            plan.inb.data_ptr(), k_out, ta, weights.data_ptr(), cout,
-            _ptr(scale), _ptr(shift), int(relu), _ptr(out_valid),
-            out.data_ptr(), stream))
-    kernels.launches['match_conv'] += 1
+        kernels.check(name, fn(*args,
+                               torch.cuda.current_stream(dev).cuda_stream))
+    kernels.launches[name] += 1
     return out
 
 

@@ -284,6 +284,7 @@ def test_cpu_tensors_never_count_launches():
                                 'gather_gemm_conv_bf16': 0,
                                 'gather_gemm_conv_x3': 0, 'conv_dw': 0,
                                 'conv_dw_bf16': 0, 'conv_dw_x3': 0,
-                                'match_conv': 0, 'masked_nn': 0,
+                                'match_conv': 0, 'match_conv_x3': 0,
+                                'match_conv_bf16': 0, 'masked_nn': 0,
                                 'merge_take': 0}
     assert not kernels.use_kernel(t.keys)
