@@ -14,7 +14,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``msmdfusion_torch/_build/``; then the kernels' card tests
    (``tests/test_torch_rows_card.py``, ``tests/test_torch_conv_bf16_card.py``,
    ``tests/test_torch_conv_x3_card.py``,
-   ``tests/test_torch_match_conv_card.py``: JAX-free, every test must
+   ``tests/test_torch_match_conv_card.py``,
+   ``tests/test_torch_conv_dw_card.py``,
+   ``tests/test_torch_nn_argmin_card.py``: JAX-free, every test must
    pass) in a child process;
 3. TransFusion-L: ``configs/transfusion_nusc_voxel_L.py`` at full width
    (1440 x 1440 x 41 grid, 160k voxel capacity, the flagship's measured
@@ -96,7 +98,12 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``rows_affine`` calls that build each conv's ``dw`` rows in the
    backward and the exact ``conv_dw`` (the one-hot ``dw`` stays exact
    whatever ``MSMD_CONV_GEMM``, as the JAX package's ``HIGHEST``
-   ``_dw_from_rows`` is) against their plain versions, a counted step
+   ``_dw_from_rows`` is) against their plain versions (each exact
+   ``conv_dw`` line, here and in phase 5's reruns, also prints its useful
+   share, the hits over the row-taps the kernel multiplies, and
+   ``sgemm_ms``: cuBLAS fp32 ``torch.bmm``, TF32 off, of the same per-tap
+   products on operands gathered beforehand, a yardstick of the FFMA
+   rate that the port never calls), a counted step
    (launches 37/73/37/8/3) and 2 timed steps. Last, the engines' frames
    interleaved (fp32 x3, fp32 highest, packed, one-hot x3: one of each per
    round, 6 rounds), the frame and its stage ``plans`` per engine, so that
@@ -166,7 +173,10 @@ and its train step for the exact ``conv_dw``. The bf16 and x3 kernels'
 bound takes the card's dense bf16 tensor rate (``TENSOR_PASSES``: three
 products for x3, two for the one-hot bf16 kernel); their entries also
 carry ``useful_share``, the packed ones ``fp32_ratio``, the x3 ones
-``ffma_ratio``, the rows kernels' ``searchsorted_ratio`` (back to back), ``device_ms`` and
+``ffma_ratio``, the exact ``conv_dw`` ``useful_share`` and ``sgemm_ms``,
+``masked_nn`` ``unfused_bound_ms`` (its operations at the fp32 rate
+without fused multiply-adds, which its contract forbids: half the data
+sheet's), the rows kernels' ``searchsorted_ratio`` (back to back), ``device_ms`` and
 ``device_ratio`` (the device's time alone) and ``design_bound_ms``. The
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -204,6 +214,9 @@ PEAK_FP32 = 67e12
 # operands, and the x3 route's three products), 700 W
 PEAK_BF16 = 989e12
 NN_OPS_PER_PAIR = 8             # 3 mul + 2 add (dot), 1 mul + 2 add (dist)
+# PEAK_FP32 counts an FMA as two operations; masked_nn's contract forbids
+# fusing, so its multiplies and adds issue at half that rate
+PEAK_FP32_UNFUSED = PEAK_FP32 / 2
 
 TL = dict(
     config=ROOT / 'configs' / 'transfusion_nusc_voxel_L.py',
@@ -866,7 +879,7 @@ def dw_record(name, i, args, kwargs, reps, plain_reps):
     gemm = plain_gemms()[0]
     hits = int((rows >= 0).sum())
     nbytes = 4 * (feats.numel() + rows.numel() + g.numel() + got.numel())
-    return dict(
+    rec = dict(
         cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
         hits=hits, err=held[0][0], rel=held[0][1], elem=held[0][2],
         elem_exact=held[-1][2],
@@ -875,6 +888,48 @@ def dw_record(name, i, args, kwargs, reps, plain_reps):
                          plain_reps),
         library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
         ops_ms=ops_ms(name, hits, cin, cout))
+    if name == 'conv_dw':
+        rec['staged'] = dw_multiplied(rows, cin, cout)
+        products = sgemm_operands(feats, rows, g)
+        rec['sgemm_ms'] = cuda_ms(
+            lambda: [torch.bmm(x, y) for x, y in products], reps)
+        del products
+    return rec
+
+
+def dw_multiplied(rows, cin, cout):
+    """Row-taps the exact ``conv_dw`` multiplies: its hits alone where it
+    streams rows (both widths at most 32); else, per tap and 2048-row
+    segment of each chunk (from the chunk's first row), the hits rounded
+    up to whole 16-hit stages. The useful share is the hits over these."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    k_out, ta = rows.shape
+    hit = (rows >= 0).to(torch.int64)
+    if mc.dw_narrow(cin, cout):
+        return int(hit.sum())
+    chunk = mc.conv_dw_launch(k_out, ta, cin, cout).chunk_rows
+    o = torch.arange(k_out, device=rows.device)
+    per_chunk = -(-chunk // mc.DW_SEG)
+    seg = o // chunk * per_chunk + o % chunk // mc.DW_SEG
+    n = torch.zeros((int(seg.max()) + 1 if k_out else 0, ta),
+                    dtype=torch.int64, device=rows.device)
+    n.index_add_(0, seg, hit)
+    return mc.DW_BK * int(((n + mc.DW_BK - 1) // mc.DW_BK).sum())
+
+
+def sgemm_operands(feats, rows, g):
+    """Per tap, the operands of ``conv_dw``'s product gathered beforehand:
+    (feats of the tap's hits [1, Cin, n_t] as a transposed view, g of their
+    rows [1, n_t, Cout]), so that ``torch.bmm`` of each pair is the tap's
+    dw: the cuBLAS fp32 yardstick (``sgemm_ms``)."""
+    import torch
+    out = []
+    for t in range(rows.shape[1]):
+        o = torch.nonzero(rows[:, t] >= 0).squeeze(1)
+        x = feats.index_select(0, rows[o, t].to(torch.int64))
+        out.append((x.mT[None], g.index_select(0, o)[None]))
+    return out
 
 
 def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
@@ -899,11 +954,13 @@ def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
             rec['staged'] = dw_staged_pairs(kwargs['order'], rec['cin'],
                                             rec['cout'])
             extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+        if name == 'conv_dw':
+            extra += exact_dw_extra(rec)
         if mc.x3():
             with switches(HIGHEST['env']):
                 rec['ffma'] = dw_record('conv_dw', i, args, {}, reps,
                                         plain_reps)
-            extra += ffma_ratio(rec)
+            extra += ffma_ratio(rec) + exact_dw_extra(rec['ffma'], 'ffma_')
         extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
         print(f"{name}[{i}] {rec['cin']}x{rec['cout']} K_in={rec['k_in']} "
@@ -916,6 +973,15 @@ def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
               f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
               f"{extra}[{card}]", flush=True)
     return out
+
+
+def exact_dw_extra(rec, prefix=''):
+    """' useful=.. sgemm_ms=.. sgemm_ratio=..' of an exact ``conv_dw``
+    record: the hits over the row-taps it multiplies, and the cuBLAS
+    yardstick on the same products."""
+    return (f"{prefix}useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+            f"{prefix}sgemm_ms={rec['sgemm_ms']:.4f} "
+            f"{prefix}sgemm_ratio={rec['ms'] / rec['sgemm_ms']:.3f} ")
 
 
 def block_staged_row_taps(rows):
@@ -1268,13 +1334,15 @@ def nn_calls(calls, reps, card, plain_reps=3):
             plain_ms=cuda_ms(lambda: nn_argmin.masked_nn_plain(*args),
                              plain_reps),
             library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
-            ops_ms=NN_OPS_PER_PAIR * pairs / PEAK_FP32 * 1e3)
+            ops_ms=NN_OPS_PER_PAIR * pairs / PEAK_FP32 * 1e3,
+            unfused_ms=NN_OPS_PER_PAIR * pairs / PEAK_FP32_UNFUSED * 1e3)
         out.append(rec)
         print(f"masked_nn[{i}] Na={rec['na']} Nb={rec['nb']} "
               f"pairs={pairs} found={rec['found']} exact "
               f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-              f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} [{card}]",
-              flush=True)
+              f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
+              f"unfused_bound_ms={max(rec['bytes_ms'], rec['unfused_ms']):.4f}"
+              f" [{card}]", flush=True)
     return out
 
 
@@ -1346,8 +1414,10 @@ def route_shares(recs):
     """Of the tensor-core kernels' records: hits over the row-taps or
     pairs they stage (``useful_share``), the packed ones' time over the
     fp32 engine's (x3) kernel's on the same calls (``fp32_ratio``) and the
-    x3 ones' over the exact (FFMA) kernel's (``ffma_ratio``), where the
-    records carry them."""
+    x3 ones' over the exact (FFMA) kernel's (``ffma_ratio``); the exact
+    ``conv_dw``'s hits over the row-taps it multiplies and its cuBLAS
+    yardstick (``sgemm_ms``); ``masked_nn``'s bound at the unfused fp32
+    rate (``unfused_bound_ms``), where the records carry them."""
     out = {}
     if recs and all('staged' in r for r in recs):
         out['useful_share'] = sum(r['hits'] for r in recs) / max(
@@ -1358,6 +1428,11 @@ def route_shares(recs):
     if recs and all('ffma' in r for r in recs):
         out['ffma_ratio'] = sum(r['ms'] for r in recs) / sum(
             r['ffma']['ms'] for r in recs)
+    if recs and all('sgemm_ms' in r for r in recs):
+        out['sgemm_ms'] = sum(r['sgemm_ms'] for r in recs)
+    if recs and all('unfused_ms' in r for r in recs):
+        out['unfused_bound_ms'] = sum(max(r['bytes_ms'], r['unfused_ms'])
+                                      for r in recs)
     return out
 
 
@@ -2542,7 +2617,9 @@ def report(phases, card):
 CARD_TESTS = ('tests/test_torch_rows_card.py',
               'tests/test_torch_conv_bf16_card.py',
               'tests/test_torch_conv_x3_card.py',
-              'tests/test_torch_match_conv_card.py')
+              'tests/test_torch_match_conv_card.py',
+              'tests/test_torch_conv_dw_card.py',
+              'tests/test_torch_nn_argmin_card.py')
 
 
 def card_tests():

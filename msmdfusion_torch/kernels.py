@@ -50,7 +50,8 @@ ENTRY_POINTS = {
                             (_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                              _I, _P, _P, _I, _P, _P, _P)),
     'conv_dw': ('conv_dw', 'msmd_conv_dw',
-                (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P)),
+                (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                 _P)),
     'conv_dw_bf16': ('conv_dw_bf16', 'msmd_conv_dw_bf16',
                      (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P)),

@@ -87,7 +87,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -856,25 +856,70 @@ def conv_dw_plain(feats, rows, g, order=None,
     return dw
 
 
-# SMs of an H100 SXM, which the weight gradients' chunking fills ~8 blocks
-# deep: a constant, not the device's count, so that the order of the sums,
-# and so the bits of dw, do not depend on the card
+# SMs of an H100 SXM, which the weight gradients' chunking fills: a
+# constant, not the device's count, so that the order of the sums, and so
+# the bits of dw, do not depend on the card
 H100_SMS = 132
+DW_NARROW = 32          # conv_dw's row-streaming design up to this width
+DW_STEP = 32            # rows per step of that design
+DW_MAX_TAPS = 9         # taps per block of that design, one warp each
+DW_SEG = 2048           # rows per compacted segment of the GEMM design
+DW_CHUNK = 256          # its chunks are whole multiples of these rows
+DW_BK = 16              # hits per stage of the GEMM design
+DW_MAX_TILE = 128       # tile edge of the GEMM design
 
 
-def conv_dw_launch(k_out: int, ta: int, cin: int, cout: int):
-    """(tile, n_chunks, chunk_rows) of a ``conv_dw`` launch: the widest
-    (Cin, Cout) tile the narrower width fills, and enough chunks of the
-    rows (each at least 1024) for ~8 blocks per SM of an H100. A function
-    of the shapes only, so the order of the sums is the same on every
-    run."""
-    narrow = min(cin, cout)
-    tile = 64 if narrow >= 64 else 32 if narrow >= 32 else 16
-    blocks = ta * math.ceil(cin / tile) * math.ceil(cout / tile)
-    n_chunks = max(1, min(math.ceil(8 * H100_SMS / blocks),
-                          math.ceil(k_out / 1024)))
-    chunk_rows = max(1, math.ceil(k_out / n_chunks))
-    return tile, math.ceil(k_out / chunk_rows) if k_out else 1, chunk_rows
+class DwLaunch(NamedTuple):
+    """A ``conv_dw`` launch: ``tile_m`` x ``tile_n`` covers (Cin, Cout)
+    per block (the row-streaming design: both widths padded to 8, 16 or
+    32; the GEMM design: a tile of multiples of 8), ``taps`` per block
+    (row streaming: a group, one warp each; GEMM: 1), and the rows cut
+    into ``n_chunks`` chunks of ``chunk_rows``, each a whole number of
+    the design's steps (32 rows, row streaming; 256, GEMM, whose blocks
+    compact a chunk's hits 2048 rows at a time from its first row)."""
+    tile_m: int
+    tile_n: int
+    taps: int
+    n_chunks: int
+    chunk_rows: int
+
+
+def dw_narrow(cin: int, cout: int) -> bool:
+    """``conv_dw`` streams rows (else: the GEMM design) at these widths."""
+    return max(cin, cout) <= DW_NARROW
+
+
+def dw_tile(width: int) -> int:
+    """The GEMM design's tile edge over ``width``: the fewest tiles of at
+    most 128, each a multiple of 8 (192 -> 96, 80 -> 80)."""
+    n = math.ceil(width / DW_MAX_TILE)
+    return 8 * math.ceil(width / n / 8)
+
+
+def conv_dw_launch(k_out: int, ta: int, cin: int, cout: int) -> DwLaunch:
+    """The ``conv_dw`` launch at these shapes: row streaming where both
+    widths are at most 32 (taps in the fewest groups of at most 9, each
+    width padded to 8, 16 or 32), else the GEMM design's tiles; enough
+    chunks of the rows for ~8 blocks per SM of an H100 (row streaming) or
+    ~12 (GEMM, whose blocks differ in work by their tap's hits: a subm
+    plan's centre tap hits every row, the others a fifth to a third; the
+    kernel issues the centre tap's first), each chunk whole steps of 32
+    rows or 256-row multiples. A function of the shapes only, so the order
+    of the sums is the same on every run."""
+    if dw_narrow(cin, cout):
+        edge = [8 if w <= 8 else 16 if w <= 16 else 32 for w in (cin, cout)]
+        taps = math.ceil(ta / math.ceil(max(ta, 1) / DW_MAX_TAPS))
+        blocks, step, deep = math.ceil(ta / max(taps, 1)), DW_STEP, 8
+    else:
+        edge = [dw_tile(cin), dw_tile(cout)]
+        taps = 1
+        blocks = ta * math.ceil(cin / edge[0]) * math.ceil(cout / edge[1])
+        step, deep = DW_CHUNK, 12
+    n_chunks = max(1, min(math.ceil(deep * H100_SMS / max(blocks, 1)),
+                          math.ceil(k_out / step)))
+    chunk_rows = step * max(1, math.ceil(k_out / n_chunks / step))
+    return DwLaunch(edge[0], edge[1], max(taps, 1),
+                    max(1, math.ceil(k_out / chunk_rows)), chunk_rows)
 
 
 DW_CHUNK_STEP = 64      # chunks of conv_dw_bf16 are whole 64-pair stages
@@ -942,13 +987,12 @@ def conv_dw(feats, rows, g, order: Optional[RowOrder] = None) -> torch.Tensor:
                 partials.data_ptr(), dw.data_ptr())
     else:
         name = 'conv_dw'
-        tile, n_chunks, chunk_rows = conv_dw_launch(k_out, ta, cin, cout)
-        partials = (torch.empty((n_chunks, ta, cin, cout),
+        launch = conv_dw_launch(k_out, ta, cin, cout)
+        partials = (torch.empty((launch.n_chunks, ta, cin, cout),
                                 dtype=torch.float32, device=dev)
-                    if n_chunks > 1 else None)
+                    if launch.n_chunks > 1 else None)
         args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
-                g.data_ptr(), cout, tile, n_chunks, chunk_rows,
-                _ptr(partials), dw.data_ptr())
+                g.data_ptr(), cout, *launch, _ptr(partials), dw.data_ptr())
     fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
         kernels.check(name, fn(*args,

@@ -72,6 +72,46 @@ def test_ties_go_to_the_lowest_index():
     np.testing.assert_array_equal(d2.numpy(), [1, 1, 1])
 
 
+def first_nearest(a, ab, b, bb, b_valid):
+    """numpy brute force: the least j of the least squared distance (the
+    same fp32 operations, in the same order)."""
+    prod = (a[:, None, 0] * b[None, :, 0] + a[:, None, 1] * b[None, :, 1]) \
+        + a[:, None, 2] * b[None, :, 2]
+    sq = lambda x: (x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2]
+    d = (sq(a)[:, None] + sq(b)[None, :]) - np.float32(2) * prod
+    ok = (ab[:, None] == bb[None, :]) & b_valid[None, :]
+    d = np.where(ok, np.maximum(d, np.float32(0)), np.float32(np.inf))
+    idx = np.argmin(d, 1).astype(np.int32)           # the first minimum
+    d2 = d[np.arange(len(a)), idx]
+    return np.where(np.isfinite(d2), idx, -1), d2
+
+
+@pytest.mark.parametrize('n_batches', [1, 3, 5])
+def test_ties_and_interleaved_batches_match_jax_kernel(n_batches):
+    """Points on a 6-cell cube (most rows of A tie between several rows of
+    B), batch ids interleaved row by row, one batch of A absent from B."""
+    rng = np.random.RandomState(40 + n_batches)
+    na, nb = 500, 1200
+    b = rng.randint(0, 6, (nb, 3)).astype(np.float32)
+    bb = rng.randint(0, n_batches, nb).astype(np.int32)
+    b_valid = rng.rand(nb) > 0.2
+    a = rng.randint(0, 6, (na, 3)).astype(np.float32)
+    ab = rng.randint(0, n_batches + 1, na).astype(np.int32)
+    idx, d2 = port(a, ab, b, bb, b_valid)
+    w_idx, w_d2 = first_nearest(a, ab, b, bb, b_valid)
+    np.testing.assert_array_equal(idx.numpy(), w_idx)
+    np.testing.assert_array_equal(d2.numpy(), w_d2)
+    j_idx, j_d2 = jax_masked_nn(*(jnp.asarray(x) for x in
+                                  (a, ab, b, bb, b_valid)), interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(d2.numpy(), np.asarray(j_d2))
+    # the cases are there: ties at the minimum, and rows without a batch
+    found = idx.numpy() >= 0
+    ties = [int(((b == b[j]).all(1) & (bb == bb[j]) & b_valid).sum())
+            for j in idx.numpy()[found]]
+    assert max(ties) > 1 and (~found).any() and found.any()
+
+
 def test_plain_version_chunks_rows_of_a():
     rng = np.random.RandomState(3)
     inputs = make_inputs(rng, 257, 4000)

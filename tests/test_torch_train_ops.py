@@ -18,6 +18,7 @@ The same numpy inputs go through the JAX functions and the port's:
   order).
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -160,10 +161,33 @@ def test_input_gradient_skipped_when_not_needed():
     (0, 27, 16, 16), (1, 27, 5, 16), (1000, 3, 192, 192),
     (166044, 27, 16, 16), (171317, 27, 96, 96), (21281, 3, 128, 128)])
 def test_conv_dw_launch_covers_every_row(k_out, ta, cin, cout):
-    tile, n_chunks, chunk_rows = tmc.conv_dw_launch(k_out, ta, cin, cout)
-    assert tile in (16, 32, 64) and n_chunks >= 1
-    assert n_chunks * chunk_rows >= k_out
+    launch = tmc.conv_dw_launch(k_out, ta, cin, cout)
+    # a function of the shapes only: the order of the sums never changes
+    assert launch == tmc.conv_dw_launch(k_out, ta, cin, cout)
+    tile_m, tile_n, taps, n_chunks, chunk_rows = launch
+    # every row, in whole steps (row streaming) or segments (GEMM), and
+    # no empty chunk
+    assert n_chunks >= 1 and n_chunks * chunk_rows >= k_out
     assert (n_chunks - 1) * chunk_rows < max(k_out, 1)
+    if tmc.dw_narrow(cin, cout):
+        # every tap in groups of at most 9, the widths padded to 8/16/32
+        assert chunk_rows % tmc.DW_STEP == 0
+        assert 1 <= taps <= tmc.DW_MAX_TAPS
+        assert math.ceil(ta / taps) * taps >= ta
+        assert (math.ceil(ta / taps) - 1) * taps < max(ta, 1)
+        assert tile_m in (8, 16, 32) and tile_m >= cin > tile_m // 2 or \
+            tile_m == 8 >= cin
+        assert tile_n in (8, 16, 32) and tile_n >= cout > tile_n // 2 or \
+            tile_n == 8 >= cout
+    else:
+        # one tap a block; every (Cin, Cout) tile, multiples of 8 up to
+        # 128, no edge tile half empty
+        assert taps == 1 and chunk_rows % tmc.DW_CHUNK == 0
+        for tile, width in ((tile_m, cin), (tile_n, cout)):
+            assert tile % 8 == 0 and 8 <= tile <= tmc.DW_MAX_TILE
+            n = math.ceil(width / tile)
+            assert n == math.ceil(width / tmc.DW_MAX_TILE)
+            assert 0 <= n * tile - width < 8 * n
 
 
 def two_halves(rng, n_a=900, n_b=800, c=24):
