@@ -16,7 +16,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``tests/test_torch_conv_x3_card.py``,
    ``tests/test_torch_match_conv_card.py``,
    ``tests/test_torch_conv_dw_card.py``,
-   ``tests/test_torch_nn_argmin_card.py``: JAX-free, every test must
+   ``tests/test_torch_nn_argmin_card.py``,
+   ``tests/test_torch_conv_ffma_card.py``: JAX-free, every test must
    pass) in a child process;
 3. TransFusion-L: ``configs/transfusion_nusc_voxel_L.py`` at full width
    (1440 x 1440 x 41 grid, 160k voxel capacity, the flagship's measured
@@ -123,7 +124,13 @@ The fp32 rulebook engine runs its default ``x3`` route throughout
 to the exact one, and run again on the exact (FFMA) kernel
 ``gather_gemm_conv``/``conv_dw`` under ``MSMD_CONV_GEMM=highest`` (set
 around that call only), held to the exact plain version and timed
-(``ffma_ratio``: the x3 time over the FFMA time).
+(``ffma_ratio``: the x3 time over the FFMA time). Each exact conv rerun
+(``gather_gemm_conv``, and phase 7's ``match_conv``) also prints its
+useful share (hits over the row-taps it multiplies: each tap's hits in a
+128-row block in whole 16-row slices, ``ffma_multiplied``) and
+``sgemm_ms``: the sum over taps of cuBLAS fp32 ``torch.mm``, TF32 off, on
+each tap's hit rows gathered beforehand, a yardstick of the FFMA rate at
+these shapes that the port never calls.
 
 The path, per model: one forward records the arguments of every kernel
 call; each call is held against the kernel's plain version (rows,
@@ -173,7 +180,8 @@ and its train step for the exact ``conv_dw``. The bf16 and x3 kernels'
 bound takes the card's dense bf16 tensor rate (``TENSOR_PASSES``: three
 products for x3, two for the one-hot bf16 kernel); their entries also
 carry ``useful_share``, the packed ones ``fp32_ratio``, the x3 ones
-``ffma_ratio``, the exact ``conv_dw`` ``useful_share`` and ``sgemm_ms``,
+``ffma_ratio``, the exact ``conv_dw``, ``gather_gemm_conv`` and
+``match_conv`` ``useful_share`` and ``sgemm_ms``,
 ``masked_nn`` ``unfused_bound_ms`` (its operations at the fp32 rate
 without fused multiply-adds, which its contract forbids: half the data
 sheet's), the rows kernels' ``searchsorted_ratio`` (back to back), ``device_ms`` and
@@ -344,6 +352,9 @@ WRAPPER = {'gather_gemm_conv_bf16': 'gather_gemm_conv',
 # each x3 kernel's exact (FFMA) counterpart, under MSMD_CONV_GEMM=highest
 FFMA = {'gather_gemm_conv_x3': 'gather_gemm_conv', 'conv_dw_x3': 'conv_dw',
         'match_conv_x3': 'match_conv'}
+# the exact conv kernels (ffma_conv.cuh's body): their records carry the
+# useful share and the cuBLAS yardstick
+EXACT_CONVS = ('gather_gemm_conv', 'match_conv')
 # bf16 tensor-core products a kernel's FLOP take: the packed kernels one,
 # the bf16-feature one-hot kernel two (hi and lo of the weights), the x3
 # kernels three; the others run fp32 FFMA
@@ -897,6 +908,20 @@ def dw_record(name, i, args, kwargs, reps, plain_reps):
     return rec
 
 
+def conv_sgemm_operands(feats, rows, weights):
+    """Per tap, the operands of an exact conv's product gathered
+    beforehand: (feats of the tap's hit rows [n_t, Cin], weights[t]), so
+    that ``torch.mm`` of each pair is the tap's share of the output rows
+    it hits: the cuBLAS fp32 yardstick (``sgemm_ms``)."""
+    import torch
+    out = []
+    for t in range(rows.shape[1]):
+        r = rows[:, t]
+        x = feats.index_select(0, r[r >= 0].to(torch.int64))
+        out.append((x, weights[t]))
+    return out
+
+
 def dw_multiplied(rows, cin, cout):
     """Row-taps the exact ``conv_dw`` multiplies: its hits alone where it
     streams rows (both widths at most 32); else, per tap and 2048-row
@@ -955,12 +980,12 @@ def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
                                             rec['cout'])
             extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
         if name == 'conv_dw':
-            extra += exact_dw_extra(rec)
+            extra += exact_extra(rec)
         if mc.x3():
             with switches(HIGHEST['env']):
                 rec['ffma'] = dw_record('conv_dw', i, args, {}, reps,
                                         plain_reps)
-            extra += ffma_ratio(rec) + exact_dw_extra(rec['ffma'], 'ffma_')
+            extra += ffma_ratio(rec) + exact_extra(rec['ffma'], 'ffma_')
         extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
         print(f"{name}[{i}] {rec['cin']}x{rec['cout']} K_in={rec['k_in']} "
@@ -975,10 +1000,11 @@ def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
     return out
 
 
-def exact_dw_extra(rec, prefix=''):
-    """' useful=.. sgemm_ms=.. sgemm_ratio=..' of an exact ``conv_dw``
-    record: the hits over the row-taps it multiplies, and the cuBLAS
-    yardstick on the same products."""
+def exact_extra(rec, prefix=''):
+    """' useful=.. sgemm_ms=.. sgemm_ratio=..' of an exact (FFMA) kernel's
+    record (``conv_dw``, ``gather_gemm_conv``, ``match_conv``): the hits
+    over the row-taps it multiplies, and the cuBLAS yardstick on the same
+    products."""
     return (f"{prefix}useful={rec['hits'] / max(rec['staged'], 1):.3f} "
             f"{prefix}sgemm_ms={rec['sgemm_ms']:.4f} "
             f"{prefix}sgemm_ratio={rec['ms'] / rec['sgemm_ms']:.3f} ")
@@ -999,6 +1025,21 @@ def block_staged_row_taps(rows):
         m = m[:, :m.shape[1] // 2] | m[:, m.shape[1] // 2:]
     return mc.SLICE_ROWS * sum(int(((m >> t) & 1).sum())
                                for t in range(rows.shape[1]))
+
+
+def ffma_multiplied(rows):
+    """Row-taps the exact conv kernels (``gather_gemm_conv``,
+    ``match_conv``) multiply on ``rows``: per block of ``FFMA_ROWS`` rows,
+    each tap's hits in whole ``FFMA_SLICE``-row slices. The useful share
+    is the hits over these."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    hit = (rows >= 0).to(torch.int64)
+    hit = torch.nn.functional.pad(hit,
+                                  (0, 0, 0, -hit.shape[0] % mc.FFMA_ROWS))
+    n = hit.view(-1, mc.FFMA_ROWS, rows.shape[1]).sum(1)
+    return mc.FFMA_SLICE * int(((n + mc.FFMA_SLICE - 1) // mc.FFMA_SLICE)
+                               .sum())
 
 
 def ffma_ratio(rec):
@@ -1234,7 +1275,7 @@ def conv_record(name, i, args, kwargs, order, reps, plain_reps):
     def worst(pairs, gemm):
         return max(v for g, v in pairs if g == gemm)
     plain_kw = dict(kwargs, gemm=gemms[0])
-    return dict(
+    rec = dict(
         cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
         hits=hits, err=worst(errs, gemms[0]), rel=worst(rels, gemms[0]),
         elem=worst(elems, gemms[0]), elem_exact=worst(elems, gemms[-1]),
@@ -1245,6 +1286,13 @@ def conv_record(name, i, args, kwargs, order, reps, plain_reps):
         library_ms=None,
         bytes_ms=nbytes / PEAK_BYTES * 1e3,
         ops_ms=ops_ms(name, hits, cin, cout))
+    if name in EXACT_CONVS:
+        rec['staged'] = ffma_multiplied(rows)
+        products = conv_sgemm_operands(feats, rows, weights)
+        rec['sgemm_ms'] = cuda_ms(
+            lambda: [torch.mm(x, w) for x, w in products], reps)
+        del products
+    return rec
 
 
 def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
@@ -1283,11 +1331,13 @@ def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
             rec['staged'] = block_staged_row_taps(
                 mc.plan_rows_plain(args[1], args[2]))
             extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+        if name in EXACT_CONVS:
+            extra += exact_extra(rec)
         if name in FFMA:
             with switches(HIGHEST['env']):
                 rec['ffma'] = conv_record(FFMA[name], i, args, kwargs, None,
                                           reps, plain_reps)
-            extra += ffma_ratio(rec)
+            extra += ffma_ratio(rec) + exact_extra(rec['ffma'], 'ffma_')
         extra += same_call_ratio(rec, fp32, i)
         out.append(rec)
         print(f"{label}[{i}] {rec['cin']}->{rec['cout']} K_in={rec['k_in']} "
@@ -1415,8 +1465,9 @@ def route_shares(recs):
     pairs they stage (``useful_share``), the packed ones' time over the
     fp32 engine's (x3) kernel's on the same calls (``fp32_ratio``) and the
     x3 ones' over the exact (FFMA) kernel's (``ffma_ratio``); the exact
-    ``conv_dw``'s hits over the row-taps it multiplies and its cuBLAS
-    yardstick (``sgemm_ms``); ``masked_nn``'s bound at the unfused fp32
+    kernels' (``conv_dw``, ``gather_gemm_conv``, ``match_conv``) hits over
+    the row-taps they multiply and their cuBLAS yardstick (``sgemm_ms``);
+    ``masked_nn``'s bound at the unfused fp32
     rate (``unfused_bound_ms``), where the records carry them."""
     out = {}
     if recs and all('staged' in r for r in recs):
@@ -2619,7 +2670,8 @@ CARD_TESTS = ('tests/test_torch_rows_card.py',
               'tests/test_torch_conv_x3_card.py',
               'tests/test_torch_match_conv_card.py',
               'tests/test_torch_conv_dw_card.py',
-              'tests/test_torch_nn_argmin_card.py')
+              'tests/test_torch_nn_argmin_card.py',
+              'tests/test_torch_conv_ffma_card.py')
 
 
 def card_tests():

@@ -39,8 +39,8 @@ ENTRY_POINTS = {
     'rows_queries': ('rows_affine', 'msmd_rows_queries',
                      (_P, _I, _P, _I, _I, _P, _P, _P, _P)),
     'gather_gemm_conv': ('gather_gemm_conv', 'msmd_gather_gemm_conv',
-                         (_P, _I, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P,
-                          _P)),
+                         (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P,
+                          _I, _P, _P, _P)),
     'gather_gemm_conv_bf16': ('gather_gemm_conv_bf16',
                               'msmd_gather_gemm_conv_bf16',
                               (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
@@ -59,8 +59,8 @@ ENTRY_POINTS = {
                    (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                     _P)),
     'match_conv': ('match_conv', 'msmd_match_conv',
-                   (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
-                    _I, _P, _P, _P)),
+                   (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
+                    _I, _P, _P, _I, _P, _P, _P)),
     'match_conv_x3': ('match_conv', 'msmd_match_conv_x3',
                       (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                        _I, _I, _I, _P, _P, _I, _P, _P, _P)),

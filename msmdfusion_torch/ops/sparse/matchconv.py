@@ -57,8 +57,8 @@ Hand-written CUDA kernels carry these paths (``csrc/``):
   kernels' row order;
 - ``gather_gemm_conv``: the conv with its fused BN/ReLU/mask epilogue,
   replacing ``_vgather_kernel`` (forward, fp32, ``MSMD_CONV_GEMM=
-  highest``); the training backward runs it again over the dual rows for
-  the input gradient;
+  highest``, exact fp32 FFMA); the training backward runs it again over
+  the dual rows for the input gradient;
 - ``gather_gemm_conv_bf16`` and ``gather_gemm_conv_x3``: the same conv on
   bf16 tensor cores, replacing ``_vgather_kernel``'s packed mode and its
   fp32 mode's default ``x3`` product; they walk the rows in the plan's
@@ -73,7 +73,11 @@ Hand-written CUDA kernels carry these paths (``csrc/``):
   engine's conv, search and product fused, replacing ``_match_kernel``:
   fp32 features on the x3 product (default) or the exact one (FFMA,
   ``MSMD_CONV_GEMM=highest``), bf16 features (its ``parts=1`` mode) on
-  the tensor cores against the weights' hi and lo.
+  the tensor cores against the weights' hi and lo. The exact
+  ``match_conv`` shares its body with ``gather_gemm_conv``
+  (``csrc/ffma_conv.cuh``, launch from ``ffma_launch``): blocks of 128
+  output rows, each tap's hits compacted and multiplied alone, a 16-hit
+  slice a warp.
 
 Each wrapper launches its kernel for a CUDA tensor, raising if the build
 or the launch fails, and runs its plain PyTorch version for a CPU tensor
@@ -665,7 +669,8 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     [Ta, Cin, Cout] f32; scale/shift [Cout] f32; out_valid [K_out] bool.
     On the card: the x3 product (kernel ``gather_gemm_conv_x3``, the
     default), the exact fp32 one under ``MSMD_CONV_GEMM=highest`` (kernel
-    ``gather_gemm_conv``), or under ``packed()`` bf16 operands with fp32
+    ``gather_gemm_conv``, at most ``FFMA_MAX_TAPS`` taps; launch from
+    ``ffma_launch``), or under ``packed()`` bf16 operands with fp32
     sums (kernel ``gather_gemm_conv_bf16``). The x3 and packed kernels
     walk the rows in ``order``: the plan's ``row_order(rows)``, which the
     sparse conv layers have ``attach_rows`` build where ``needs_order()``;
@@ -702,8 +707,10 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
                 kc, wt.shape[2], cout, *epilogue)
     else:
         name = 'gather_gemm_conv'
+        _check_ffma_taps(ta)
+        launch = ffma_launch(cin, cout)
         args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
-                weights.data_ptr(), cout, *epilogue)
+                weights.data_ptr(), cout, *launch[:3], *epilogue)
     fn = kernels.entry_point(name)
     with torch.cuda.device(dev):
         kernels.check(name, fn(*args,
@@ -768,7 +775,8 @@ def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
     ``gather_gemm_conv``, in fp32. On the card (``match_kernel``): fp32
     features on the x3 product (kernel ``match_conv_x3``, the default) or,
     under ``MSMD_CONV_GEMM=highest``, the exact one (kernel
-    ``match_conv``); bf16 features against the weights' hi and lo (kernel
+    ``match_conv``, at most ``FFMA_MAX_TAPS`` taps; launch from
+    ``ffma_launch``); bf16 features against the weights' hi and lo (kernel
     ``match_conv_bf16``, bf16 out). The tensor-core kernels split the
     weights once per call (``x3_weights``) and order each block's rows by
     tap-hit mask themselves. A CPU tensor takes the plain version: the
@@ -808,8 +816,9 @@ def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
                  k_out, ta)
     epilogue = (_ptr(scale), _ptr(shift), int(relu), _ptr(out_valid))
     if name == 'match_conv':
+        _check_ffma_taps(ta)
         args = (feats.data_ptr(), cin, *plan_args, weights.data_ptr(), cout,
-                *epilogue, out.data_ptr())
+                *ffma_launch(cin, cout)[:3], *epilogue, out.data_ptr())
     else:
         hi, lo, np_, kc = x3_weights(weights)
         args = (feats.data_ptr(), cin, *plan_args, hi.data_ptr(),
@@ -920,6 +929,46 @@ def conv_dw_launch(k_out: int, ta: int, cin: int, cout: int) -> DwLaunch:
     chunk_rows = step * max(1, math.ceil(k_out / n_chunks / step))
     return DwLaunch(edge[0], edge[1], max(taps, 1),
                     max(1, math.ceil(k_out / chunk_rows)), chunk_rows)
+
+
+FFMA_ROWS = 128         # output rows per block of the exact conv kernels
+FFMA_SLICE = 16         # hits a warp multiplies at a time there
+FFMA_TILES = (16, 32, 64, 80, 96, 128)  # their register tiles (channels)
+FFMA_MAX_TAPS = 64
+
+
+class FfmaLaunch(NamedTuple):
+    """A launch of the exact (FFMA) conv kernels ``gather_gemm_conv`` and
+    ``match_conv``: blocks of ``FFMA_ROWS`` output rows by ``col_blocks``
+    tiles of ``tile_n`` output channels, held in a register tile of
+    ``tile`` channels; the input channels staged ``kc`` at a time."""
+    tile: int
+    tile_n: int
+    kc: int
+    col_blocks: int
+
+
+def ffma_launch(cin: int, cout: int) -> FfmaLaunch:
+    """The exact conv kernels' launch at these widths: Cout cut as
+    ``dw_tile`` cuts it (the fewest tiles of at most 128, multiples of 8:
+    192 as 2 x 96, 80 and 96 whole), each in the narrowest register tile
+    that holds it; chunks of 32 input channels where they divide Cin and
+    the tile is not 80 or 96 (there two blocks of 16-deep stages share an
+    SM), else 16 where those divide Cin, else 8 (Cin 16 stages no padding).
+    A function of the shapes only; the order of each output's sums (taps
+    ascending, each tap's channels ascending) does not depend on it
+    either."""
+    tile_n = dw_tile(max(cout, 1))
+    tile = next(w for w in FFMA_TILES if w >= tile_n)
+    deep = tile not in (80, 96)
+    kc = 32 if cin % 32 == 0 and deep else 16 if cin % 16 == 0 else 8
+    return FfmaLaunch(tile, tile_n, kc, math.ceil(cout / tile_n))
+
+
+def _check_ffma_taps(ta: int) -> None:
+    if ta > FFMA_MAX_TAPS:
+        raise ValueError(f'{ta} taps: the exact conv kernels take at most '
+                         f'{FFMA_MAX_TAPS}')
 
 
 DW_CHUNK_STEP = 64      # chunks of conv_dw_bf16 are whole 64-pair stages
