@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card: TransFusion-L, the
 full MSMDFusion flagship, the flagship's train step, then the flagship's
-inference and train step on the two other sparse-conv engines.
+inference and train step on the two other sparse-conv engines, its bf16
+compute frames, its ablation and backend switches and its train step with
+the image branch trained.
 
     python3 chip_smoke.py
 
@@ -32,8 +34,11 @@ Phases (any failure raises and ends the run with a non-zero exit):
    real pixels per camera). The same path runs on it; then one counted
    frame on the exact fp32 product (``MSMD_CONV_GEMM=highest``, set around
    it only: launches 16/37/8/3 with kernel ``gather_gemm_conv``) and how
-   far the default x3 path lies from it (printed, not held); then the
-   dense layers new to this model are timed on and off cuDNN;
+   far the default x3 path lies from it (printed, not held); two fp32
+   forwards give bit-equal voxel features (the voxel mean's fixed-order
+   segment sum; the dense heatmap's difference is printed); then the
+   dense layers new to this model are timed on and off cuDNN, in fp32 and
+   in bf16;
 5. the MSMDFusion train step on the same model and scene, with the
    scene's ground truth: the reference's stage-2 recipe (frozen
    ``img_backbone``/``img_neck``, AdamW lr 1e-4 and weight decay 0.05,
@@ -89,9 +94,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
    tap-hit mask), launches (37/8/3, no rows kernel), the twin on the
    x3 plain versions with the x3 split pinned as in phases 4-5, and
    ms/frame; one counted frame on ``highest`` (launches 37/8/3 with
-   ``match_conv``); then ``match_conv_bf16``, the bf16-feature mode no
-   model reaches yet, on the frame's 37 calls with their features rounded
-   to bf16 (``match_bf16_calls``: its path's launches, each call within
+   ``match_conv``); then ``match_conv_bf16``, the bf16-feature mode, on
+   the frame's 37 calls with their features rounded to bf16
+   (``match_bf16_calls``: its path's launches, each call within
    one bf16 ulp of the plain bf16 version plus 1e-4 of its sum's
    magnitude and bit-equal to it on at least ``BF16_EQUAL`` of its
    elements, timed); then the train step with the forward and backward
@@ -108,7 +113,35 @@ Phases (any failure raises and ends the run with a non-zero exit):
    (launches 37/73/37/8/3) and 2 timed steps. Last, the engines' frames
    interleaved (fp32 x3, fp32 highest, packed, one-hot x3: one of each per
    round, 6 rounds), the frame and its stage ``plans`` per engine, so that
-   a slow stretch of the host falls on all of them.
+   a slow stretch of the host falls on all of them (after phases 8-10);
+8. the flagship under ``compute_dtype='bfloat16'`` (the JAX package's
+   ``MSMD_BF16``: images and LiDAR voxel features cast to bf16, every layer
+   after them in the dtype the JAX layer produces) on the calibrated
+   weights, three frames (``BF16``): parameters cast to bf16 as the JAX
+   bench casts them (``layers.cast_params``; the norms' statistics stay
+   fp32, checked) under the packed engine, the JAX bench's setting with
+   ``MSMD_BF16``, and under the one-hot engine (``match_conv_bf16`` on
+   the 25 convs with bf16 features: its first model path), and fp32
+   parameters on the default x3 route. Each: every conv call on bf16
+   features held to its plain version (the same single rounding to bf16)
+   by phase 7's bf16 rule and timed; launches; no row dropped; the sparse
+   encoder's output bf16, predictions and boxes fp32 and finite; the
+   twin (kernel path vs all-plain path on the kernel path's proposals,
+   every output, the head input and the dense heatmap too, within 10
+   times the plain path's own spread under reordered sums, never less
+   than 1e-4 of max: no bf16 rounding is pinned); how far it lies from
+   phase 4's fp32 path (printed); ms/frame, stages, a profile;
+9. one frame each under ``MSMD_GMA_NN=exact`` (every ``masked_nn`` call, a
+   stage's camera voxels against all its LiDAR voxels, held bit-equal to
+   its plain version and timed; 4 launches), ``MSMD_GMA_DUMMY=random:7``,
+   ``MSMD_FUSE_BN=0`` (the head input within 1e-4 of max of the fused
+   frame's) and ``MSMD_SPARSE_BACKEND=xla`` (no kernel launched): launches,
+   no row dropped, finite boxes, ms/frame;
+10. the train step with the image branch trained (``freeze_img=False``):
+   every parameter in the optimizer, the ResNet's norms on their running
+   statistics; one counted step (phase 5's launches), 3 timed steps,
+   finite losses, the image parameters moved and the ResNet's statistics
+   unchanged, peak memory.
 
 Batch norms are calibrated on each model's frame first
 (``utils/calibrate.py``: running statistics set to those of each norm's
@@ -175,8 +208,9 @@ masks, which the x3 kernels' row order needs), ``gather_gemm_conv_x3``,
 frame on ``highest``, phase 6's inference for ``gather_gemm_conv_bf16``
 and train step for ``conv_dw_bf16``, phase 7's inference for
 ``match_conv_x3``, its frame on ``highest`` for the exact ``match_conv``
-(timed on the x3 kernel's calls), its bf16 check for ``match_conv_bf16``
-and its train step for the exact ``conv_dw``. The bf16 and x3 kernels'
+(timed on the x3 kernel's calls), phase 8's one-hot bf16 frame for
+``match_conv_bf16`` (its model path: 25 calls) and phase 7's train step
+for the exact ``conv_dw``. The bf16 and x3 kernels'
 bound takes the card's dense bf16 tensor rate (``TENSOR_PASSES``: three
 products for x3, two for the one-hot bf16 kernel); their entries also
 carry ``useful_share``, the packed ones ``fp32_ratio``, the x3 ones
@@ -509,12 +543,15 @@ def build_model(device, config=TL['config'], n_caps=TL['enc_caps'],
     return build_detector(model_cfg, device=device, seed=SEED)
 
 
-def build_flagship(device, overrides=None, caps=FLAGSHIP):
-    """MSMDFusion at the capacities of ``_flagship_model('full')``."""
+def build_flagship(device, overrides=None, caps=FLAGSHIP,
+                   compute_dtype='float32'):
+    """MSMDFusion at the capacities of ``_flagship_model('full')``, with
+    the detector's ``compute_dtype`` (the JAX package's ``MSMD_BF16``)."""
     from msmdfusion_torch.config import load_config
     from msmdfusion_torch.models.builder import build_detector
     import msmdfusion_torch.models  # noqa: F401
     cfg = load_config(str(FLAGSHIP['config']), overrides).model
+    cfg.compute_dtype = compute_dtype
     cfg.pts_voxel_layer.max_voxels = (caps['max_voxels'],) * 2
     cfg.pts_middle_encoder.stage_capacities = list(caps['enc_caps'])
     cfg.multimodal_middle_encoder.stage_capacities = list(caps['gma_caps'])
@@ -1108,16 +1145,12 @@ def bf16_equal(got, want):
 
 
 def match_bf16_calls(model, inputs, card, reps=2, plain_reps=2):
-    """The bf16-feature one-hot kernel ``match_conv_bf16``, which no model
-    reaches yet: one one-hot forward records its ``match_conv`` calls, and
-    those calls with their features rounded to bf16 are this kernel's path:
+    """The bf16-feature one-hot kernel ``match_conv_bf16`` on the fp32
+    one-hot frame's widths: one one-hot forward records its ``match_conv``
+    calls, and those calls with their features rounded to bf16 are run:
     launches set to 0, each call once, the launches read and held. Then each
-    call, with its epilogue and without, against the plain bf16 version:
-    each element within one bf16 ulp of it plus TOL of the magnitude of its
-    sum (the two passes' fp32 sums in another order: where a sum's terms
-    cancel, its bf16 ulp is smaller than their rounding), at least
-    ``BF16_EQUAL`` of them bit-equal to it (``bf16_equal``: the bound alone
-    also holds a kernel that drops the ``W_lo`` pass), and timed.
+    call against the plain bf16 version (``bf16_record``). (Phase 8's
+    one-hot bf16 frame is the kernel's model path.)
     Returns ({'match_conv_bf16': records}, launches)."""
     import torch
     from msmdfusion_torch import kernels
@@ -1137,71 +1170,9 @@ def match_bf16_calls(model, inputs, card, reps=2, plain_reps=2):
     print(f'{name} path (the one-hot frame\'s calls on bf16 features): '
           f'launches {launches}', flush=True)
     check_launches(f'{name} path', launches, {name: len(calls)})
-    out = []
     with torch.no_grad():
-        for i, (args, kwargs) in enumerate(calls):
-            feats, in_keys, plan, weights = args
-            rows = mc.plan_rows_plain(in_keys, plan)
-            k_out, ta = rows.shape
-            cin, cout = weights.shape[1], weights.shape[2]
-            magnitude = mc.gather_gemm_conv_plain(feats.float().abs(), rows,
-                                                  weights.abs())
-            err, in_ulp, equal, worst = 0.0, 1.0, 1.0, 0.0
-            for kw in (kwargs, {}):
-                got = mc.match_conv(*args, **kw)
-                want = mc.match_conv_plain(*args, **kw).float()
-                mag = magnitude
-                if kw.get('scale') is not None:
-                    mag = mag * kw['scale'].abs()
-                if kw.get('shift') is not None:
-                    mag = mag + kw['shift'].abs()
-                torch.cuda.synchronize()
-                check(got.dtype == torch.bfloat16 and bool(
-                    torch.isfinite(got).all()),
-                      f'{name} call {i}: {got.dtype} or non-finite output')
-                diff = (got.float() - want).abs()
-                ulp = bf16_ulp(want)
-                limit = ulp + TOL * mag
-                bad = int((diff > limit).sum())
-                same, enough = bf16_equal(got.float(), want)
-                check(enough, f'{name} call {i} ({cin}->{cout}, '
-                      f'epilogue={bool(kw)}): {same:.5f} of the elements '
-                      f'bit-equal to the plain version, below {BF16_EQUAL} '
-                      f'({bad} outside one bf16 ulp and {TOL} of |sum|)')
-                equal = min(equal, same)
-                check(bad == 0, f'{name} call {i} ({cin}->{cout}, epilogue='
-                      f'{bool(kw)}): {bad} elements differ from the plain '
-                      f'version by more than one bf16 ulp and {TOL} of the '
-                      'magnitude of their sum')
-                err = max(err, float(diff.max()) if diff.numel() else 0.0)
-                in_ulp = min(in_ulp, float((diff <= ulp).float().mean())
-                             if diff.numel() else 1.0)
-                worst = max(worst, float((diff / limit).max())
-                            if diff.numel() else 0.0)
-            hits = int((rows >= 0).sum())
-            n_epi = sum(kwargs.get(k) is not None for k in ('scale', 'shift'))
-            nbytes = (2 * feats.numel() + 4 * weights.numel()
-                      + 4 * n_epi * cout + 2 * k_out * cout
-                      + match_plan_bytes(in_keys, plan)
-                      + (k_out if kwargs.get('out_valid') is not None else 0))
-            rec = dict(
-                cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
-                hits=hits, err=err, staged=block_staged_row_taps(rows),
-                ms=cuda_ms(lambda: mc.match_conv(*args, **kwargs), reps),
-                plain_ms=cuda_ms(lambda: mc.match_conv_plain(*args, **kwargs),
-                                 plain_reps),
-                library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
-                ops_ms=ops_ms(name, hits, cin, cout))
-            out.append(rec)
-            print(f"{name}[{i}] {cin}->{cout} K_in={rec['k_in']} "
-                  f"K_out={k_out} Ta={ta} hits={hits} max_abs_err={err:.3g} "
-                  f"bit-equal {equal:.5f} (limit {BF16_EQUAL}), within one "
-                  f"bf16 ulp {in_ulp:.5f}, worst {worst:.3g} "
-                  f"of the limit (1 ulp + {TOL} of |sum|) ms={rec['ms']:.4f} "
-                  f"plain_ms={rec['plain_ms']:.4f} bound_ms="
-                  f"{max(rec['bytes_ms'], rec['ops_ms']):.4f} "
-                  f"useful={hits / max(rec['staged'], 1):.3f} [{card}]",
-                  flush=True)
+        out = [bf16_record(i, args, kwargs, reps, plain_reps, card)
+               for i, (args, kwargs) in enumerate(calls)]
     print(f"{name} sums over the one-hot frame's {len(out)} calls: "
           f"ms={sum(r['ms'] for r in out):.3f} "
           f"plain_ms={sum(r['plain_ms'] for r in out):.3f} bound_ms="
@@ -1684,7 +1655,7 @@ def boxes_part(out, key):
     return out[key]
 
 
-def compare_outputs(run, ref, alt):
+def compare_outputs(run, ref, alt, at_tol=('head_input', 'dense_heatmap')):
     """The kernel path ``run`` vs the plain path ``ref`` on the same
     proposals; ``alt`` is the plain path with reordered sums. Returns
     {key: (error over max |ref|, its limit, the same for ``alt``, median
@@ -1699,7 +1670,8 @@ def compare_outputs(run, ref, alt):
     ``rot``'s length, so that where the decoder gives a box a short
     ``rot`` the angle's error is the product of that box's rounding alone,
     not of the spread: the boxes are held without it, and ``rot`` itself
-    is held; the yaw is returned, not held, with its limit as NaN."""
+    is held; the yaw is returned, not held, with its limit as NaN.
+    ``at_tol``: the outputs held to TOL (the others to the spread)."""
     import torch
     worst = {}
     for key in ('head_input', 'dense_heatmap', 'heatmap', 'center', 'dim',
@@ -1707,8 +1679,7 @@ def compare_outputs(run, ref, alt):
         got, want, other = (boxes_part(out, key) for out in (run, ref, alt))
         rel = rel_err(got, want)[1]
         floor = rel_err(other, want)[1]
-        limit = TOL if key in ('head_input', 'dense_heatmap') else \
-            max(TOL, FLOOR_MARGIN * floor)
+        limit = TOL if key in at_tol else max(TOL, FLOOR_MARGIN * floor)
         if key == 'yaw':
             limit = float('nan')
         worst[key] = (rel, limit, floor, float(want.abs().median()))
@@ -1956,21 +1927,31 @@ def highest_frame(label, model, inputs, card, expected):
 def dense_engines(model, inputs, card, reps=3):
     """The dense layers new to the flagship at its shapes, timed on cuDNN
     and on PyTorch's own convolution (cuDNN off) under the global flag:
-    the check behind ``models/layers.py::cudnn_enabled``'s choices."""
+    the check behind ``models/layers.py::cudnn_enabled``'s choices; the
+    image branch also with bf16 parameters on bf16 images."""
+    import copy
     import torch
+    from msmdfusion_torch.models.layers import cast_params
     img = inputs[2]
     b, v, h, w, _ = img.shape
     backbone = model.img_backbone
+    # the image branch with its parameters cast to bf16, on bf16 images:
+    # the dense layers that run bf16 in phase 8's cast frames (the
+    # compression convs, SPP and SECOND take fp32 inputs there too)
+    backbone16 = cast_params(copy.deepcopy(backbone))
+    neck16 = cast_params(copy.deepcopy(model.img_neck))
 
-    def resnet_body(x):
+    def resnet_body(x, net=backbone):
         # ResNet.forward's layers without its own choice of engine
-        x = backbone.maxpool(torch.relu(backbone.bn1(backbone.conv1(x))))
-        for s in range(backbone.num_stages):
-            x = getattr(backbone, f'layer{s + 1}')(x)
+        x = net.maxpool(torch.relu(net.bn1(net.conv1(x))))
+        for s in range(net.num_stages):
+            x = getattr(net, f'layer{s + 1}')(x)
         return x
 
     with torch.no_grad():
         x = img.reshape(b * v, h, w, 3).permute(0, 3, 1, 2).contiguous()
+        x16 = x.to(torch.bfloat16)
+        feats16 = backbone16(x16)
         level0 = model.img_neck(backbone(x))[0]
         comp_in = torch.cat([level0, level0[:, :1]], 1)
         c_bev = model.bev_fusion.conv1x1[0].in_channels
@@ -1986,6 +1967,9 @@ def dense_engines(model, inputs, card, reps=3):
              lambda: spp.dilated_conv3x3_rate6(bev)),
             (f'SPP 3x3 dilation 12 {c_bev}->256 at 180x180',
              lambda: spp.dilated_conv3x3_rate12(bev)),
+            (f'ResNet-50 bf16 {b * v}x3x{h}x{w}',
+             lambda: resnet_body(x16, backbone16)),
+            (f'FPN bf16 at {b * v} images', lambda: neck16(feats16)),
         ]
         was = torch.backends.cudnn.enabled
         try:
@@ -2507,19 +2491,461 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
     return recs, launches
 
 
+# phase 8: the flagship under compute_dtype bfloat16 (the JAX package's
+# MSMD_BF16, __graft_entry__.py:82, bench.py:128-133), on the calibrated
+# weights: parameters cast as the JAX bench casts them (batch statistics
+# stay fp32) under the packed engine (the JAX bench's setting) and under
+# the one-hot engine, and fp32 parameters on the default x3 route. bf16
+# features reach the sparse encoder's 21 convs and the GMA's 4 grouped
+# convs; the GMA union on stays fp32 (flax's promotion), so the one-hot
+# frame runs match_conv_bf16 on 25 calls and match_conv_x3 on 12
+BF16 = (
+    ('params cast, packed bf16', True, PACKED['env'],
+     {'rows_affine': 16, 'gather_gemm_conv_bf16': 37, 'masked_nn': 8,
+      'merge_take': 3}),
+    ('params cast, one-hot', True, ONEHOT['env'],
+     {'match_conv_bf16': 25, 'match_conv_x3': 12, 'masked_nn': 8,
+      'merge_take': 3}),
+    ('fp32 params, x3', False, {},
+     {'rows_affine': 16, 'gather_gemm_conv_x3': 37, 'masked_nn': 8,
+      'merge_take': 3}))
+# phase 9: the JAX package's ablation and backend switches, one frame
+# each on the default route; the exact nearest-voxel oracle searches all
+# of a stage's 3D voxels once (4 masked_nn), the XLA backend launches no
+# kernel
+ABLATIONS = (
+    ({'MSMD_GMA_NN': 'exact'}, dict(FLAGSHIP['launches'], masked_nn=4)),
+    ({'MSMD_GMA_DUMMY': 'random:7'}, FLAGSHIP['launches']),
+    ({'MSMD_FUSE_BN': '0'}, FLAGSHIP['launches']),
+    ({'MSMD_SPARSE_BACKEND': 'xla'}, {}))
+
+
+def voxel_features(model, inputs):
+    """(the LiDAR voxel features the sparse encoder is handed, the
+    predictions) of one forward."""
+    import torch
+    got = []
+    hook = model.pts_middle_encoder.register_forward_pre_hook(
+        lambda m, args: got.append(args[0].clone()))
+    try:
+        with torch.no_grad():
+            preds = model(*inputs)
+    finally:
+        hook.remove()
+    return got[0], preds
+
+
+def determinism(model, inputs, card):
+    """Two fp32 forwards of the default route: the voxel features must be
+    bit-equal (the voxel mean's fixed-order segment sum); the dense
+    heatmap's difference is printed."""
+    import torch
+    v1, p1 = voxel_features(model, inputs)
+    v2, p2 = voxel_features(model, inputs)
+    torch.cuda.synchronize()
+    diff = float((p1['dense_heatmap'] - p2['dense_heatmap']).abs().max())
+    print(f'MSMDFusion determinism: two forwards, voxel features bit-equal '
+          f'{torch.equal(v1, v2)}; dense_heatmap max |difference| {diff:.3g}'
+          f' ({diff / float(p1["dense_heatmap"].abs().max()):.3g} of max) '
+          f'[{card}]', flush=True)
+    check(torch.equal(v1, v2), 'determinism: the voxel features of two '
+          'forwards differ')
+
+
+def bf16_record(i, args, kwargs, reps, plain_reps, card):
+    """One ``match_conv`` call on bf16 features (kernel
+    ``match_conv_bf16``), with its epilogue and without, against the plain
+    bf16 version: each element within one bf16 ulp of it plus TOL of the
+    magnitude of its sum (the two passes' fp32 sums in another order:
+    where a sum's terms cancel, its bf16 ulp is smaller than their
+    rounding), at least ``BF16_EQUAL`` of them bit-equal to it
+    (``bf16_equal``: the bound alone also holds a kernel that drops the
+    ``W_lo`` pass), and timed. Returns its record."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    name = 'match_conv_bf16'
+    feats, in_keys, plan, weights = args
+    rows = mc.plan_rows_plain(in_keys, plan)
+    k_out, ta = rows.shape
+    cin, cout = weights.shape[1], weights.shape[2]
+    magnitude = mc.gather_gemm_conv_plain(feats.float().abs(), rows,
+                                          weights.float().abs())
+    err, in_ulp, equal, worst = 0.0, 1.0, 1.0, 0.0
+    for kw in (kwargs, {}):
+        got = mc.match_conv(*args, **kw)
+        want = mc.match_conv_plain(*args, **kw).float()
+        mag = magnitude
+        if kw.get('scale') is not None:
+            mag = mag * kw['scale'].abs()
+        if kw.get('shift') is not None:
+            mag = mag + kw['shift'].abs()
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
+              f'{name} call {i}: {got.dtype} or non-finite output')
+        diff = (got.float() - want).abs()
+        ulp = bf16_ulp(want)
+        limit = ulp + TOL * mag
+        bad = int((diff > limit).sum())
+        same, enough = bf16_equal(got.float(), want)
+        check(enough, f'{name} call {i} ({cin}->{cout}, epilogue='
+              f'{bool(kw)}): {same:.5f} of the elements bit-equal to the '
+              f'plain version, below {BF16_EQUAL} ({bad} outside one bf16 '
+              f'ulp and {TOL} of |sum|)')
+        check(bad == 0, f'{name} call {i} ({cin}->{cout}, epilogue='
+              f'{bool(kw)}): {bad} elements differ from the plain version '
+              f'by more than one bf16 ulp and {TOL} of the magnitude of '
+              'their sum')
+        equal = min(equal, same)
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        in_ulp = min(in_ulp, float((diff <= ulp).float().mean())
+                     if diff.numel() else 1.0)
+        worst = max(worst, float((diff / limit).max()) if diff.numel()
+                    else 0.0)
+    hits = int((rows >= 0).sum())
+    n_epi = sum(kwargs.get(k) is not None for k in ('scale', 'shift'))
+    nbytes = (2 * feats.numel() + weights.element_size() * weights.numel()
+              + 4 * n_epi * cout + 2 * k_out * cout
+              + match_plan_bytes(in_keys, plan)
+              + (k_out if kwargs.get('out_valid') is not None else 0))
+    rec = dict(cin=cin, cout=cout, k_in=feats.shape[0], k_out=k_out, ta=ta,
+               hits=hits, err=err, staged=block_staged_row_taps(rows),
+               ms=cuda_ms(lambda: mc.match_conv(*args, **kwargs), reps),
+               plain_ms=cuda_ms(lambda: mc.match_conv_plain(*args, **kwargs),
+                                plain_reps),
+               library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+               ops_ms=ops_ms(name, hits, cin, cout))
+    print(f"{name}[{i}] {cin}->{cout} K_in={rec['k_in']} K_out={k_out} "
+          f"Ta={ta} hits={hits} max_abs_err={err:.3g} bit-equal "
+          f"{equal:.5f} (limit {BF16_EQUAL}), within one bf16 ulp "
+          f"{in_ulp:.5f}, worst {worst:.3g} of the limit (1 ulp + {TOL} of "
+          f"|sum|) ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
+          f"useful={hits / max(rec['staged'], 1):.3f} [{card}]", flush=True)
+    return rec
+
+
+def bf16_calls(label, calls, card, reps=3, plain_reps=1):
+    """Every recorded conv call of a bf16 frame whose features are bf16,
+    on the kernel the switches pick, against its plain version.
+    ``match_conv`` runs the bf16 kernel ``match_conv_bf16``, held by
+    ``bf16_record``'s rule. ``gather_gemm_conv`` runs its fp32 kernel (x3
+    or packed) on the features widened to fp32 and rounds the result once
+    to bf16: the kernel's call is held to its plain versions as phases 4
+    and 6 hold it (``conv_record``: each element within TOL of its sum's
+    magnitude), and the wrapper's bf16 output must be that result rounded.
+    Returns {kernel: records}."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    out = {}
+    for wrapper in ('gather_gemm_conv', 'match_conv'):
+        for args, kwargs in calls[wrapper]:
+            if args[0].dtype != torch.bfloat16:
+                continue
+            kwargs = dict(kwargs)
+            if wrapper == 'match_conv':
+                recs = out.setdefault(mc.match_kernel(torch.bfloat16), [])
+                recs.append(bf16_record(len(recs), args, kwargs, reps,
+                                        plain_reps, card))
+                continue
+            name = kernel_of(wrapper)
+            recs = out.setdefault(name, [])
+            i = len(recs)
+            order = kwargs.pop('order', None)
+            feats, rows, weights = args
+            wide = (feats.float(), rows, weights.float())
+            rec = conv_record(name, i, wide, kwargs, order, reps,
+                              plain_reps)
+            got = mc.gather_gemm_conv(*args, order=order, **kwargs)
+            want = mc.gather_gemm_conv(*wide, order=order, **kwargs)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16 and torch.equal(
+                got, want.to(torch.bfloat16)), f'{name} call {i}: the bf16 '
+                'output is not the fp32 result rounded once')
+            recs.append(rec)
+            print(f"{name}[{i}] bf16 features {rec['cin']}->{rec['cout']} "
+                  f"K_in={rec['k_in']} K_out={rec['k_out']} Ta={rec['ta']} "
+                  f"hits={rec['hits']} max_abs_err={rec['err']:.3g} "
+                  f"({rec['rel']:.3g} of max |ref|) worst |err|/|sum| "
+                  f"{rec['elem']:.3g} (limit {TOL}) before the rounding, "
+                  f"bf16 output the fp32 result rounded once ms="
+                  f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                  f"bound_ms={max(rec['bytes_ms'], rec['ops_ms']):.4f} "
+                  f"[{card}]", flush=True)
+    for name, recs in out.items():
+        staged = ('useful='
+                  f"{sum(r['hits'] for r in recs) / max(sum(r['staged'] for r in recs), 1):.3f} "
+                  if all('staged' in r for r in recs) else '')
+        print(f"{label}: {name} sums over the frame's {len(recs)} calls on "
+              f"bf16 features: ms={sum(r['ms'] for r in recs):.3f} "
+              f"plain_ms={sum(r['plain_ms'] for r in recs):.3f} bound_ms="
+              f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in recs):.3f} "
+              f"{staged}[{card}]", flush=True)
+    return out
+
+
+def bf16_twin(label, model, inputs):
+    """The bf16 frame's kernel path against its all-plain twin on the
+    kernel path's proposals: every output, the head input and the dense
+    heatmap too, within FLOOR_MARGIN times the plain path's own spread
+    under reordered sums (never less than TOL): a conv's bf16 rounding
+    turns the fp32 sums' order into bf16 steps, as phase 6's packed
+    operands do, and no rounding is pinned here. Returns
+    ``compare_outputs``' {key: (error over max |ref|, limit, ...)}."""
+    import torch
+    from msmdfusion_torch import kernels
+    with torch.no_grad():
+        run = pinned_forward(model, inputs, None)
+        index = proposal_index(run)
+        ref = pinned_forward(model, inputs, index, kernels.plain_kernels(),
+                             X3Plain())
+        alt = pinned_forward(model, inputs, index, kernels.plain_kernels(),
+                             X3Plain(), ReorderedSums())
+        worst = compare_outputs(run, ref, alt, at_tol=())
+        del run, ref, alt
+    for key, (rel, limit, floor, median) in worst.items():
+        held = 'not held' if key == 'yaw' else f'limit {limit:.3g}'
+        print(f'{label}: kernel vs plain path: {key} {rel:.3g} of max |ref| '
+              f'({held}; plain path with reordered sums {floor:.3g}; median '
+              f'|ref| {median:.3g})', flush=True)
+    return worst
+
+
+def bf16_frame(label, model, inputs, card, expected, fp32):
+    """One bf16 frame (the module docstring's phase 8): each bf16-feature
+    conv call held to its plain version, the launches of a counted frame
+    held to ``expected``, no row dropped, the sparse encoder's output
+    bf16 and the predictions and boxes fp32 and finite, the twin, how far
+    its head input and boxes lie from the fp32 path's (``fp32``, printed),
+    ms/frame, stages and a profile. Returns (records, launches)."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.utils import overflow, timing
+    with torch.no_grad(), Recorder() as rec:
+        forward(model, inputs)
+    torch.cuda.synchronize()
+    recs = bf16_calls(label, rec.calls, card)
+    del rec
+    seen = []
+    hook = model.pts_middle_encoder.register_forward_hook(
+        lambda m, a, o: seen.append(o[0].dtype))
+    try:
+        with torch.no_grad():
+            kernels.reset_launches()
+            with overflow.capture() as cap, timing.record('cuda') as tr:
+                preds, boxes = forward(model, inputs)
+            launches = dict(kernels.launches)
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    print(f'{label}: launches on the main path: {launches}', flush=True)
+    check_launches(label, launches, expected)
+    check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
+    check(seen == [torch.bfloat16], f'{label}: sparse encoder output {seen}')
+    floats = [v for v in list(preds.values()) + list(boxes.values())
+              if v.is_floating_point()]
+    check(all(v.dtype == torch.float32 for v in floats),
+          f'{label}: predictions or boxes not fp32')
+    check(bool(torch.isfinite(boxes['bboxes']).all()),
+          f'{label}: non-finite boxes')
+    s = boxes['scores']
+    check(bool(((s >= 0) & (s <= 1)).all()), f'{label}: scores outside '
+          '[0, 1]')
+    print(f'{label}: overflow_total 0; sparse encoder output bf16, '
+          'predictions and boxes fp32', flush=True)
+    stage_ms = {k: round(v, 4) for k, v in tr.ms().items()}
+    print(f'{label}: stage_ms {json.dumps(stage_ms)} [{card}]', flush=True)
+    bf16_twin(label, model, inputs)
+    path_vs(f'{label} vs the fp32 (x3) path [{card}]', model, inputs, fp32)
+    with torch.no_grad():
+        frame_ms = cuda_ms(lambda: forward(model, inputs), 5)
+        window_ms, busy_ms, ranked = profile_forward(
+            lambda: forward(model, inputs))
+    print(f'{label}: e2e {frame_ms:.3f} ms/frame (CUDA events, 5 frames), '
+          f'{1e3 / frame_ms:.2f} frames/s; profile: one forward '
+          f'{window_ms:.3f} ms host window, device busy {busy_ms:.3f} ms, '
+          f'idle share {1 - busy_ms / window_ms:.3f} [{card}]', flush=True)
+    for ms, name in ranked[:4]:
+        print(f'{label}: profile: {ms:9.3f} ms  {name[:100]}', flush=True)
+    return recs, launches
+
+
+def bf16_frames(model, inputs, card, fp32, build=build_flagship):
+    """Phase 8 on the calibrated weights of ``model``: each of ``BF16``'s
+    frames on a bf16-compute flagship (``build(device,
+    compute_dtype='bfloat16')``) loaded with them (parameters cast by
+    ``layers.cast_params`` where the frame says: every parameter bf16, the
+    running statistics fp32). ``fp32``: the fp32 path's
+    ``path_outputs``. Returns [(records, launches)]."""
+    import torch
+    from msmdfusion_torch.models.layers import cast_params
+    dev = next(model.parameters()).device
+    calibrated = model.state_dict()
+    out = []
+    for name, cast, env, expected in BF16:
+        bf16 = build(dev, compute_dtype='bfloat16')
+        bf16.load_state_dict(calibrated)
+        if cast:
+            cast_params(bf16)
+            check({p.dtype for p in bf16.parameters()} == {torch.bfloat16}
+                  and {b.dtype for n, b in bf16.named_buffers()
+                       if 'running' in n} == {torch.float32},
+                  'cast_params: parameters bf16, statistics fp32')
+        label = f'MSMDFusion bf16, {name}'
+        with switches(env):
+            print(f'{label}: {env}', flush=True)
+            out.append(bf16_frame(label, bf16, inputs, card, expected, fp32))
+        del bf16
+        torch.cuda.empty_cache()
+    return out
+
+
+def ablation_frames(model, inputs, card):
+    """Phase 9 (``ABLATIONS``), each switch set around its frame only: the
+    launches of a counted frame, no row dropped, finite boxes, ms/frame.
+    Under ``MSMD_GMA_NN=exact`` every ``masked_nn`` call (a stage's camera
+    voxels against all its LiDAR voxels) is held bit-equal to its plain
+    version and timed; under ``MSMD_FUSE_BN=0`` the head input lies within
+    TOL of the fused frame's largest value. Returns [(records,
+    launches)] of the exact frame's ``masked_nn``."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.utils import overflow
+    with torch.no_grad(), HeadInput(model.pts_bbox_head) as fused:
+        forward(model, inputs)
+    out = []
+    for env, expected in ABLATIONS:
+        label = f'MSMDFusion {" ".join(f"{k}={v}" for k, v in env.items())}'
+        with switches(env), torch.no_grad():
+            if 'MSMD_GMA_NN' in env:
+                with Recorder() as rec:
+                    forward(model, inputs)
+                recs = nn_calls(rec.calls['masked_nn'], 3, card,
+                                plain_reps=1)
+                del rec
+                print(f"{label}: masked_nn sums over the frame's "
+                      f"{len(recs)} calls: ms={sum(r['ms'] for r in recs):.3f}"
+                      f" plain_ms={sum(r['plain_ms'] for r in recs):.3f} "
+                      f"bound_ms="
+                      f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in recs):.4f}"
+                      f" [{card}]", flush=True)
+            kernels.reset_launches()
+            with overflow.capture() as cap, \
+                    HeadInput(model.pts_bbox_head) as head_in:
+                preds, boxes = forward(model, inputs)
+            launches = dict(kernels.launches)
+            torch.cuda.synchronize()
+            print(f'{label}: launches on the main path: {launches}',
+                  flush=True)
+            check_launches(label, launches, expected)
+            check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
+            check(bool(torch.isfinite(boxes['bboxes']).all()),
+                  f'{label}: non-finite boxes')
+            err, rel = rel_err(head_in.x, fused.x)
+            if 'MSMD_FUSE_BN' in env:
+                check(rel <= TOL, f'{label}: head input {rel:.3g} of max '
+                      f'from the fused frame, above {TOL}')
+            frame_ms = cuda_ms(lambda: forward(model, inputs), 3)
+        print(f'{label}: head input {err:.4g} ({rel:.4g} of max) from the '
+              f'default frame{" (limit %g)" % TOL if "MSMD_FUSE_BN" in env else ""}; '
+              f'overflow_total 0; e2e {frame_ms:.3f} ms/frame (CUDA events, '
+              f'3 frames) [{card}]', flush=True)
+        if 'MSMD_GMA_NN' in env:
+            out.append(({'masked_nn': recs}, launches))
+    return out
+
+
+def image_train_step(model, inputs, gt, card, steps=3):
+    """Phase 10: the flagship's train step with the image branch trained
+    (``freeze_img=False``): every parameter in the optimizer, as the JAX
+    package's optax chain takes them with no frozen predicate; the
+    ResNet's norms on their running statistics (``norm_eval``). One
+    counted step (the launches of phase 5's step), then ``steps`` timed
+    steps (CUDA events); finite losses, the image parameters moved, the
+    ResNet's statistics unchanged, peak memory. The model's state is
+    restored after."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.train import (build_lr_schedule,
+                                             build_optimizer,
+                                             make_train_step)
+    from msmdfusion_torch.utils import overflow
+    label = 'MSMDFusion image-branch train'
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.freeze_img = False
+    try:
+        schedule = build_lr_schedule(TRAIN['lr_config'],
+                                     TRAIN['optimizer']['lr'],
+                                     TRAIN['total_steps'],
+                                     TRAIN['steps_per_epoch'])
+        opt = build_optimizer(model, TRAIN['optimizer'],
+                              TRAIN['optimizer_config'], schedule)
+        n_opt = sum(len(g['params']) for g in opt.param_groups)
+        check(n_opt == len(list(model.parameters())),
+              f'{label}: {n_opt} parameters in the optimizer')
+        step = make_train_step(model, opt, seed=SEED)
+        batch = dict(inputs=inputs, gt_bboxes=gt[0], gt_labels=gt[1],
+                     gt_valid=gt[2])
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with overflow.capture() as cap:
+            metrics = step(batch, 0)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+        print(f'{label}: launches of one step: {launches}', flush=True)
+        check_launches(label, launches, TRAIN['launches'])
+        check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
+        times = []
+        for i in range(1, steps + 1):
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            metrics = step(batch, i)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(begin.elapsed_time(end))
+            check(bool(torch.isfinite(metrics['total_loss'])),
+                  f'{label}: step {i} loss {metrics["total_loss"]}')
+        sd = model.state_dict()
+        stats = [k for k in start if k.startswith('img_backbone.')
+                 and k.endswith(('running_mean', 'running_var'))]
+        check(stats and all(torch.equal(sd[k], start[k]) for k in stats),
+              f'{label}: the ResNet\'s batch-norm statistics moved')
+        weights = [k for k, _ in model.named_parameters()
+                   if k.startswith(('img_backbone.', 'img_neck.'))]
+        moved = sum(not torch.equal(sd[k], start[k]) for k in weights)
+        check(moved > len(weights) // 2,
+              f'{label}: {moved} of {len(weights)} image parameters moved')
+        print(f'{label}: {steps} steps {sum(times) / steps:.3f} ms/step mean '
+              f'(CUDA events; {", ".join(f"{t:.1f}" for t in times)}), total '
+              f'loss {float(metrics["total_loss"]):.5g}; {moved} of '
+              f'{len(weights)} image parameters moved, the ResNet\'s '
+              f'{len(stats)} statistics unchanged; peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+              f'[{card}]', flush=True)
+    finally:
+        model.freeze_img = True
+        model.load_state_dict(start)
+        model.eval()
+    return launches
+
+
+
 def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                                                       ONEHOT)):
-    """Phases 4-7 on the calibrated flagship (``specs``: the fp32, packed
+    """Phases 4-10 on the calibrated flagship (``specs``: the fp32, packed
     and one-hot inference specs). Returns [(records, launches)] of the six
-    drives in order; then of phase 4's and phase 7's exact (FFMA) conv
-    kernels: their records on the x3 kernel's calls and the launches of a
-    frame on ``MSMD_CONV_GEMM=highest``; then of ``match_conv_bf16`` on
-    phase 7's calls (``match_bf16_calls``)."""
+    drives in order; then of phase 8's three bf16 frames (their calls on
+    bf16 features: ``match_conv_bf16``'s model path) and of phase 9's exact
+    nearest-voxel frame's ``masked_nn``; then of phase 4's and phase 7's
+    exact (FFMA) conv kernels: their records on the x3 kernel's calls and
+    the launches of a frame on ``MSMD_CONV_GEMM=highest``; then of
+    ``match_conv_bf16`` on phase 7's calls (``match_bf16_calls``)."""
     fp32_spec, packed, onehot = specs
     calibrated = {k: v.detach().clone()
                   for k, v in model.state_dict().items()}
     phases = [drive('MSMDFusion', model, inputs, fp32_spec, card,
                     reps=dict(kernel=10, frame=10))]
+    determinism(model, inputs, card)
     exact = ({'gather_gemm_conv': phases[0][0]['gather_gemm_conv']},
              highest_frame('MSMDFusion', model, inputs, card,
                            highest_launches(fp32_spec['launches'])))
@@ -2565,10 +2991,15 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                                       fp32=ratios.get('train')))
     model.load_state_dict(calibrated)
     model.eval()
+    # 8. bf16 compute, 9. the ablation and backend switches, 10. the
+    # image branch trained
+    later = bf16_frames(model, inputs, card, fp32)
+    later += ablation_frames(model, inputs, card)
+    image_train_step(model, inputs, gt, card)
     engines_interleaved(model, inputs, card, (
         ('fp32', {}), ('fp32 highest', HIGHEST['env']),
         ('packed bf16', packed['env']), ('one-hot', onehot['env'])))
-    return phases + [exact] + onehot_extra
+    return phases + later + [exact] + onehot_extra
 
 
 def engines_interleaved(model, inputs, card, engines, rounds=6):

@@ -128,13 +128,15 @@ def build_optimizer(model: nn.Module, optimizer_cfg: Dict[str, Any],
     """AdamW with the weight-decay mask and the global-norm clip of
     ``optimizer_config['grad_clip']``. Parameters under a module named in
     ``frozen_prefixes`` (e.g. ``img_backbone``) are frozen: they get
-    ``requires_grad`` False and stay out of the optimizer."""
+    ``requires_grad`` False and stay out of the optimizer; every other
+    parameter gets ``requires_grad`` True (whatever an earlier optimizer
+    froze) and is trained, as the JAX package's optax mask labels it."""
     trainable = []
     for name, p in model.named_parameters():
-        if any(name == f or name.startswith(f + '.')
-               for f in frozen_prefixes):
-            p.requires_grad_(False)
-        else:
+        frozen = any(name == f or name.startswith(f + '.')
+                     for f in frozen_prefixes)
+        p.requires_grad_(not frozen)
+        if not frozen:
             trainable.append((name, p))
     clip = (optimizer_config or {}).get('grad_clip')
     return ClippedAdamW(trainable, lr_schedule,

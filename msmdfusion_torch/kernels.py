@@ -209,8 +209,21 @@ class plain_kernels:
         return False
 
 
+def sparse_backend() -> str:
+    """``MSMD_SPARSE_BACKEND``, read at call time with the JAX package's
+    name, values and default (``matchconv.py:71-81``): 'xla' runs every
+    wrapper's plain version, on the card too, as if inside
+    ``plain_kernels()`` (the JAX package's XLA path; the plain versions
+    are what the CPU tests hold against it); 'pallas' and 'auto' (the
+    default, and any other value, which the JAX package reads as 'auto')
+    launch the kernels for CUDA tensors."""
+    return os.environ.get('MSMD_SPARSE_BACKEND', 'auto')
+
+
 def use_kernel(t) -> bool:
     """True when a tensor on ``t``'s device goes to the CUDA kernel: it
-    lies on the card and no ``plain_kernels`` scope is open. A CPU tensor
-    takes the plain version."""
-    return t.is_cuda and not _FORCE_PLAIN[0]
+    lies on the card, no ``plain_kernels`` scope is open and
+    ``sparse_backend()`` is not 'xla'. A CPU tensor takes the plain
+    version."""
+    return t.is_cuda and not _FORCE_PLAIN[0] and sparse_backend() != 'xla'
+

@@ -14,7 +14,7 @@ from typing import Sequence
 from torch import nn
 
 from ...registry import BACKBONES
-from ..layers import cudnn_enabled
+from ..layers import BatchNorm2d, Conv2d, cudnn_enabled
 
 
 @BACKBONES.register('SECOND')
@@ -32,9 +32,9 @@ class SECOND(nn.Module):
             layers = []
             for li in range(num + 1):
                 layers += [
-                    nn.Conv2d(c, out, 3, stride=stride if li == 0 else 1,
-                              padding=1, bias=False),
-                    nn.BatchNorm2d(out, eps=norm_eps, momentum=norm_momentum),
+                    Conv2d(c, out, 3, stride=stride if li == 0 else 1,
+                           padding=1, bias=False),
+                    BatchNorm2d(out, eps=norm_eps, momentum=norm_momentum),
                     nn.ReLU(inplace=True)]
                 c = out
             blocks.append(nn.Sequential(*layers))

@@ -14,13 +14,26 @@ Counterpart of the JAX package's ``models/detectors/msmdfusion.py``
   SPP fusion of the two BEV maps, SECOND, SECONDFPN and the TransFusion
   head.
 
-In training mode (``model.train()``) every norm but the frozen image
-branch's takes the batch's moments, the strided sparse convs build their
-transpose plans for the backward, and ``loss`` gives the head's losses.
-With ``freeze_img`` (the reference's stage-2 recipe) the image branch stays
-in eval mode and runs under ``torch.no_grad()``, the port's form of the
-JAX package's ``stop_gradient``: no gradient reaches it and its norm
-statistics never move.
+In training mode (``model.train()``) every norm but the image branch's
+takes the batch's moments, the strided sparse convs build their transpose
+plans for the backward, and ``loss`` gives the head's losses. With
+``freeze_img`` (the reference's stage-2 recipe) the image branch stays in
+eval mode and runs under ``torch.no_grad()``, the port's form of the JAX
+package's ``stop_gradient``: no gradient reaches it and its norm
+statistics never move. Without it the image branch trains: its convs take
+gradients and its norms stay on their running statistics (the ResNet's
+``norm_eval``; FPN has none).
+
+``compute_dtype='bfloat16'`` (the JAX package's ``MSMD_BF16``, inference
+only) casts the images (JAX ``:115-116``) and the LiDAR voxel features
+(``:214-215``) to bf16; every layer after them computes in the dtype the
+JAX layer produces (``layers.py``'s flax rule: a bf16 input meets fp32
+parameters in fp32, so with fp32 parameters only the sparse encoder and
+the GMA's grouped 3D convs run bf16; with parameters cast by
+``layers.cast_params``, as the JAX bench casts them, the image branch and
+the GMA gates too, while the depth canvas, the 2D voxels and everything
+from the GMA union on stay fp32), and the decode runs in fp32. Training
+under it raises.
 
 Dense maps are channels-first (NCHW); the sparse tensors and the
 foreground arrays keep the JAX package's layouts. Module names are the
@@ -42,7 +55,7 @@ from ...ops.voxelize import voxelize_mean_batch
 from ...registry import (BACKBONES, DETECTORS, HEADS, MIDDLE_ENCODERS,
                          NECKS)
 from ...utils.timing import section
-from ..layers import MLP, cudnn_enabled
+from ..layers import MLP, BatchNorm2d, Conv2d, cudnn_enabled
 from ..sparse_blocks import SparseConv3d
 
 
@@ -50,9 +63,9 @@ def conv_bn_relu(cin: int, cout: int, k: int, padding: int = 0,
                  dilation: int = 1) -> nn.Sequential:
     """Conv2d (no bias) + BatchNorm2d (eps 1e-3) + ReLU as ``.0``/``.1``."""
     return nn.Sequential(
-        nn.Conv2d(cin, cout, k, padding=padding, dilation=dilation,
-                  bias=False),
-        nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01), nn.ReLU())
+        Conv2d(cin, cout, k, padding=padding, dilation=dilation,
+               bias=False),
+        BatchNorm2d(cout, eps=1e-3, momentum=0.01), nn.ReLU())
 
 
 class SPPModule(nn.Module):
@@ -105,6 +118,9 @@ def depth_canvas(fg_real_pixels, fg_real_mask, h: int, w: int):
     return canvas.reshape(b * v, 1, h, w)
 
 
+COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
 @DETECTORS.register('MSMDFusionDetector')
 class MSMDFusionDetector(nn.Module):
 
@@ -124,9 +140,10 @@ class MSMDFusionDetector(nn.Module):
                  freeze_img: bool = True, compute_dtype: str = 'float32',
                  train_cfg: Any = None, test_cfg: Any = None):
         super().__init__()
-        if compute_dtype != 'float32':
-            raise NotImplementedError(
-                f'compute_dtype {compute_dtype!r}: only float32 is ported')
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f'compute_dtype {compute_dtype!r}: expected one '
+                             f'of {sorted(COMPUTE_DTYPES)}')
+        self.compute_dtype = COMPUTE_DTYPES[compute_dtype]
         if pts_voxel_encoder['type'] != 'HardSimpleVFE':
             raise NotImplementedError(
                 f"voxel encoder {pts_voxel_encoder['type']}: only the fused "
@@ -195,7 +212,7 @@ class MSMDFusionDetector(nn.Module):
         """img [B, V, H, W, 3] -> FPN levels, each [B*V, 256, h, w]."""
         b, v, h, w, _ = img.shape
         flat = img.reshape(b * v, h, w, 3).permute(0, 3, 1, 2).contiguous()
-        return self.img_neck(self.img_backbone(flat))
+        return self.img_neck(self.img_backbone(flat.to(self.compute_dtype)))
 
     def depth_aware_compression(self, img_feats, fg_real_pixels,
                                 fg_real_mask, input_hw):
@@ -262,8 +279,8 @@ class MSMDFusionDetector(nn.Module):
                 points, points_mask, vl['voxel_size'],
                 vl['point_cloud_range'], max_voxels * batch_size)
         x, encode_features, enc_cache = self.pts_middle_encoder(
-            voxel_features, coors, valid, batch_size, assume_sorted=True,
-            return_cache=True)
+            voxel_features.to(self.compute_dtype), coors, valid, batch_size,
+            assume_sorted=True, return_cache=True)
         shared_plans = [enc_cache.get(('subm', f'subm{i + 1}'))
                         for i in range(4)]
 
@@ -298,9 +315,10 @@ class MSMDFusionDetector(nn.Module):
         [B, V, Mr], lidar2img [B, V, 4, 4]; pixels in input-image scale)
         -> head predictions. ``generator``: the ``torch.Generator`` the
         head's dropout draws from in training mode."""
-        if self.training and not self.freeze_img:
+        if self.training and self.compute_dtype != torch.float32:
             raise NotImplementedError(
-                'training the image branch (freeze_img=False) is not ported')
+                'training under compute_dtype bfloat16 is not ported '
+                '(ROADMAP queue 1: the bf16 train step)')
         input_hw = (img.shape[2], img.shape[3])
         with section('img'), torch.set_grad_enabled(
                 torch.is_grad_enabled() and not self.freeze_img):

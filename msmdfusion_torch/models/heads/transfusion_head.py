@@ -29,7 +29,9 @@ from ...core.gaussian import draw_heatmap, gaussian_radius
 from ...core.iou3d import boxes_iou_3d
 from ...ops.matching import assign_proposals
 from ...registry import BBOX_CODERS, HEADS
-from ..layers import ConvModule, batch_norm_last, get_activation, pointwise
+from ..layers import (BatchNorm1d, Conv1d, Conv2d, ConvModule, LayerNorm,
+                      Linear, batch_norm_last, get_activation, pointwise,
+                      promoted)
 from ..losses import (clip_sigmoid, gaussian_focal_loss, l1_loss,
                       sigmoid_focal_loss)
 
@@ -50,10 +52,10 @@ class PositionEmbeddingLearned(nn.Module):
     def __init__(self, input_channel: int, num_pos_feats: int = 288):
         super().__init__()
         self.position_embedding_head = nn.Sequential(
-            nn.Conv1d(input_channel, num_pos_feats, 1),
-            nn.BatchNorm1d(num_pos_feats),
+            Conv1d(input_channel, num_pos_feats, 1),
+            BatchNorm1d(num_pos_feats),
             nn.ReLU(inplace=True),
-            nn.Conv1d(num_pos_feats, num_pos_feats, 1))
+            Conv1d(num_pos_feats, num_pos_feats, 1))
 
     def forward(self, xyz):
         """xyz [B, P, D] -> [B, P, num_pos_feats]."""
@@ -73,7 +75,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
                                                        embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
 
@@ -86,9 +88,12 @@ class MultiheadAttention(nn.Module):
         hd = c // h
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
-        q = F.linear(query, wq, bq).reshape(b, p, h, hd).transpose(1, 2)
-        k = F.linear(key, wk, bk).reshape(b, s, h, hd).transpose(1, 2)
-        v = F.linear(value, wv, bv).reshape(b, s, h, hd).transpose(1, 2)
+        q = F.linear(*promoted(query, wq, bq)).reshape(b, p, h, hd) \
+            .transpose(1, 2)
+        k = F.linear(*promoted(key, wk, bk)).reshape(b, s, h, hd) \
+            .transpose(1, 2)
+        v = F.linear(*promoted(value, wv, bv)).reshape(b, s, h, hd) \
+            .transpose(1, 2)
         logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         if attn_mask is not None:
             logits = logits + attn_mask
@@ -111,11 +116,11 @@ class TransformerDecoderLayer(nn.Module):
         if not cross_only:
             self.self_attn = MultiheadAttention(d_model, nhead, dropout)
         self.multihead_attn = MultiheadAttention(d_model, nhead, dropout)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm1 = nn.LayerNorm(d_model)
-        self.norm2 = nn.LayerNorm(d_model)
-        self.norm3 = nn.LayerNorm(d_model)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
         self.activation = get_activation(activation)
         self.self_posembed = PositionEmbeddingLearned(pos_dim, d_model)
         self.cross_posembed = PositionEmbeddingLearned(pos_dim, d_model)
@@ -156,7 +161,7 @@ class FFN(nn.Module):
                 layers.append(ConvModule(c, head_conv, 1, bias=True,
                                          conv_dim=1))
                 c = head_conv
-            layers.append(nn.Conv1d(c, classes, 1, bias=True))
+            layers.append(Conv1d(c, classes, 1, bias=True))
             if head == 'heatmap':
                 nn.init.constant_(layers[-1].bias, init_bias)
             setattr(self, head, nn.Sequential(*layers))
@@ -202,6 +207,13 @@ def topk_lower_index_first(x, k: int):
     return values[..., :k], index[..., :k]
 
 
+def upcast(preds):
+    """The predictions with bf16 ones in fp32: the decode and the
+    targets run in fp32 (JAX ``transfusion_head.py:539-541,659-661``)."""
+    return {k: v.float() if torch.is_tensor(v) and v.dtype == torch.bfloat16
+            else v for k, v in preds.items()}
+
+
 @HEADS.register('TransFusionHead')
 class TransFusionHead(nn.Module):
 
@@ -232,13 +244,13 @@ class TransFusionHead(nn.Module):
         self.loss_cls = dict(loss_cls or {})
         self.loss_bbox = dict(loss_bbox or {})
         self.coder = BBOX_CODERS.build(dict(bbox_coder))
-        self.shared_conv = nn.Conv2d(in_channels, hidden_channel, 3,
-                                     padding=1, bias=True)
+        self.shared_conv = Conv2d(in_channels, hidden_channel, 3,
+                                  padding=1, bias=True)
         self.heatmap_head = nn.Sequential(
             ConvModule(hidden_channel, hidden_channel, 3, padding=1,
                        bias=True),
-            nn.Conv2d(hidden_channel, num_classes, 3, padding=1, bias=True))
-        self.class_encoding = nn.Conv1d(num_classes, hidden_channel, 1)
+            Conv2d(hidden_channel, num_classes, 3, padding=1, bias=True))
+        self.class_encoding = Conv1d(num_classes, hidden_channel, 1)
         self.decoder = nn.ModuleList([
             TransformerDecoderLayer(hidden_channel, num_heads, ffn_channel,
                                     dropout, activation)
@@ -366,6 +378,7 @@ class TransFusionHead(nn.Module):
         tc = self.train_cfg
         p = self.num_proposals
         num_layers = self.num_decoder_layers if self.auxiliary else 1
+        preds = upcast(preds)
         score = preds['heatmap'].detach()
         vel = preds.get('vel')
         pred_boxes = self.coder.decode(
@@ -463,8 +476,10 @@ class TransFusionHead(nn.Module):
     def get_bboxes(self, preds):
         """Decode the last layer's proposals (reference :1288-1379) into
         fixed-size [B, P] 'bboxes'/'scores'/'labels'/'valid' (no NMS: the
-        configuration's ``nms_type`` is None)."""
+        configuration's ``nms_type`` is None), in fp32 whatever the
+        predictions' dtype."""
         p = self.num_proposals
+        preds = upcast(preds)
         score = torch.sigmoid(preds['heatmap'][..., -p:])
         one_hot = F.one_hot(preds['query_labels'], self.num_classes)
         score = score * preds['query_heatmap_score'] * \

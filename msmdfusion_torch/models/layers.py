@@ -1,4 +1,5 @@
-"""Shared building blocks: masked batch norm over sparse rows, ConvModule.
+"""Shared building blocks: masked batch norm over sparse rows, ConvModule,
+and the dense layers under flax's dtype rule.
 
 Counterpart of the JAX package's ``models/layers.py``. Batch norms follow
 the module's mode: running statistics in eval mode, the batch's moments
@@ -7,6 +8,20 @@ conv epilogue is eval-only. Parameter and buffer names are the
 reference mmdet3d/mmcv ones (``weight``, ``bias``, ``running_mean``,
 ``running_var``; ConvModule's ``conv``/``bn``), so a reference checkpoint
 and the JAX package's converter both read a port ``state_dict()`` as is.
+
+Dtypes follow flax's layers with ``dtype=None``, as the JAX package's
+``compute_dtype='bfloat16'`` runs them: a conv, linear or layer norm
+computes in the common type of its input and its parameters (bf16 only
+where both are bf16; fp32 parameters on a bf16 input compute and return
+fp32), and a batch norm computes in fp32 and returns its input's dtype
+(``MaskedBatchNorm``, JAX ``layers.py:60-92``). PyTorch does not promote
+(a conv on mixed dtypes raises), so ``Conv1d``, ``Conv2d``,
+``ConvTranspose2d``, ``Linear``, ``LayerNorm``, ``BatchNorm1d`` and
+``BatchNorm2d`` below cast explicitly and, below fp32, add a bias after
+the product as flax does, each rounded; on fp32 inputs and parameters the
+casts are no-ops. ``cast_params`` casts a model's parameters as the JAX
+bench casts its params tree (``bench.py:128-133``): parameters only, the
+norms' running statistics stay fp32.
 """
 from __future__ import annotations
 
@@ -39,14 +54,114 @@ def cudnn_enabled(enabled: bool):
     H100 than PyTorch's own path run with it off: SECOND (its first conv,
     256 -> 128 3x3 at 180 x 180, two orders of magnitude slower on cuDNN),
     ResNet-50 on six 448 x 800 images (1.2x) and SPP's two dilated 3x3
-    convs at 180 x 180 (1.5-1.7x). ``chip_smoke.py``'s dense-engine lines
-    time these and the other new dense shapes both ways on every run."""
+    convs at 180 x 180 (1.5-1.7x). In bf16 (parameters cast, the JAX
+    package's ``MSMD_BF16``) ResNet-50 runs on cuDNN: 8.4-8.8 ms there
+    against 14.1 off it (the only dense layers that compute in bf16 are
+    the image branch's). ``chip_smoke.py``'s dense-engine lines time these
+    and the other new dense shapes both ways on every run."""
     was = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = enabled
     try:
         yield
     finally:
         torch.backends.cudnn.enabled = was
+
+
+def common_dtype(x, *params) -> torch.dtype:
+    """The type flax computes a ``dtype=None`` layer in: the promotion of
+    the input's and the parameters' types."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return dt
+
+
+def promoted(x, *params):
+    """``x`` and ``params`` (None kept) cast to their ``common_dtype``."""
+    dt = common_dtype(x, *params)
+    return (x.to(dt),) + tuple(None if p is None else p.to(dt)
+                               for p in params)
+
+
+def _then_bias(out, b, dims: int):
+    """``out + b`` over ``dims`` trailing spatial axes: flax adds a bias
+    after the product, so below fp32 the two round apart."""
+    return out + b.reshape(-1, *([1] * dims))
+
+
+class _FlaxConv:
+    def forward(self, x):
+        x, w, b = promoted(x, self.weight, self.bias)
+        if b is None or x.dtype == torch.float32:
+            return self._conv_forward(x, w, b)
+        return _then_bias(self._conv_forward(x, w, None), b, w.dim() - 2)
+
+
+class Conv1d(_FlaxConv, nn.Conv1d):
+    pass
+
+
+class Conv2d(_FlaxConv, nn.Conv2d):
+    pass
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x):
+        x, w, b = promoted(x, self.weight, self.bias)
+        fp32 = x.dtype == torch.float32
+        out = F.conv_transpose2d(x, w, b if fp32 else None, self.stride,
+                                 self.padding, self.output_padding,
+                                 self.groups, self.dilation)
+        return out if fp32 or b is None else _then_bias(out, b, 2)
+
+
+class Linear(nn.Linear):
+    def forward(self, x):
+        x, w, b = promoted(x, self.weight, self.bias)
+        if b is None or x.dtype == torch.float32:
+            return F.linear(x, w, b)
+        return F.linear(x, w) + b
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x):
+        x, w, b = promoted(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
+class _Fp32Norm:
+    """A torch batch norm in eval mode on any input and parameter dtype:
+    computed in fp32, returned in the input's dtype (as the module itself
+    on fp32). Training-mode moments take fp32 only."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32 and self.weight.dtype == torch.float32:
+            return super().forward(x)
+        if self.training:
+            raise NotImplementedError('batch-norm moments in training mode '
+                                      'take fp32 inputs and parameters')
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
+                            self.weight.float(), self.bias.float(), False,
+                            0.0, self.eps).to(x.dtype)
+
+
+class BatchNorm1d(_Fp32Norm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_Fp32Norm, nn.BatchNorm2d):
+    pass
+
+
+def cast_params(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Cast every fp32 parameter of ``model`` to ``dtype`` in place (the
+    JAX bench's ``MSMD_BF16`` cast of its params tree): buffers, the
+    norms' running statistics among them, stay as they are."""
+    for p in model.parameters():
+        if p.dtype == torch.float32:
+            p.data = p.data.to(dtype)
+    return model
 
 
 def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x):
@@ -61,7 +176,8 @@ def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x):
 class MaskedBatchNorm(nn.BatchNorm1d):
     """Batch norm over channels-last rows [K, C] with an optional validity
     mask: ``y = (x - mean) * rsqrt(var + eps) * weight + bias``, rows
-    outside ``mask`` zeroed.
+    outside ``mask`` zeroed, computed in fp32 and returned in ``x``'s
+    dtype.
 
     Eval mode uses the running statistics. Training mode uses the moments
     of the valid rows only (``nn.BatchNorm1d``'s own would count the
@@ -72,25 +188,28 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     """
 
     def forward(self, x, mask=None):
+        xf = x.float()
         if not self.training:
-            y = super().forward(x)
+            y = F.batch_norm(xf, self.running_mean, self.running_var,
+                             self.weight.float(), self.bias.float(), False,
+                             0.0, self.eps)
         else:
-            w = (torch.ones_like(x[:, :1]) if mask is None
-                 else mask.to(x.dtype)[:, None])
+            w = (torch.ones_like(xf[:, :1]) if mask is None
+                 else mask.to(xf.dtype)[:, None])
             count = torch.clamp(w.sum(), min=1.0)
-            mean = (x * w).sum(0) / count
-            var = (((x - mean) ** 2) * w).sum(0) / count
+            mean = (xf * w).sum(0) / count
+            var = (((xf - mean) ** 2) * w).sum(0) / count
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
                 self.running_mean.mul_(1 - m).add_(m * mean)
                 self.running_var.mul_(1 - m).add_(m * unbiased)
                 self.num_batches_tracked.add_(1)
-            y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight \
                 + self.bias
         if mask is not None:
             y = torch.where(mask[:, None], y, 0.0)
-        return y
+        return y.to(x.dtype)
 
     def fold(self):
         """(scale, shift) with ``bn(x) == x * scale + shift``."""
@@ -113,8 +232,8 @@ class ConvModule(nn.Module):
                  norm_eps: float = 1e-5, norm_momentum: float = 0.1,
                  act: Optional[str] = 'relu'):
         super().__init__()
-        conv = nn.Conv2d if conv_dim == 2 else nn.Conv1d
-        bn = nn.BatchNorm2d if conv_dim == 2 else nn.BatchNorm1d
+        conv = Conv2d if conv_dim == 2 else Conv1d
+        bn = BatchNorm2d if conv_dim == 2 else BatchNorm1d
         self.conv = conv(in_channels, out_channels, kernel_size,
                          stride=stride, padding=padding, bias=bias)
         self.bn = (bn(out_channels, eps=norm_eps, momentum=norm_momentum)
@@ -133,7 +252,8 @@ class ConvModule(nn.Module):
 def pointwise(conv: nn.Module, x):
     """A kernel-1 Conv1d applied to channels-last ``x`` [..., Cin]."""
     w = conv.weight
-    return F.linear(x, w.reshape(w.shape[0], w.shape[1]), conv.bias)
+    return F.linear(*promoted(x, w.reshape(w.shape[0], w.shape[1]),
+                              conv.bias))
 
 
 class MLP(nn.Sequential):
@@ -147,7 +267,7 @@ class MLP(nn.Sequential):
         layers = []
         c = in_channels
         for i, f in enumerate(features):
-            layers.append(nn.Linear(c, f, bias=bias))
+            layers.append(Linear(c, f, bias=bias))
             if i < len(features) - 1 or final_act:
                 layers.append(nn.ReLU())
             c = f

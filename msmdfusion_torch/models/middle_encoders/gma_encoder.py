@@ -1,4 +1,4 @@
-"""Gated modality-aware multimodal sparse encoder (GMA), inference.
+"""Gated modality-aware multimodal sparse encoder (GMA).
 
 Counterpart of the JAX package's ``models/middle_encoders/gma_encoder.py``
 (reference mmdet3d/models/middle_encoders/
@@ -9,7 +9,13 @@ camera-decorated voxels ``v2`` of the same scale:
 1. ``modality_split``: the only-3D, only-2D and mixed rows of both sets;
 2. orphan gating: each only-2D voxel takes the cross gate of its nearest
    3D voxel found through 2048 representatives (``approx_nn_3d``, two
-   ``masked_nn`` kernel launches), or of the learned dummy row;
+   ``masked_nn`` kernel launches) or, under ``MSMD_GMA_NN=exact``, among
+   all the stage's 3D voxels (``exact_nn_3d``, one launch), or of the
+   learned dummy row; under ``MSMD_GMA_DUMMY=random:<seed>`` the dummy
+   row is ``jax.random.uniform(PRNGKey(seed * 8 + i), (c3,))`` of stage
+   ``i``, bit for bit (``utils/prng.py``), as the JAX package's ablation
+   draws it (float32 whatever the parameters' dtype). Both switches keep
+   the JAX package's reading: any other value runs the default;
 3. mixed gating: ``gate(3D feature) * 2D feature``;
 4. the grouped SubM conv on the only-3D rows, on the encoder's own
    rulebook for that coordinate set;
@@ -25,6 +31,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import os
+
 import torch
 from torch import nn
 
@@ -32,7 +40,7 @@ from ...ops.nn_argmin import masked_nn
 from ...ops.sparse.tensor import (SparseTensor, lookup_sorted_pair,
                                   make_sparse_tensor, sparse_add)
 from ...registry import MIDDLE_ENCODERS
-from ...utils.switches import require_default
+from ...utils.prng import uniform
 from ..layers import MLP
 from ..sparse_blocks import SparseBasicBlock, SparseConvBlock
 
@@ -83,6 +91,29 @@ def approx_nn_3d(query_coords, query_valid, key_coords, key_valid,
     assigned = (query_valid & (best_rep >= 0)
                 & (torch.sqrt(best_d2) <= radius) & rep_ok[safe_rep])
     return torch.where(assigned, nn_row[safe_rep], -1)
+
+
+def exact_nn_3d(query_coords, query_valid, key_coords, key_valid,
+                dist_thresh: float):
+    """The exact nearest 3D voxel of each valid query within
+    ``dist_thresh``, in voxel-index space (JAX ``gma_encoder.py:105-119``,
+    the ``MSMD_GMA_NN=exact`` oracle): [K2] int32 key row, -1 where
+    there is none. One ``masked_nn`` over all the keys."""
+    q = query_coords[:, 1:].to(torch.float32).contiguous()
+    k = key_coords[:, 1:].to(torch.float32).contiguous()
+    nn_row, nn_d2 = masked_nn(q, query_coords[:, 0].contiguous(), k,
+                              key_coords[:, 0].contiguous(), key_valid)
+    ok = query_valid & (nn_row >= 0) & (torch.sqrt(nn_d2) < dist_thresh)
+    return torch.where(ok, nn_row, -1)
+
+
+def dummy_seed():
+    """The seed of ``MSMD_GMA_DUMMY=random[:<seed>]`` (0 without one), or
+    None for the learned row (any other value)."""
+    value = os.environ.get('MSMD_GMA_DUMMY', 'learned')
+    if not value.startswith('random'):
+        return None
+    return int(value.split(':')[1]) if ':' in value else 0
 
 
 def _rows(x, row):
@@ -150,15 +181,19 @@ class SparseMultiModalEncoderPaint(nn.Module):
             split = modality_split(v3, v2)
             c3 = v3.num_channels
 
-            # orphan 2D gating by the approximate nearest 3D voxel (the JAX
-            # package's MSMD_GMA_NN=exact and MSMD_GMA_DUMMY=random:<seed>
-            # ablations are not ported: they raise)
-            require_default('MSMD_GMA_NN')
-            nn_row = approx_nn_3d(v2.coords, split['only_2d'], v3.coords,
-                                  v3.valid, fps_num_list[i], radius_list[i],
-                                  dist_thresh_list[i])
-            require_default('MSMD_GMA_DUMMY')
-            dummy = getattr(self, f'dummy_embedding_{i}')
+            # orphan 2D gating by the nearest 3D voxel: approximate, or
+            # exact under MSMD_GMA_NN=exact
+            if os.environ.get('MSMD_GMA_NN', 'approx') == 'exact':
+                nn_row = exact_nn_3d(v2.coords, split['only_2d'], v3.coords,
+                                     v3.valid, dist_thresh_list[i])
+            else:
+                nn_row = approx_nn_3d(
+                    v2.coords, split['only_2d'], v3.coords, v3.valid,
+                    fps_num_list[i], radius_list[i], dist_thresh_list[i])
+            seed = dummy_seed()
+            dummy = (getattr(self, f'dummy_embedding_{i}') if seed is None
+                     else uniform(seed * 8 + i, c3,
+                                  device=v3.features.device))
             nn_feat = torch.where((nn_row >= 0)[:, None],
                                   _rows(v3.features, nn_row), dummy[None, :])
             gated_2d = self.cross_gate_control[i](nn_feat) * v2.features

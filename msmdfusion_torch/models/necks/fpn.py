@@ -1,4 +1,4 @@
-"""FPN image neck, inference.
+"""FPN image neck.
 
 Counterpart of the JAX package's ``models/necks/fpn.py`` (the mmdet FPN of
 configs/MSMDFusion_nusc_voxel_LC.py: in [256, 512, 1024, 2048], out 256,

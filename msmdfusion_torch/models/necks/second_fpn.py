@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ...registry import NECKS
+from ..layers import BatchNorm2d, Conv2d, ConvTranspose2d
 
 
 @NECKS.register('SECONDFPN')
@@ -28,13 +29,13 @@ class SECONDFPN(nn.Module):
         for cin, cout, stride in zip(in_channels, out_channels,
                                      upsample_strides):
             if stride > 1 or (stride == 1 and not use_conv_for_no_stride):
-                up = nn.ConvTranspose2d(cin, cout, stride, stride=stride,
-                                        bias=False)
+                up = ConvTranspose2d(cin, cout, stride, stride=stride,
+                                     bias=False)
             else:
                 k = int(round(1 / stride)) if stride < 1 else 1
-                up = nn.Conv2d(cin, cout, k, stride=k, bias=False)
+                up = Conv2d(cin, cout, k, stride=k, bias=False)
             deblocks.append(nn.Sequential(
-                up, nn.BatchNorm2d(cout, eps=norm_eps, momentum=norm_momentum),
+                up, BatchNorm2d(cout, eps=norm_eps, momentum=norm_momentum),
                 nn.ReLU(inplace=True)))
         self.deblocks = nn.ModuleList(deblocks)
 

@@ -17,10 +17,10 @@ read it (``needs_order()``: the default x3 product and the packed bf16
 engine, not ``MSMD_CONV_GEMM=highest``), ``attach_rows(..., order=True)``
 also caches the ``RowOrder`` of each plan's rows (and its dual's),
 inside stage ``plans``; in training mode with the weight gradient's pair
-lists. The
-JAX package's ``MSMD_SPARSE_BACKEND`` (read by every conv) and
-``MSMD_FUSE_BN`` (read in eval mode) are not ported: a value that selects
-another path there raises (``utils/switches.py``).
+lists. Under ``MSMD_FUSE_BN=0`` (``matchconv.fuse_bn``) eval mode runs
+the training mode's unfused order on the running statistics: the conv
+with no epilogue, the masked batch norm, the masked ReLU (JAX
+``sparse_blocks.py:237,301``).
 
 Weights keep spconv's ``[O, kz, ky, kx, I]`` layout and the reference
 parameter names; the conv reads them as ``[Ta, I, O]`` taps, z-major and
@@ -39,9 +39,8 @@ from ..ops.sparse.conv import downsample_out_coords, triple
 from ..ops.sparse.matchconv import (apply_match_conv, attach_rows,
                                     build_downsample_plan,
                                     build_dual_down_plan, build_subm_plan,
-                                    conv_algo, needs_order)
+                                    conv_algo, fuse_bn, needs_order)
 from ..ops.sparse.tensor import SparseTensor
-from ..utils.switches import require_default
 from ..utils.timing import section
 from .layers import MaskedBatchNorm
 
@@ -76,7 +75,6 @@ class SubMConv3d(_SparseConvBase):
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any], scale=None,
                 shift=None, relu: bool = False):
-        require_default('MSMD_SPARSE_BACKEND')
         key = ('subm', self.indice_key)
         plan = cache.get(key)
         if plan is None:
@@ -110,7 +108,6 @@ class SparseConv3d(_SparseConvBase):
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any], scale=None,
                 shift=None, relu: bool = False):
-        require_default('MSMD_SPARSE_BACKEND')
         key = ('spconv', self.indice_key)
         entry = cache.get(key)
         if entry is None:
@@ -157,7 +154,8 @@ def _masked_relu(st: SparseTensor) -> SparseTensor:
 class SparseConvBlock(nn.Sequential):
     """conv (``0``) + batch norm (``1``) + ReLU, the reference's
     ``make_sparse_convmodule`` with its default order. In eval mode the
-    batch norm and the ReLU fold into the conv kernel's epilogue."""
+    batch norm and the ReLU fold into the conv kernel's epilogue (unless
+    ``MSMD_FUSE_BN=0``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
                  stride=1, padding=0, conv_type: str = 'SubMConv3d',
@@ -181,11 +179,10 @@ class SparseConvBlock(nn.Sequential):
                                                momentum=norm_momentum))
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any]):
-        if self.training:
+        if self.training or not fuse_bn():
             st, cache = self[0](st, cache)
             st = st.replace_features(self[1](st.features, mask=st.valid))
             return _masked_relu(st), cache
-        require_default('MSMD_FUSE_BN')
         scale, shift = self[1].fold()
         return self[0](st, cache, scale=scale, shift=shift, relu=True)
 
@@ -206,14 +203,13 @@ class SparseBasicBlock(nn.Module):
 
     def forward(self, st: SparseTensor, cache: Dict[Any, Any]):
         identity = st.features
-        if self.training:
+        if self.training or not fuse_bn():
             st, cache = self.conv1(st, cache)
             st = _masked_relu(st.replace_features(
                 self.bn1(st.features, mask=st.valid)))
             st, cache = self.conv2(st, cache)
             st = st.replace_features(self.bn2(st.features, mask=st.valid))
         else:
-            require_default('MSMD_FUSE_BN')
             s1, b1 = self.bn1.fold()
             st, cache = self.conv1(st, cache, scale=s1, shift=b1, relu=True)
             s2, b2 = self.bn2.fold()

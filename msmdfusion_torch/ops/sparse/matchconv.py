@@ -40,11 +40,20 @@ Any other value raises. The JAX package's TPU layout and engine knobs
 (``MSMD_CONV_SLAB``, ``_TILE``, ``_CW``, ``_COLW``,
 ``_TAILMODE``, ``MSMD_ROWS_MIN_C``, ``MSMD_DENSE_CELLS``,
 ``MSMD_CONV_BACKEND``) have no counterpart, nor has
-``MSMD_OVERFLOW_CHECK``: the port always counts overflow. Its switches
-that change results, ``MSMD_FUSE_BN`` and ``MSMD_SPARSE_BACKEND`` (and the
-GMA encoder's ``MSMD_GMA_NN`` and ``MSMD_GMA_DUMMY``), are not ported yet:
-a value that selects another path there raises where the JAX package
-reads it (``utils/switches.py``).
+``MSMD_OVERFLOW_CHECK``: the port always counts overflow. Two more
+switches keep the JAX package's reading (any value but the one that
+selects the other path runs the default): ``MSMD_FUSE_BN`` (``fuse_bn()``,
+read by the sparse conv blocks in eval mode: '0' runs the conv with no
+epilogue, then the batch norm and the ReLU) and ``MSMD_SPARSE_BACKEND``
+(``kernels.sparse_backend()``, read by every wrapper: 'xla' runs the
+plain versions on the card too).
+
+The convs take fp32 or bf16 features and weights and return the
+features' dtype (the JAX package's ``compute_dtype='bfloat16'``, whose
+sparse encoder and GMA grouped convs run on bf16 features): bf16 features
+go to the one-hot engine's bf16 kernel as they are and are widened to
+fp32 for the rulebook engine's kernels, whose result is rounded once to
+bf16 after the epilogue.
 
 Hand-written CUDA kernels carry these paths (``csrc/``):
 
@@ -131,6 +140,13 @@ def gemm_mode() -> str:
     if mode not in ('x3', 'highest'):
         raise ValueError(f'MSMD_CONV_GEMM={mode!r}: expected x3 or highest')
     return mode
+
+
+def fuse_bn() -> bool:
+    """``MSMD_FUSE_BN``: eval-mode batch norm (+ ReLU) folded into the
+    conv's epilogue, unless the value is '0' (the JAX package's
+    ``fuse_eval_bn``, ``matchconv.py:106-114``)."""
+    return os.environ.get('MSMD_FUSE_BN', '1') != '0'
 
 
 def packed() -> bool:
@@ -587,6 +603,16 @@ def gather_gemm_conv_plain(feats, rows, weights, scale=None, shift=None,
                           out_valid, scale, shift, relu)
 
 
+def _check_dtypes(feats, weights) -> torch.dtype:
+    """The conv's output dtype, the features': fp32 or bf16 features and
+    weights, in any mix."""
+    for name, t in (('feats', feats), ('weights', weights)):
+        if t.dtype not in MATCH_DTYPES:
+            raise TypeError(f'{name}: expected float32 or bfloat16, got '
+                            f'{t.dtype}')
+    return feats.dtype
+
+
 def _check_epilogue(dev, k_out, cout, scale, shift, out_valid):
     for name, v in (('scale', scale), ('shift', shift)):
         if v is not None:
@@ -663,10 +689,17 @@ def x3_weights(weights):
 def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
                      relu: bool = False, out_valid=None,
                      order: Optional[RowOrder] = None) -> torch.Tensor:
-    """out [K_out, Cout] = epi(sum_t feats[rows[:, t]] @ weights[t]).
+    """out [K_out, Cout] = epi(sum_t feats[rows[:, t]] @ weights[t]), in
+    the features' dtype.
 
-    feats [K_in, Cin] f32; rows [K_out, Ta] int32 (-1 = miss); weights
-    [Ta, Cin, Cout] f32; scale/shift [Cout] f32; out_valid [K_out] bool.
+    feats [K_in, Cin] f32 or bf16; rows [K_out, Ta] int32 (-1 = miss);
+    weights [Ta, Cin, Cout] f32 or bf16; scale/shift [Cout] f32; out_valid
+    [K_out] bool. bf16 operands are widened to fp32 (exactly) and the fp32
+    result after the epilogue is rounded once to bf16 where the features
+    are bf16, as the JAX kernel's ``acc.astype(o_ref.dtype)``
+    (``matchconv.py:1178``): on bf16 features the x3 and exact products
+    are exact (their ``lo`` parts are 0) and the packed kernel's rounding
+    of its operands changes nothing.
     On the card: the x3 product (kernel ``gather_gemm_conv_x3``, the
     default), the exact fp32 one under ``MSMD_CONV_GEMM=highest`` (kernel
     ``gather_gemm_conv``, at most ``FFMA_MAX_TAPS`` taps; launch from
@@ -678,6 +711,8 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     exact product (bf16 operands under ``packed()``).
     """
     dev = feats.device
+    out_dtype = _check_dtypes(feats, weights)
+    feats, weights = feats.float(), weights.float()
     check_tensor('feats', feats, torch.float32, 2, dev)
     check_tensor('rows', rows, torch.int32, 2, dev)
     check_tensor('weights', weights, torch.float32, 3, dev)
@@ -689,7 +724,7 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     _check_epilogue(dev, k_out, cout, scale, shift, out_valid)
     if not kernels.use_kernel(feats):
         return gather_gemm_conv_plain(feats, rows, weights, scale, shift,
-                                      relu, out_valid)
+                                      relu, out_valid).to(out_dtype)
     out = torch.empty((k_out, cout), dtype=torch.float32, device=dev)
     epilogue = (_ptr(scale), _ptr(shift), int(relu), _ptr(out_valid),
                 out.data_ptr())
@@ -716,7 +751,7 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
         kernels.check(name, fn(*args,
                                torch.cuda.current_stream(dev).cuda_stream))
     kernels.launches[name] += 1
-    return out
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -771,7 +806,8 @@ def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
     dkey[t]``, or ``queries[r, t]``) where ``inb[r, t]`` holds and the row
     or query is not INT_MAX is searched in ``in_keys`` [K_in] (ascending,
     INT_MAX tail) inside the kernel; a miss adds nothing. feats [K_in,
-    Cin] f32 or bf16; weights [Ta, Cin, Cout] f32; epilogue as
+    Cin] f32 or bf16; weights [Ta, Cin, Cout] f32 or bf16 (widened to
+    fp32 exactly, so bf16 weights' ``lo`` part is 0); epilogue as
     ``gather_gemm_conv``, in fp32. On the card (``match_kernel``): fp32
     features on the x3 product (kernel ``match_conv_x3``, the default) or,
     under ``MSMD_CONV_GEMM=highest``, the exact one (kernel
@@ -784,6 +820,8 @@ def match_conv(feats, in_keys, plan: MatchPlan, weights, scale=None,
     """
     dev = feats.device
     name = match_kernel(feats.dtype)
+    _check_dtypes(feats, weights)
+    weights = weights.float()
     check_tensor('feats', feats, feats.dtype, 2, dev)
     check_tensor('in_keys', in_keys, torch.int32, 1, dev)
     check_tensor('weights', weights, torch.float32, 3, dev)

@@ -11,8 +11,8 @@ rows) contributing zero. The hand-written CUDA kernel
 CUDA tensors (raising if the build or the launch fails), by float4 slices
 of rows or, at a width that is not a multiple of 4 or on unaligned
 tensors, by elements (``take_vec4``), and runs the plain PyTorch version
-for CPU tensors or inside ``kernels.plain_kernels()``. The JAX package's
-``MSMD_SPARSE_BACKEND`` is not ported: ``xla`` raises.
+for CPU tensors, inside ``kernels.plain_kernels()`` or under
+``MSMD_SPARSE_BACKEND=xla`` (``kernels.sparse_backend``).
 
 The TPU kernel's sliding windows and bf16 hi/lo split have no counterpart:
 the gather is exact fp32 and never drops a row, so ``merge_take.win[site]``
@@ -31,7 +31,6 @@ import torch
 
 from ... import kernels
 from ...utils import overflow
-from ...utils.switches import require_default
 from ...kernels import check_tensor
 
 
@@ -82,13 +81,18 @@ class _MergeTake(torch.autograd.Function):
 def merge_take_rows(table, idx, idx2: Optional[torch.Tensor] = None,
                     dup: Optional[torch.Tensor] = None,
                     site: str = '') -> torch.Tensor:
-    """``table[idx] (+ table[idx2] where dup)`` -> [M, C] fp32,
-    differentiable in ``table``.
+    """``table[idx] (+ table[idx2] where dup)`` -> [M, C] in the table's
+    dtype, differentiable in ``table``.
 
-    table [N, C] f32; idx, idx2 [M] int32; dup [M] bool (with idx2); any
-    width and alignment (the kernel's path: ``take_vec4``).
+    table [N, C] f32 or bf16 (widened to fp32 exactly and the result
+    rounded once to bf16, as the JAX package's bf16 add is); idx, idx2 [M]
+    int32; dup [M] bool (with idx2); any width and alignment (the kernel's
+    path: ``take_vec4``).
     """
     dev = table.device
+    if table.dtype == torch.bfloat16:
+        return merge_take_rows(table.float(), idx, idx2, dup,
+                               site).to(torch.bfloat16)
     check_tensor('table', table, torch.float32, 2, dev)
     check_tensor('idx', idx, torch.int32, 1, dev)
     m = idx.shape[0]
@@ -100,7 +104,6 @@ def merge_take_rows(table, idx, idx2: Optional[torch.Tensor] = None,
         if idx2.shape[0] != m or dup.shape[0] != m:
             raise ValueError(f'shape mismatch: idx {tuple(idx.shape)}, idx2 '
                              f'{tuple(idx2.shape)}, dup {tuple(dup.shape)}')
-    require_default('MSMD_SPARSE_BACKEND')
     tag = f'[{site}]' if site else ''
     overflow.record(f'merge_take.win{tag}', 0)
     if table.requires_grad and torch.is_grad_enabled():

@@ -6,6 +6,13 @@ packed (b, z, y, x) keys over the whole batch, a segment mean of the point
 features, and output rows in ascending key order so that the sparse
 encoder skips its own sort. Past ``max_voxels_total`` the highest keys are
 dropped and counted at ``voxelize.mean_batch.voxel_cap``.
+
+The segment sums run in a fixed order, so a frame's voxel features are the
+same bits on every run: after the sort each voxel's points are one
+contiguous run, summed in point order (``segment_sum``: one sequential
+sum per voxel and channel; a float ``index_add_`` on the card adds by
+atomics in no fixed order, and its last-bit differences grew to ~3e-5 of
+the dense heatmap between two forwards).
 """
 from __future__ import annotations
 
@@ -42,6 +49,24 @@ def grid_shape(voxel_size: Sequence[float],
             int(round((pcr[3] - pcr[0]) / vs[0])))
 
 
+def segment_sum(x, seg, n: int):
+    """[n, C] sums of the rows of ``x`` [N, C] by segment id ``seg`` [N]:
+    the rows with an id below ``n`` come first, in non-decreasing id
+    order; the others (parked) are dropped. Each segment is summed in row
+    order from 0 (``torch.segment_reduce``: one sequential sum per segment
+    and channel), the same bits on every run and device. Each parked row
+    is a segment of its own, so that no sum walks all of them, and the
+    segments' lengths come from a search of the sorted ids (no host
+    sync)."""
+    rows = seg.shape[0]
+    ids = torch.where(seg < n, seg,
+                      n + torch.arange(rows, device=seg.device))
+    bounds = torch.searchsorted(
+        ids, torch.arange(n + rows + 1, device=seg.device))
+    return torch.segment_reduce(x, 'sum', lengths=bounds[1:] - bounds[:-1],
+                                axis=0, unsafe=True)[:n]
+
+
 def voxelize_mean_batch(points, point_mask, voxel_size, point_cloud_range,
                         max_voxels_total: int):
     """points [B, N, F], point_mask [B, N] -> (feats [V, F], coors [V, 4]
@@ -76,7 +101,7 @@ def voxelize_mean_batch(points, point_mask, voxel_size, point_cloud_range,
     sorted_feats = flat[order]
     aug = torch.cat([torch.where(keep[:, None], sorted_feats, 0),
                      keep.to(flat.dtype)[:, None]], dim=1)
-    sums_counts = flat.new_zeros((v + 1, f + 1)).index_add_(0, seg, aug)[:v]
+    sums_counts = segment_sum(aug, seg, v)
     sums = sums_counts[:, :f]
     counts = sums_counts[:, f]
     feats = sums / torch.clamp(counts[:, None], min=1)

@@ -206,13 +206,17 @@ def _flatten(tree, prefix: str = '') -> Dict[str, np.ndarray]:
 def from_jax_variables(variables, rules: Optional[List[Rule]] = None
                        ) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} flax tree of numpy arrays (a
-    JAX model's variables) -> port ``state_dict`` (float32 CPU tensors),
+    JAX model's variables) -> port ``state_dict`` (CPU tensors: float32,
+    and bfloat16 for the bf16 leaves of a tree cast as the JAX bench casts
+    its params, carried bit for bit through a uint16 view: numpy has no
+    bf16 of its own and ``torch.from_numpy`` refuses ``ml_dtypes``'),
     through ``rules`` (default: ``transfusion_l_rules()``). Raises if the
     tree lacks a mapped leaf or holds one the table does not map."""
     params = _flatten(variables['params'])
     stats = _flatten(variables.get('batch_stats', {}))
     used = set()
     sd: Dict[str, np.ndarray] = {}
+    bf16 = set()
 
     def p(path):
         used.add(('p', path))
@@ -223,7 +227,12 @@ def from_jax_variables(variables, rules: Optional[List[Rule]] = None
         return stats[path]
 
     def put(key, value):
-        sd[key] = np.ascontiguousarray(value, dtype=np.float32)
+        value = np.asarray(value)
+        if value.dtype.name == 'bfloat16':
+            bf16.add(key)
+            sd[key] = np.ascontiguousarray(value).view(np.uint16)
+        else:
+            sd[key] = np.ascontiguousarray(value, dtype=np.float32)
 
     def dense(t, f, conv1d):
         k = p(f + '/kernel').T
@@ -268,4 +277,6 @@ def from_jax_variables(variables, rules: Optional[List[Rule]] = None
                     [path for path in stats if ('s', path) not in used])
     if unused:
         raise KeyError(f'flax leaves with no port parameter: {unused[:8]}')
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(v)).view(torch.bfloat16)
+            if k in bf16 else torch.from_numpy(np.array(v))
+            for k, v in sd.items()}

@@ -111,7 +111,10 @@ def test_approx_nn_3d_matches_jax(stages, num_reps, radius, thresh):
     assert assigned > 0
 
 
-def test_gma_encoder_with_shared_plans_matches_jax(stages, monkeypatch):
+def gma_outputs(stages, monkeypatch):
+    """(port stage outputs, JAX stage outputs, the sites that built rows)
+    of the whole encoder on seeded random JAX variables, run on the LiDAR
+    voxels' own SubM plans as the detector hands it the encoder's."""
     v3j = [s[0][0] for s in stages]
     v3t = [s[0][1] for s in stages]
     v2j = [s[1][0] for s in stages]
@@ -155,10 +158,10 @@ def test_gma_encoder_with_shared_plans_matches_jax(stages, monkeypatch):
     with torch.no_grad(), overflow.capture() as cap:
         got = port(v3t, v2t, shared_plans=plans_t, **lists)
     assert cap.total() == 0, cap.counters()
-    # the grouped convs ran on the shared plans: only the aggregation and
-    # downscale coordinate sets built rows
-    assert sorted(built) == sorted([f'agg_{i}' for i in range(1, 5)]
-                                   + [f'spconv_ds_{i}' for i in range(1, 5)])
+    return got, want, built
+
+
+def assert_stages_close(got, want):
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g.keys.numpy(), np.asarray(w.keys))
         np.testing.assert_array_equal(g.coords.numpy(), np.asarray(w.coords))
@@ -167,3 +170,12 @@ def test_gma_encoder_with_shared_plans_matches_jax(stages, monkeypatch):
                                    atol=TOL * np.abs(want_f).max(),
                                    err_msg=f'stage {i}')
         assert np.abs(want_f).max() > 0
+
+
+def test_gma_encoder_with_shared_plans_matches_jax(stages, monkeypatch):
+    got, want, built = gma_outputs(stages, monkeypatch)
+    # the grouped convs ran on the shared plans: only the aggregation and
+    # downscale coordinate sets built rows
+    assert sorted(built) == sorted([f'agg_{i}' for i in range(1, 5)]
+                                   + [f'spconv_ds_{i}' for i in range(1, 5)])
+    assert_stages_close(got, want)

@@ -203,9 +203,13 @@ def test_bf16_plain_is_two_weight_passes_rounded_once():
 
 def test_wrapper_rejects_what_it_does_not_take():
     feats, keys, plan, w, _ = small_call(84)
+    # bf16 weights (parameters cast as the JAX bench casts them) are
+    # taken, widened to fp32 exactly; other weight types are not
+    fb, wb = feats.to(torch.bfloat16), w.to(torch.bfloat16)
+    assert torch.equal(tmc.match_conv(fb, keys, plan, wb),
+                       tmc.match_conv(fb, keys, plan, wb.float()))
     with pytest.raises(TypeError, match='weights'):
-        tmc.match_conv(feats.to(torch.bfloat16), keys, plan,
-                       w.to(torch.bfloat16))
+        tmc.match_conv(fb, keys, plan, w.to(torch.float16))
     with pytest.raises(TypeError, match='float16'):
         tmc.match_conv(feats.to(torch.float16), keys, plan, w)
     with pytest.raises(TypeError, match='float16'):
