@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA card: TransFusion-L, the
 full MSMDFusion flagship, the flagship's train step, then the flagship's
 inference and train step on the two other sparse-conv engines, its bf16
-compute frames, its ablation and backend switches and its train step with
-the image branch trained.
+compute frames, its ablation and backend switches, its train step with
+the image branch trained, TransFusion-L's train step, the flagship's
+stage-2 step with its LiDAR encoders frozen and its bf16-compute train
+step.
 
     python3 chip_smoke.py
 
@@ -141,7 +143,33 @@ Phases (any failure raises and ends the run with a non-zero exit):
    every parameter in the optimizer, the ResNet's norms on their running
    statistics; one counted step (phase 5's launches), 3 timed steps,
    finite losses, the image parameters moved and the ResNet's statistics
-   unchanged, peak memory.
+   unchanged, peak memory;
+11. TransFusion-L's stage-1 step on phase 3's model and frame with its
+   config's recipe (``TL_TRAIN``: AdamW, weight decay 0.01, clip 0.1, the
+   cyclic schedule; the train-time voxel capacity ``max_voxels[0]`` =
+   120,000, below the frame's voxels, so the counted step drops exactly
+   the difference at ``voxelize.mean_batch.voxel_cap`` and nothing
+   elsewhere): phase 5's path (``drive_train``: every ``rows_queries``,
+   backward ``gather_gemm_conv_x3`` and ``conv_dw_x3`` call held to its
+   plain versions, the all-plain twin to phase 5's limits, launches
+   8/4/41/21, 3 timed steps);
+12. the flagship's stage-2 step as its config states it: ``freeze_img``
+   and ``freeze_lidar_components`` (``apis.train.frozen_prefixes``): one
+   counted step (phase 5's launches: the frozen encoder's backward runs
+   for ``grad_norm``), 2 timed steps; the frozen modules' parameters and
+   statistics bit-equal afterwards, ``grad_norm`` above the clip's norm
+   of the trainable gradients;
+13. the bf16-compute train step with fp32 parameters (the JAX bench's
+   ``MSMD_BF16`` train) on packed, x3 and one-hot (``BF16_TRAIN``): every
+   backward conv call on bf16 rows held to its plain version by phase 8's
+   rules (``match_conv_bf16``'s ``d_feats`` over the dual plans by the
+   bf16 rule: its first backward path), every ``conv_dw`` on bf16 operands
+   as an fp32 call on the widened ones; the all-plain twin with every loss
+   and gradient within 10 times the plain path's own spread (never less
+   than 1e-4 of max); a counted step (launches, the backward's apart),
+   overflow 0, bf16 encoder activations, fp32 gradients, 2 timed steps.
+
+Each phase prints its seconds by the host clock.
 
 Batch norms are calibrated on each model's frame first
 (``utils/calibrate.py``: running statistics set to those of each norm's
@@ -209,8 +237,10 @@ frame on ``highest``, phase 6's inference for ``gather_gemm_conv_bf16``
 and train step for ``conv_dw_bf16``, phase 7's inference for
 ``match_conv_x3``, its frame on ``highest`` for the exact ``match_conv``
 (timed on the x3 kernel's calls), phase 8's one-hot bf16 frame for
-``match_conv_bf16`` (its model path: 25 calls) and phase 7's train step
-for the exact ``conv_dw``. The bf16 and x3 kernels'
+``match_conv_bf16`` (its model path: 25 calls), phase 7's train step
+for the exact ``conv_dw``, and phase 13's one-hot step for
+``match_conv_bf16 d_feats`` (its 24 backward calls over the dual plans;
+``launches``: the counted step's backward's). The bf16 and x3 kernels'
 bound takes the card's dense bf16 tensor rate (``TENSOR_PASSES``: three
 products for x3, two for the one-hot bf16 kernel); their entries also
 carry ``useful_share``, the packed ones ``fp32_ratio``, the x3 ones
@@ -232,6 +262,7 @@ launch where each wrapper of ``wrapper_sites()`` runs outside
 """
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -301,6 +332,17 @@ TRAIN = dict(
               'gather_gemm_conv_x3': 73, 'conv_dw_x3': 37, 'masked_nn': 8,
               'merge_take': 3},
     steps=5, twin=True, extras=True)
+# phase 11: TransFusion-L's stage-1 step, the config's recipe
+# (configs/transfusion_nusc_voxel_L.py: AdamW, weight decay 0.01, clip 0.1,
+# the cyclic schedule over total_epochs of TL_STEPS_PER_EPOCH steps; the
+# train-time voxel capacity max_voxels[0]) read from the config at the
+# phase; forward as in inference plus 4 dual plans (spconv1-3, conv_out);
+# backward: d_feats for every conv but conv_input, dw for all 21
+TL_STEPS_PER_EPOCH = 1000
+TL_TRAIN = dict(
+    launches={'rows_affine': 8, 'rows_queries': 4, 'gather_gemm_conv_x3': 41,
+              'conv_dw_x3': 21},
+    steps=3, twin=True, extras=False)
 # the exact fp32 product (the FFMA kernels): phase 4's counted frame and
 # the FFMA timings of the x3 kernels' calls, the switch set around them
 # only; the frame launches the fp32 path's kernels, the exact conv kernel
@@ -333,6 +375,25 @@ ONEHOT = dict(
     train=dict(launches={'rows_affine': 37, 'match_conv_x3': 73,
                          'conv_dw': 37, 'masked_nn': 8, 'merge_take': 3},
                steps=2, twin=False, extras=False))
+# phase 12: the flagship's stage-2 step as its config states it
+# (configs/MSMDFusion_nusc_voxel_LC.py:105,191, JAX tools/train.py:110-114):
+# the image branch and the LiDAR encoders frozen, phase 5's optimizer and
+# schedule; the frozen encoder still runs its backward (its gradients
+# count in grad_norm), so the launches are phase 5's
+STAGE2_STEPS = 2
+# phase 13: the bf16-compute train step with fp32 parameters (the JAX
+# bench's MSMD_BF16 train, bench.py:258-300) on three engines. bf16 flows
+# through the encoder's 21 convs and the GMA's 4 grouped convs and their
+# backward; on the one-hot engine those run match_conv_bf16: 25 forward
+# and 24 d_feats (conv_input's input takes no gradient), the 12 convs
+# from the GMA union on match_conv_x3 (12 + 12)
+BF16_TRAIN = (
+    ('packed', PACKED['env'], PACKED['train']['launches']),
+    ('x3', {}, TRAIN['launches']),
+    ('one-hot', ONEHOT['env'],
+     {'rows_affine': 37, 'match_conv_bf16': 49, 'match_conv_x3': 24,
+      'conv_dw': 37, 'masked_nn': 8, 'merge_take': 3}))
+BF16_TRAIN_STEPS = 2
 KERNEL_INFO = {
     'rows_affine': dict(
         route='cuda', source='msmdfusion_torch/csrc/rows_affine.cu',
@@ -374,6 +435,9 @@ KERNEL_INFO = {
         route='cuda', source='msmdfusion_torch/csrc/merge_take.cu',
         replaces='msmdfusion_tpu/ops/sparse/merge_take.py:64'),
 }
+# entries of the kernels line that are one direction of a kernel's calls:
+# match_conv_bf16's input gradient over the dual plans (phase 13)
+DIRECTIONS = {'match_conv_bf16 d_feats': 'match_conv_bf16'}
 # the wrapper that launches each kernel where it is not the kernel's name:
 # the conv and dw wrappers pick their bf16 tensor-core kernels by the
 # switches (and the one-hot conv by its features' dtype)
@@ -455,6 +519,18 @@ def switches(env):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def phase_laps():
+    """lap(label): print the seconds since the last lap (or the call),
+    by the host clock, as phase ``label``'s."""
+    last = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f'phase {label}: {now - last[0]:.1f} s', flush=True)
+        last[0] = now
+    return lap
 
 
 def card_line():
@@ -561,15 +637,18 @@ def build_flagship(device, overrides=None, caps=FLAGSHIP,
 
 
 def make_points(model, n_points, device):
-    """TransFusion-L inputs: (points [1, N, 5], mask [1, N])."""
+    """TransFusion-L inputs (points [1, N, 5], mask [1, N]) and the
+    frame's ground truth (gt_bboxes [1, 32, 9], gt_labels, gt_valid)."""
     import numpy as np
     import torch
-    from msmdfusion_torch.utils.synth_scene import lidar_scene
+    from msmdfusion_torch.utils.synth_scene import lidar_scene, scene_gt
     pcr = model.pts_voxel_layer['point_cloud_range']
-    pts, _ = lidar_scene(np.random.RandomState(SEED), n_points, pcr)
+    pts, objects = lidar_scene(np.random.RandomState(SEED), n_points, pcr)
     points = torch.from_numpy(pts)[None].to(device)
     mask = torch.ones(points.shape[:2], dtype=torch.bool, device=device)
-    return points, mask
+    gt = tuple(torch.from_numpy(x)[None].to(device)
+               for x in scene_gt(objects))
+    return (points, mask), gt
 
 
 def make_scene(model, shape, device):
@@ -1420,7 +1499,8 @@ def kernel_summary(name, recs, launches):
     ops_ms = sum(r['ops_ms'] for r in recs)
     lib = [r['library_ms'] for r in recs]
     return dict(
-        name=name, **KERNEL_INFO[name], launches=launches[name],
+        name=name, **KERNEL_INFO[DIRECTIONS.get(name, name)],
+        launches=launches[name],
         max_abs_err=max(r['err'] for r in recs),
         ms=sum(r['ms'] for r in recs),
         plain_ms=sum(r['plain_ms'] for r in recs),
@@ -2104,10 +2184,12 @@ class PinnedRounding:
         check(kept.shape == x.shape, f'pinned rounding call {self.calls}: '
               f'shape {tuple(x.shape)}, kept {tuple(kept.shape)}')
         self.calls += 1
-        mine = mc.bf16_round(x) if self.bits == 8 else x
+        mine = mc.bf16_round(x) if self.bits == 8 else x.float()
         near = (mine - kept).abs() <= self._step(
             torch.maximum(mine.abs(), kept.abs()))
-        return torch.where(near, kept, x)
+        # bf16 operands (the bf16-compute step's) stay bf16: the kept
+        # values are theirs, so the cast back is exact
+        return torch.where(near, kept, x.float()).to(x.dtype)
 
     def _keep(self, x):
         import torch
@@ -2198,7 +2280,7 @@ def train_pass(model, inputs, gt, rec=None, targets=None, index=None,
                        if p.grad is not None})
 
 
-def compare_train(run, ref, alt):
+def compare_train(run, ref, alt, spread_only=False):
     """The kernel path's step ``run`` vs the plain path ``ref`` (same
     proposals, assignment, dropout masks and head-input gradient); ``alt``
     is the plain path with reordered sums. Up to the head's input, the
@@ -2208,15 +2290,17 @@ def compare_train(run, ref, alt):
     value. The decoder amplifies rounding, so its losses, the head-input
     gradient before its replacement and the head's parameter gradients
     are held to FLOOR_MARGIN times the plain path's own spread, never less
-    than TOL. Returns [(error over max |ref|, limit, spread, name)], worst
-    first by error over limit."""
+    than TOL; with ``spread_only`` (the bf16-compute step, whose bf16
+    roundings turn fp32 ulps into bf16 steps below the head too) every
+    value is. Returns [(error over max |ref|, limit, spread, name)],
+    worst first by error over limit."""
     rows = []
 
     def held(name, got, want, other):
         rel = rel_err(got, want)[1]
         floor = rel_err(other, want)[1]
-        below_head = name == 'loss_heatmap' or (
-            '.' in name and not name.startswith('pts_bbox_head.'))
+        below_head = not spread_only and (name == 'loss_heatmap' or (
+            '.' in name and not name.startswith('pts_bbox_head.')))
         limit = TOL if below_head else max(TOL, FLOOR_MARGIN * floor)
         rows.append((rel, limit, floor, name))
 
@@ -2235,11 +2319,20 @@ def compare_train(run, ref, alt):
     return rows
 
 
+def optimized(model, opt):
+    """[(name, parameter)] of the model's parameters in ``opt``."""
+    ids = {id(p) for g in opt.param_groups for p in g['params']}
+    return [(n, p) for n, p in model.named_parameters() if id(p) in ids]
+
+
 def drive_train(model, inputs, gt, card, spec=TRAIN,
-                label='MSMDFusion train', fp32=None):
+                label='MSMDFusion train', fp32=None, recipe=TRAIN):
     """Phase 5 (see the module docstring) on the calibrated flagship, with
     the launches, timed steps and checks of ``spec`` (phases 6 and 7 skip
-    the twin or the extras: free ReLUs, cuDNN on and off, the profile).
+    the twin or the extras: free ReLUs, cuDNN on and off, the profile;
+    phase 11 runs it on TransFusion-L) and the optimizer, schedule and
+    frozen modules of ``recipe``; the counted step must drop the rows of
+    ``spec['overflow']`` ({site: rows}, default none).
     ``fp32``: {kernel: the fp32 kernel's records of the same calls}.
     Returns ({kernel: per-call records}, {kernel: launches of one step})."""
     import torch
@@ -2251,16 +2344,17 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
     from msmdfusion_torch.models.layers import cudnn_enabled
     from msmdfusion_torch.utils import overflow
     head = model.pts_bbox_head
-    frozen = TRAIN['frozen']
-    schedule = build_lr_schedule(TRAIN['lr_config'],
-                                 TRAIN['optimizer']['lr'],
-                                 TRAIN['total_steps'],
-                                 TRAIN['steps_per_epoch'])
-    opt = build_optimizer(model, TRAIN['optimizer'],
-                          TRAIN['optimizer_config'], schedule,
+    frozen = recipe['frozen']
+    schedule = build_lr_schedule(recipe['lr_config'],
+                                 recipe['optimizer']['lr'],
+                                 recipe['total_steps'],
+                                 recipe['steps_per_epoch'])
+    opt = build_optimizer(model, recipe['optimizer'],
+                          recipe['optimizer_config'], schedule,
                           frozen_prefixes=frozen)
     model.train()
-    check(head.training and not model.img_backbone.training,
+    check(head.training and ('img_backbone' not in frozen
+                             or not model.img_backbone.training),
           f'{label}: the frozen image branch must stay in eval mode')
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
@@ -2388,8 +2482,7 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
     batch = dict(inputs=inputs, gt_bboxes=gt[0], gt_labels=gt[1],
                  gt_valid=gt[2])
     train_step = make_train_step(model, opt, seed=SEED)
-    trainable = [(n, p) for n, p in model.named_parameters()
-                 if p.requires_grad]
+    trainable = optimized(model, opt)
     kernels.reset_launches()
     with overflow.capture() as cap:
         metrics = train_step(batch, 0)
@@ -2397,10 +2490,13 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
     torch.cuda.synchronize()
     print(f'{label}: launches of one step: {launches}', flush=True)
     check_launches(label, launches, want)
-    check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
+    dropped = {k: v for k, v in cap.counters().items() if v}
+    check(dropped == spec.get('overflow', {}),
+          f'{label}: overflow {dropped}, expected {spec.get("overflow", {})}')
     check(bool(torch.isfinite(metrics['total_loss'])),
           f'{label}: non-finite loss')
-    print(f'{label}: overflow_total 0; step 0 total_loss '
+    print(f'{label}: overflow {dropped or 0} (every other site 0); step 0 '
+          'total_loss '
           f'{float(metrics["total_loss"]):.6f} grad_norm '
           f'{float(metrics["grad_norm"]):.6f} lr {schedule(0):.3g}',
           flush=True)
@@ -2458,9 +2554,9 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
     check(all(p.grad is None for n, p in model.named_parameters()
               if n.startswith(frozen)),
           f'{label}: a frozen image parameter has a gradient')
-    print(f'{label}: {moved} of {len(trainable)} trainable tensors moved; '
-          'the frozen image branch (weights and norm statistics) '
-          'unchanged', flush=True)
+    print(f'{label}: {moved} of {len(trainable)} trainable tensors moved'
+          + ('; the frozen image branch (weights and norm statistics) '
+             'unchanged' if frozen else ''), flush=True)
 
     if spec['extras']:
         # the backward's dense convolutions on and off cuDNN (one step each)
@@ -2675,7 +2771,7 @@ def bf16_calls(label, calls, card, reps=3, plain_reps=1):
         staged = ('useful='
                   f"{sum(r['hits'] for r in recs) / max(sum(r['staged'] for r in recs), 1):.3f} "
                   if all('staged' in r for r in recs) else '')
-        print(f"{label}: {name} sums over the frame's {len(recs)} calls on "
+        print(f"{label}: {name} sums over its {len(recs)} calls on "
               f"bf16 features: ms={sum(r['ms'] for r in recs):.3f} "
               f"plain_ms={sum(r['plain_ms'] for r in recs):.3f} bound_ms="
               f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in recs):.3f} "
@@ -2930,6 +3026,344 @@ def image_train_step(model, inputs, gt, card, steps=3):
 
 
 
+def tl_train_step(model, inputs, gt, card):
+    """Phase 11: TransFusion-L's stage-1 step on phase 3's calibrated model
+    and frame with its config's recipe (``TL_TRAIN``): phase 5's path
+    (``drive_train``: every ``rows_queries``, backward conv and ``conv_dw``
+    call held to its plain versions, the all-plain twin to phase 5's
+    limits, a counted step, timed steps). Training takes the config's
+    train-time voxel capacity, as the JAX package does, below the frame's
+    voxels: the counted step must drop exactly the difference at
+    ``voxelize.mean_batch.voxel_cap`` and nothing anywhere else."""
+    import torch
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.utils import overflow
+    cfg = load_config(str(TL['config']))
+    train_cap = cfg.model.pts_voxel_layer.max_voxels[0]
+    model.eval()
+    with torch.no_grad(), overflow.capture() as cap:
+        model(*inputs)
+    n_voxels = max(cap.gauge_values()['occ.voxelize_mean'])
+    check(n_voxels > train_cap, f'the frame has {n_voxels} voxels, not more '
+          f'than the train-time capacity {train_cap}')
+    model.pts_voxel_layer['max_voxels'] = (train_cap, TL['max_voxels'])
+    recipe = dict(optimizer=dict(cfg.optimizer),
+                  optimizer_config=dict(cfg.optimizer_config),
+                  lr_config=dict(cfg.lr_config),
+                  total_steps=cfg.total_epochs * TL_STEPS_PER_EPOCH,
+                  steps_per_epoch=TL_STEPS_PER_EPOCH, frozen=())
+    print(f'TransFusion-L train: {recipe}; the frame\'s {n_voxels} voxels '
+          f'over the train-time capacity {train_cap}: '
+          f'{n_voxels - train_cap} dropped by the configured cap', flush=True)
+    spec = dict(TL_TRAIN, overflow={'voxelize.mean_batch.voxel_cap':
+                                    n_voxels - train_cap})
+    try:
+        return drive_train(model, inputs, gt, card, spec,
+                           label='TransFusion-L train', recipe=recipe)
+    finally:
+        model.pts_voxel_layer['max_voxels'] = (TL['max_voxels'],) * 2
+        model.eval()
+
+
+def split_steps(label, step, model, opt, batch, steps, card):
+    """``steps`` calls of a ``make_train_step`` step, each split by CUDA
+    events at its seams (phase 5's split, on the main path itself): the
+    model's forward (its hooks), the loss with the assignment (``model.loss``
+    wrapped), the backward (to the optimizer's step) and the optimizer
+    (``opt.step`` wrapped); finite losses; the mean split printed."""
+    import torch
+    marks = {}
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+    loss, opt_step = model.loss, opt.step
+
+    def timed_loss(*args, **kwargs):
+        out = loss(*args, **kwargs)
+        mark('loss')
+        return out
+
+    def timed_step(*args, **kwargs):
+        mark('backward')
+        out = opt_step(*args, **kwargs)
+        mark('optimizer')
+        return out
+    hooks = [model.register_forward_pre_hook(lambda m, a: mark('start')),
+             model.register_forward_hook(lambda m, a, o: mark('forward'))]
+    model.loss, opt.step = timed_loss, timed_step
+    split = []
+    try:
+        for i in range(1, steps + 1):
+            metrics = step(batch, i)
+            torch.cuda.synchronize()
+            names = ('start', 'forward', 'loss', 'backward', 'optimizer')
+            split.append([marks[a].elapsed_time(marks[b])
+                          for a, b in zip(names, names[1:])])
+            check(bool(torch.isfinite(metrics['total_loss'])),
+                  f'{label}: step {i} loss {metrics["total_loss"]}')
+    finally:
+        for h in hooks:
+            h.remove()
+        del model.loss, opt.step
+    fwd, lss, bwd, upd = (sum(s[i] for s in split) / steps for i in range(4))
+    print(f'{label}: step {fwd + lss + bwd + upd:.3f} ms = forward {fwd:.3f} '
+          f'+ loss with the assignment {lss:.3f} + backward {bwd:.3f} + '
+          f'optimizer {upd:.3f} (CUDA events at the seams of make_train_step,'
+          f' mean of {steps} steps; totals '
+          f'{", ".join(f"{sum(s):.1f}" for s in split)}) [{card}]',
+          flush=True)
+    return split
+
+
+def stage2_train_step(model, inputs, gt, card, steps=STAGE2_STEPS):
+    """Phase 12: the flagship's stage-2 step as its config states it:
+    ``freeze_img`` and ``freeze_lidar_components`` (``apis.train.
+    frozen_prefixes``), phase 5's optimizer and schedule. One counted step
+    (phase 5's launches: the frozen encoder still runs its backward, whose
+    gradients count in ``grad_norm`` and not in the clip's norm), then
+    ``steps`` timed steps; the frozen modules' parameters and statistics
+    bit-equal afterwards (their norms took the batch's moments), the
+    other parameters and statistics moved; ``grad_norm`` the hypotenuse of
+    the clip's norm and the frozen gradients' norm. The model's state is restored
+    after. Returns the counted step's launches."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.train import (FROZEN_IMG_PREFIXES,
+                                             FROZEN_LIDAR_PREFIXES,
+                                             build_lr_schedule,
+                                             build_optimizer,
+                                             frozen_prefixes, global_norm,
+                                             make_train_step)
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.utils import overflow
+    label = 'MSMDFusion stage-2 train'
+    frozen = frozen_prefixes(load_config(str(FLAGSHIP['config'])))
+    check(frozen == FROZEN_LIDAR_PREFIXES + FROZEN_IMG_PREFIXES,
+          f'{label}: the config freezes {frozen}')
+    under = tuple(f + '.' for f in frozen)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    try:
+        schedule = build_lr_schedule(TRAIN['lr_config'],
+                                     TRAIN['optimizer']['lr'],
+                                     TRAIN['total_steps'],
+                                     TRAIN['steps_per_epoch'])
+        opt = build_optimizer(model, TRAIN['optimizer'],
+                              TRAIN['optimizer_config'], schedule,
+                              frozen_prefixes=frozen)
+        trainable = optimized(model, opt)
+        names = [n for n, _ in trainable]
+        check(not any(n.startswith(under) for n in names)
+              and any(n.startswith('multimodal_middle_encoder.')
+                      for n in names),
+              f'{label}: the optimizer holds a frozen parameter or no GMA '
+              'parameter')
+        step = make_train_step(model, opt, seed=SEED)
+        batch = dict(inputs=inputs, gt_bboxes=gt[0], gt_labels=gt[1],
+                     gt_valid=gt[2])
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with overflow.capture() as cap:
+            metrics = step(batch, 0)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+        print(f'{label}: frozen {frozen}; launches of one step: {launches}',
+              flush=True)
+        check_launches(label, launches, TRAIN['launches'])
+        check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
+        # the metric over every gradient, the clip's over the trainable
+        # ones: metric^2 = clip^2 + the frozen modules' norm^2
+        grad_norm = float(metrics['grad_norm'])
+        clip_norm = float(opt.grad_norm())
+        frozen_norm = float(global_norm(
+            p.grad for n, p in model.named_parameters() if n.startswith(under)))
+        lidar = float(global_norm(p.grad for n, p in model.named_parameters()
+                                  if n.startswith('pts_middle_encoder.')))
+        check(lidar > 0 and abs(grad_norm - math.hypot(clip_norm, frozen_norm))
+              <= TOL * grad_norm,
+              f'{label}: grad_norm {grad_norm}, trainable {clip_norm}, '
+              f'frozen {frozen_norm} (the LiDAR encoder {lidar})')
+        split_steps(label, step, model, opt, batch, steps, card)
+        sd = model.state_dict()
+        kept = [k for k in start if k.startswith(under)]
+        stats = [k for k in kept if k.startswith('pts_middle_encoder.')
+                 and k.endswith(('running_mean', 'running_var'))]
+        check(stats and all(torch.equal(sd[k], start[k]) for k in kept),
+              f'{label}: a frozen parameter or statistic changed')
+        moved = sum(not torch.equal(p, start[n]) for n, p in trainable)
+        check(moved >= 0.9 * len(trainable),
+              f'{label}: only {moved} of {len(trainable)} parameters moved')
+        other = [k for k in start if not k.startswith(under)
+                 and k.endswith('running_mean')]
+        moved_stats = sum(not torch.equal(sd[k], start[k]) for k in other)
+        check(moved_stats > 0, f'{label}: no trainable norm statistic moved')
+        print(f'{label}: step 0 grad_norm {grad_norm:.6f} over every '
+              f'gradient, the clip\'s over the trainable ones '
+              f'{clip_norm:.6f}, the frozen modules\' {frozen_norm:.6f} (the '
+              f'LiDAR encoder\'s {lidar:.6f}); '
+              f'{len(kept)} frozen tensors ({len(stats)} LiDAR-encoder '
+              f'statistics) bit-equal after {steps + 1} steps, {moved} of '
+              f'{len(trainable)} trainable tensors and {moved_stats} of '
+              f'{len(other)} trainable norms\' means moved; peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+              f'[{card}]', flush=True)
+    finally:
+        model.load_state_dict(start)
+        model.eval()
+    return launches
+
+
+def bf16_train_step(label, model, inputs, gt, card, expected,
+                    steps=BF16_TRAIN_STEPS):
+    """One engine of phase 13 on a bf16-compute flagship with fp32
+    parameters (phase 5's recipe): one step's backward conv calls on bf16
+    cotangents held to their plain versions by phase 8's rules
+    (``bf16_calls``: ``match_conv_bf16``'s ``d_feats`` over the dual plans
+    by the bf16 rule, the rulebook calls on widened rows as fp32 kernel
+    calls rounded once) and its ``conv_dw`` calls on bf16 operands as fp32
+    calls on the widened ones; the all-plain twin on the kernel path's
+    proposals, assignment, dropout, head-input gradient, ReLU masks and
+    conv operands (``PinnedRounding``: the packed engine's bf16 rounding
+    and the x3 split of the fp32 convs from the GMA union on), every loss
+    and gradient within FLOOR_MARGIN times the plain path's own spread,
+    never less than TOL; one counted step through
+    ``make_train_step`` (launches ``expected``, the backward's apart, no
+    row dropped, the encoder's output bf16, every gradient and parameter
+    fp32), ``steps`` timed steps. Returns ({'match_conv_bf16 d_feats':
+    records} where the engine runs it, launches with the backward's
+    ``match_conv_bf16`` under that name)."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.train import (build_lr_schedule,
+                                             build_optimizer,
+                                             make_train_step)
+    from msmdfusion_torch.utils import overflow
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def restore_buffers():
+        with torch.no_grad():
+            for name, b in model.named_buffers():
+                b.copy_(start[name])
+    schedule = build_lr_schedule(TRAIN['lr_config'], TRAIN['optimizer']['lr'],
+                                 TRAIN['total_steps'],
+                                 TRAIN['steps_per_epoch'])
+    opt = build_optimizer(model, TRAIN['optimizer'],
+                          TRAIN['optimizer_config'], schedule,
+                          frozen_prefixes=TRAIN['frozen'])
+    model.train()
+    relu = ReluMasks()
+    pins = PinnedRounding()
+    with Recorder() as rec:
+        run = train_pass(model, inputs, gt, rec=rec, scopes=[relu, pins])
+    restore_buffers()
+    bf16 = torch.bfloat16
+    backward = {w: [c for c in rec.calls_in(w, 'backward')
+                    if c[0][0].dtype == bf16]
+                for w in ('gather_gemm_conv', 'match_conv')}
+    dws = [((args[0].float(), args[1], args[2].float()), kwargs)
+           for args, kwargs in rec.calls['conv_dw']
+           if args[0].dtype == bf16 and args[2].dtype == bf16]
+    n_bwd = sum(len(v) for v in backward.values())
+    check(n_bwd == 24 and len(dws) == 25,
+          f'{label}: {n_bwd} backward convs and {len(dws)} dw on bf16 rows, '
+          'expected 24 and 25')
+    with torch.no_grad():
+        recs = bf16_calls(f'{label} backward', backward, card, reps=3,
+                          plain_reps=1)
+        dw_recs = dw_calls(dws, 2, card, plain_reps=1)
+    del rec
+    print(f'{label}: {kernel_of("conv_dw")} sums over the step\'s '
+          f'{len(dw_recs)} dw calls on bf16 operands (widened): '
+          f'ms={sum(r["ms"] for r in dw_recs):.3f} '
+          f'plain_ms={sum(r["plain_ms"] for r in dw_recs):.3f} [{card}]',
+          flush=True)
+
+    pinned = dict(targets=run['targets'], index=run['index'],
+                  head_grad=run['head_grad'])
+    ref = train_pass(model, inputs, gt, scopes=[
+        kernels.plain_kernels(), X3Plain(), ReluMasks(relu.masks),
+        pins.replay()], **pinned)
+    restore_buffers()
+    alt = train_pass(model, inputs, gt, scopes=[
+        kernels.plain_kernels(), X3Plain(), ReorderedSums(),
+        ReluMasks(relu.masks), pins.replay()], **pinned)
+    restore_buffers()
+    rows = compare_train(run, ref, alt, spread_only=True)
+    for rel, limit, floor, name in rows[:6]:
+        print(f'{label}: kernel vs plain path: {name} {rel:.3g} of max |ref| '
+              f'(limit {limit:.3g}; reordered plain path {floor:.3g})',
+              flush=True)
+    bad = [r for r in rows if r[0] > r[1]]
+    check(not bad, f'{label}: kernel vs plain path above the limit: '
+          f'{bad[:5]}')
+    del run, ref, alt, relu, pins
+
+    batch = dict(inputs=inputs, gt_bboxes=gt[0], gt_labels=gt[1],
+                 gt_valid=gt[2])
+    step = make_train_step(model, opt, seed=SEED)
+    forward_launches, seen = {}, []
+    hooks = [model.register_forward_hook(
+                 lambda m, a, o: forward_launches.update(kernels.launches)),
+             model.pts_middle_encoder.register_forward_hook(
+                 lambda m, a, o: seen.append(o[0].dtype))]
+    kernels.reset_launches()
+    try:
+        with overflow.capture() as cap:
+            metrics = step(batch, 0)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    in_backward = {k: v - forward_launches.get(k, 0)
+                   for k, v in launches.items()}
+    print(f'{label}: launches of one step: {launches} (the backward\'s '
+          f'{in_backward})', flush=True)
+    check_launches(label, launches, expected)
+    check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
+    check(seen == [bf16], f'{label}: sparse encoder output {seen}')
+    check(all(p.dtype == torch.float32 and (p.grad is None
+                                            or p.grad.dtype == torch.float32)
+              for p in model.parameters()),
+          f'{label}: a parameter or gradient is not fp32')
+    check(bool(torch.isfinite(metrics['total_loss'])),
+          f'{label}: non-finite loss')
+    print(f'{label}: overflow_total 0; encoder output bf16, gradients and '
+          'parameters fp32', flush=True)
+    split_steps(label, step, model, opt, batch, steps, card)
+    name = 'match_conv_bf16'
+    if name not in recs:
+        return {}, launches
+    check(in_backward.get(name) == len(recs[name]),
+          f'{label}: {in_backward.get(name)} backward {name} launches, '
+          f'{len(recs[name])} calls held')
+    return ({f'{name} d_feats': recs[name]},
+            {f'{name} d_feats': in_backward[name]})
+
+
+def bf16_train_steps(model, inputs, gt, card, build=build_flagship):
+    """Phase 13 on the calibrated weights of ``model``: ``BF16_TRAIN``'s
+    engines, each on a bf16-compute flagship (``build(device,
+    compute_dtype='bfloat16')``, fp32 parameters) loaded with them, the
+    engine's switches set around it only (``bf16_train_step``). Returns
+    [(records, launches)]."""
+    import torch
+    dev = next(model.parameters()).device
+    calibrated = model.state_dict()
+    out = []
+    for name, env, expected in BF16_TRAIN:
+        bf16 = build(dev, compute_dtype='bfloat16')
+        bf16.load_state_dict(calibrated)
+        label = f'MSMDFusion bf16 train, fp32 params, {name}'
+        with switches(env):
+            print(f'{label}: {env}', flush=True)
+            out.append(bf16_train_step(label, bf16, inputs, gt, card,
+                                       expected))
+        del bf16
+        torch.cuda.empty_cache()
+    return out
+
+
 def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                                                       ONEHOT)):
     """Phases 4-10 on the calibrated flagship (``specs``: the fp32, packed
@@ -2943,6 +3377,7 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
     fp32_spec, packed, onehot = specs
     calibrated = {k: v.detach().clone()
                   for k, v in model.state_dict().items()}
+    lap = phase_laps()
     phases = [drive('MSMDFusion', model, inputs, fp32_spec, card,
                     reps=dict(kernel=10, frame=10))]
     determinism(model, inputs, card)
@@ -2951,9 +3386,11 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                            highest_launches(fp32_spec['launches'])))
     fp32 = path_outputs(model, inputs)
     dense_engines(model, inputs, card)
+    lap('4 (MSMDFusion inference)')
 
     # 5. the MSMDFusion train step
     phases.append(drive_train(model, inputs, gt, card))
+    lap('5 (MSMDFusion train)')
     # the fp32 engine's (x3) kernels' records of the calls the packed ones
     # make again
     same_calls = dict(
@@ -2989,16 +3426,21 @@ def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
             phases.append(drive_train(model, inputs, gt, card, spec['train'],
                                       label=f'MSMDFusion {name} train',
                                       fp32=ratios.get('train')))
+        lap(f'{6 if spec is packed else 7} ({name})')
     model.load_state_dict(calibrated)
     model.eval()
     # 8. bf16 compute, 9. the ablation and backend switches, 10. the
     # image branch trained
     later = bf16_frames(model, inputs, card, fp32)
+    lap('8 (bf16-compute frames)')
     later += ablation_frames(model, inputs, card)
+    lap('9 (switch frames)')
     image_train_step(model, inputs, gt, card)
+    lap('10 (image-branch train)')
     engines_interleaved(model, inputs, card, (
         ('fp32', {}), ('fp32 highest', HIGHEST['env']),
         ('packed bf16', packed['env']), ('one-hot', onehot['env'])))
+    lap('engines interleaved')
     return phases + later + [exact] + onehot_extra
 
 
@@ -3085,14 +3527,14 @@ def report(phases, card):
     # conv's launches come from phase 4's frame on highest, conv_dw's from
     # the one-hot step, which runs it)
     picked = {}
+    names = list(KERNEL_INFO) + list(DIRECTIONS)
     for recs, launches in phases:
         for name in recs:
-            if name in KERNEL_INFO and name not in picked and \
-                    launches.get(name):
+            if name in names and name not in picked and launches.get(name):
                 picked[name] = (recs[name], launches)
-    check(set(picked) == set(KERNEL_INFO),
-          f'kernels never checked: {sorted(set(KERNEL_INFO) - set(picked))}')
-    summary = [kernel_summary(name, *picked[name]) for name in KERNEL_INFO]
+    check(set(picked) == set(names),
+          f'kernels never checked: {sorted(set(names) - set(picked))}')
+    summary = [kernel_summary(name, *picked[name]) for name in names]
     print(json.dumps({'kernels': summary}), flush=True)
 
 
@@ -3144,6 +3586,7 @@ def main():
           f'{torch.cuda.device_count()}', flush=True)
 
     # 2. build
+    lap = phase_laps()
     t0 = time.perf_counter()
     built = kernels.build()
     build_s = time.perf_counter() - t0
@@ -3157,18 +3600,18 @@ def main():
     print(f'build: {len(built)} sources of {len(KERNEL_INFO)} kernels in '
           f'{build_s:.1f} s (parallel nvcc)', flush=True)
     card_tests()
+    lap('2 (build and card tests)')
 
-    # 3. TransFusion-L
+    # 3. TransFusion-L (kept for phase 11)
     t0 = time.perf_counter()
-    model = build_model(dev, max_voxels=TL['max_voxels'])
-    inputs = make_points(model, TL['n_points'], dev)
-    calibrate_norms(model, *inputs)
+    tl_model = build_model(dev, max_voxels=TL['max_voxels'])
+    tl_inputs, tl_gt = make_points(tl_model, TL['n_points'], dev)
+    calibrate_norms(tl_model, *tl_inputs)
     print(f'TransFusion-L setup: model + {TL["n_points"]} points + norms in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    drive('TransFusion-L', model, inputs, TL, card,
+    drive('TransFusion-L', tl_model, tl_inputs, TL, card,
           reps=dict(kernel=10, frame=5))
-    del model, inputs
-    torch.cuda.empty_cache()
+    lap('3 (TransFusion-L)')
 
     # 4. MSMDFusion
     t0 = time.perf_counter()
@@ -3180,6 +3623,16 @@ def main():
           f'{int(inputs[3]["fg_mask"].sum())}, real pixels '
           f'{int(inputs[3]["fg_real_mask"].sum())}', flush=True)
     phases = flagship_phases(model, inputs, gt, card)
+    lap('4-10 (MSMDFusion setup and phases 4-10)')
+
+    tl_train_step(tl_model, tl_inputs, tl_gt, card)
+    del tl_model, tl_inputs, tl_gt
+    torch.cuda.empty_cache()
+    lap('11 (TransFusion-L train)')
+    stage2_train_step(model, inputs, gt, card)
+    lap('12 (stage-2 train, LiDAR encoders frozen)')
+    phases += bf16_train_steps(model, inputs, gt, card)
+    lap('13 (bf16-compute train steps)')
 
     report(phases, card)
     print(json.dumps({'ok': True, 'device': {

@@ -10,41 +10,103 @@ mmcv's runner): the optax chain
 written out as one ``torch.optim.Optimizer`` so that the arithmetic is
 optax's, term for term (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to
 the norm and ``torch.optim.AdamW`` decays the weights before the Adam
-step; neither is what the JAX package computes). Frozen parameters (the
-image branch in the reference's stage-2 recipe) get ``requires_grad``
-False and no update; their batch norms stay in eval mode, so their
-statistics never move (the JAX package's ``_keep_frozen_stats``).
+step; neither is what the JAX package computes).
+
+Freezing is the JAX package's ``multi_transform`` with ``set_to_zero``:
+parameters under a frozen prefix (``frozen_prefixes``: the image branch
+of ``freeze_img``, the LiDAR voxel and middle encoders of the config's
+``freeze_lidar_components``) stay out of the optimizer, so the clip's
+global norm counts the trainable gradients only, and the step gives
+their modules' norm statistics back as they were (``_keep_frozen_stats``)
+although those norms take the batch's moments in training mode. Their
+gradients are still computed: the step's ``grad_norm`` metric is the norm
+of every gradient, as JAX's ``optax.global_norm(grads)``. The image branch
+under ``freeze_img`` gets none, since the detector runs it without
+autograd (the JAX package's ``stop_gradient``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+
+# the JAX package's tools/train.py:36-37 predicates, under the port's
+# module names (a prefix rule: JAX's 'middle_encoder' substring does not
+# reach its multimodal encoder, named 'mm_encoder' there, and
+# ``multimodal_middle_encoder`` here must not be caught either)
+FROZEN_LIDAR_PREFIXES = ('pts_voxel_encoder', 'pts_middle_encoder')
+FROZEN_IMG_PREFIXES = ('img_backbone', 'img_neck')
+
+
+def frozen_prefixes(cfg) -> Tuple[str, ...]:
+    """The frozen module prefixes of a config, as JAX ``tools/train.py:
+    110-114`` adds them: the LiDAR encoders where ``freeze_lidar_components``
+    is set, the image branch where the model's ``freeze_img`` is."""
+    out: Tuple[str, ...] = ()
+    if cfg.get('freeze_lidar_components'):
+        out += FROZEN_LIDAR_PREFIXES
+    if cfg['model'].get('freeze_img'):
+        out += FROZEN_IMG_PREFIXES
+    return out
+
+
+def _under(name: str, prefixes: Sequence[str]) -> bool:
+    return any(name == f or name.startswith(f + '.') for f in prefixes)
 
 
 def build_lr_schedule(lr_config: Dict[str, Any], base_lr: float,
                       total_steps: int, steps_per_epoch: int
                       ) -> Callable[[int], float]:
-    """step -> learning rate, mmcv semantics: policy 'step' multiplies by
-    0.1 from each epoch of ``lr_config['step']`` on, and ``warmup='linear'``
-    ramps from ``warmup_ratio`` to 1 over ``warmup_iters`` steps."""
-    del total_steps                   # read only by the cyclic policy
+    """step -> learning rate, mmcv semantics as the JAX package builds
+    them: policy 'step' multiplies by 0.1 from each epoch of
+    ``lr_config['step']`` on; 'cyclic' ramps linearly from ``base_lr`` to
+    ``base_lr * target_ratio[0]`` over ``int(total_steps *
+    step_ratio_up)`` steps, then decays on a cosine to ``target_ratio[1]``
+    of that peak over the rest (``optax.join_schedules`` of a
+    ``linear_schedule`` and a ``cosine_decay_schedule``, the second counted
+    from 0 at the boundary; no momentum cycling, as in the JAX package);
+    ``warmup='linear'`` scales either from ``warmup_ratio`` to 1 over
+    ``warmup_iters`` steps. The cyclic schedule and the warmup compute in
+    float32 in optax's order of operations, as the JAX schedule does."""
+    f32 = np.float32
     policy = lr_config.get('policy', 'step')
-    if policy != 'step':
-        raise NotImplementedError(f'lr policy {policy!r}: only step is '
-                                  'ported')
-    boundaries = sorted({int(e * steps_per_epoch)
-                         for e in lr_config.get('step', [])})
+    if policy == 'step':
+        boundaries = sorted({int(e * steps_per_epoch)
+                             for e in lr_config.get('step', [])})
+
+        def sched(step: int):
+            return base_lr * 0.1 ** sum(step >= b for b in boundaries)
+    elif policy == 'cyclic':
+        up_ratio, down_target = lr_config.get('target_ratio', (10, 1e-4))
+        up_steps = int(total_steps * lr_config.get('step_ratio_up', 0.4))
+        decay_steps = max(total_steps - up_steps, 1)
+        peak = base_lr * up_ratio
+
+        def sched(step: int):
+            if step < up_steps:          # optax.linear_schedule
+                frac = f32(1) - f32(min(max(step, 0), up_steps)) \
+                    / f32(up_steps)
+                return f32(base_lr - peak) * frac + f32(peak)
+            count = f32(min(step - up_steps, decay_steps))
+            cosine = f32(0.5) * (f32(1) + np.cos(
+                f32(np.pi) * count / f32(decay_steps)))
+            return f32(peak) * (f32(1 - down_target) * cosine
+                                 + f32(down_target))
+    else:
+        raise ValueError(policy)
+
     warmup = lr_config.get('warmup')
     w_iters = lr_config.get('warmup_iters', 500)
     w_ratio = lr_config.get('warmup_ratio', 1.0 / 3)
 
     def schedule(step: int) -> float:
-        lr = base_lr * 0.1 ** sum(step >= b for b in boundaries)
+        lr = sched(step)
         if warmup == 'linear' and step < w_iters:
-            lr *= w_ratio + (1 - w_ratio) * min(step / w_iters, 1.0)
-        return lr
+            frac = min(f32(step) / f32(w_iters), f32(1))
+            lr = f32(lr) * (f32(w_ratio) + f32(1 - w_ratio) * frac)
+        return float(lr)
     return schedule
 
 
@@ -54,6 +116,14 @@ def _decays(name: str, p: torch.Tensor) -> bool:
     name = name.lower()
     return not ('bn' in name or 'norm' in name or name.endswith('bias')
                 or p.dim() <= 1)
+
+
+def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares of every given tensor (None skipped)."""
+    norms = [(x * x).sum() for x in tensors if x is not None]
+    if not norms:
+        return torch.zeros(())
+    return torch.sqrt(sum(norms))
 
 
 class ClippedAdamW(torch.optim.Optimizer):
@@ -66,11 +136,13 @@ class ClippedAdamW(torch.optim.Optimizer):
         p <- p + (-lr(t - 1)) * u
 
     A trainable parameter without a gradient counts as a zero gradient,
-    as in JAX (its weight still decays)."""
+    as in JAX (its weight still decays). ``frozen_prefixes``: the modules
+    whose parameters were left out, for ``make_train_step``."""
 
     def __init__(self, named_params: Iterable, lr_schedule: Callable,
                  weight_decay: float = 0.01, betas=(0.9, 0.999),
-                 eps: float = 1e-8, max_norm: Optional[float] = None):
+                 eps: float = 1e-8, max_norm: Optional[float] = None,
+                 frozen_prefixes: Sequence[str] = ()):
         named = list(named_params)
         groups = [
             dict(params=[p for n, p in named if _decays(n, p)],
@@ -81,15 +153,14 @@ class ClippedAdamW(torch.optim.Optimizer):
                          dict(betas=betas, eps=eps))
         self.lr_schedule = lr_schedule
         self.max_norm = max_norm
+        self.frozen_prefixes = tuple(frozen_prefixes)
         self.count = 0
 
     @torch.no_grad()
     def grad_norm(self) -> torch.Tensor:
-        grads = [p.grad for g in self.param_groups for p in g['params']
-                 if p.grad is not None]
-        if not grads:
-            return torch.zeros(())
-        return torch.sqrt(sum((x * x).sum() for x in grads))
+        """The global norm of the trainable gradients (the clip's)."""
+        return global_norm(p.grad for g in self.param_groups
+                           for p in g['params'])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -127,22 +198,22 @@ def build_optimizer(model: nn.Module, optimizer_cfg: Dict[str, Any],
                     frozen_prefixes: Sequence[str] = ()) -> ClippedAdamW:
     """AdamW with the weight-decay mask and the global-norm clip of
     ``optimizer_config['grad_clip']``. Parameters under a module named in
-    ``frozen_prefixes`` (e.g. ``img_backbone``) are frozen: they get
-    ``requires_grad`` False and stay out of the optimizer; every other
-    parameter gets ``requires_grad`` True (whatever an earlier optimizer
-    froze) and is trained, as the JAX package's optax mask labels it."""
+    ``frozen_prefixes`` (``frozen_prefixes(cfg)``: e.g. ``img_backbone``,
+    ``pts_middle_encoder``) are frozen: they stay out of the optimizer,
+    as the JAX package's optax mask labels them. Every parameter gets
+    ``requires_grad`` True (whatever an earlier optimizer or caller set),
+    so that the step computes every gradient JAX's ``jax.grad`` does."""
     trainable = []
     for name, p in model.named_parameters():
-        frozen = any(name == f or name.startswith(f + '.')
-                     for f in frozen_prefixes)
-        p.requires_grad_(not frozen)
-        if not frozen:
+        p.requires_grad_(True)
+        if not _under(name, frozen_prefixes):
             trainable.append((name, p))
     clip = (optimizer_config or {}).get('grad_clip')
     return ClippedAdamW(trainable, lr_schedule,
                         weight_decay=optimizer_cfg.get('weight_decay', 0.01),
                         betas=optimizer_cfg.get('betas', (0.9, 0.999)),
-                        max_norm=clip['max_norm'] if clip else None)
+                        max_norm=clip['max_norm'] if clip else None,
+                        frozen_prefixes=frozen_prefixes)
 
 
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -161,20 +232,29 @@ def make_train_step(model: nn.Module, optimizer: ClippedAdamW,
                     seed: int = 0):
     """train_step(batch, step) -> metrics: a training-mode forward with
     the step's dropout generator, the losses, the backward and one
-    optimizer update. ``batch``: dict(inputs=(points, points_mask, img,
-    fg), gt_bboxes, gt_labels, gt_valid) on the model's device. Metrics:
-    the loss dict, 'total_loss' and 'grad_norm' (before clipping), as
-    tensors."""
+    optimizer update; the norm statistics of the optimizer's frozen
+    modules are given back as they were before the step. ``batch``:
+    dict(inputs=the model's positional inputs (points, points_mask[, img,
+    fg]), gt_bboxes, gt_labels, gt_valid) on the model's device. Metrics:
+    the loss dict, 'total_loss' and 'grad_norm' (before clipping, over
+    every gradient, the frozen parameters' included), as tensors."""
+    frozen = optimizer.frozen_prefixes
+
     def train_step(batch: Dict[str, Any], step: int) -> Dict[str, Any]:
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)       # the frozen ones' too
+        kept = [(b, b.clone()) for n, b in model.named_buffers()
+                if _under(n, frozen)]
         gen = dropout_generator(batch['gt_bboxes'].device, seed, step)
         preds = model(*batch['inputs'], generator=gen)
         losses = model.loss(preds, batch['gt_bboxes'], batch['gt_labels'],
                             batch['gt_valid'])
         total = total_loss(losses)
         total.backward()
-        grad_norm = optimizer.grad_norm()
+        with torch.no_grad():
+            for b, old in kept:                 # _keep_frozen_stats
+                b.copy_(old)
+            grad_norm = global_norm(p.grad for p in model.parameters())
         optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics['total_loss'] = total.detach()

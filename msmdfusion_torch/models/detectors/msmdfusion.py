@@ -24,16 +24,19 @@ statistics never move. Without it the image branch trains: its convs take
 gradients and its norms stay on their running statistics (the ResNet's
 ``norm_eval``; FPN has none).
 
-``compute_dtype='bfloat16'`` (the JAX package's ``MSMD_BF16``, inference
-only) casts the images (JAX ``:115-116``) and the LiDAR voxel features
+``compute_dtype='bfloat16'`` (the JAX package's ``MSMD_BF16``) casts the images (JAX ``:115-116``) and the LiDAR voxel features
 (``:214-215``) to bf16; every layer after them computes in the dtype the
 JAX layer produces (``layers.py``'s flax rule: a bf16 input meets fp32
 parameters in fp32, so with fp32 parameters only the sparse encoder and
 the GMA's grouped 3D convs run bf16; with parameters cast by
 ``layers.cast_params``, as the JAX bench casts them, the image branch and
 the GMA gates too, while the depth canvas, the 2D voxels and everything
-from the GMA union on stay fp32), and the decode runs in fp32. Training
-under it raises.
+from the GMA union on stay fp32), and the decode runs in fp32. It trains
+with fp32 parameters, as the JAX bench's train step does (``bench.py:
+258-300``): bf16 activations and their gradients through the sparse
+encoder and the grouped convs, fp32 gradients for every parameter.
+Training with parameters cast by ``cast_params`` raises: no JAX entry
+point trains them (ROADMAP).
 
 Dense maps are channels-first (NCHW); the sparse tensors and the
 foreground arrays keep the JAX package's layouts. Module names are the
@@ -315,10 +318,11 @@ class MSMDFusionDetector(nn.Module):
         [B, V, Mr], lidar2img [B, V, 4, 4]; pixels in input-image scale)
         -> head predictions. ``generator``: the ``torch.Generator`` the
         head's dropout draws from in training mode."""
-        if self.training and self.compute_dtype != torch.float32:
+        if self.training and any(p.dtype != torch.float32
+                                 for p in self.parameters()):
             raise NotImplementedError(
-                'training under compute_dtype bfloat16 is not ported '
-                '(ROADMAP queue 1: the bf16 train step)')
+                'training with parameters cast below fp32 is not ported: '
+                'no JAX entry point trains them (ROADMAP, queue 1)')
         input_hw = (img.shape[2], img.shape[3])
         with section('img'), torch.set_grad_enabled(
                 torch.is_grad_enabled() and not self.freeze_img):

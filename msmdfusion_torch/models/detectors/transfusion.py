@@ -1,4 +1,5 @@
-"""TransFusion-L detector (LiDAR-only voxel variant), inference.
+"""TransFusion-L detector (LiDAR-only voxel variant), inference and
+training.
 
 Counterpart of the JAX package's ``models/detectors/transfusion.py``
 (reference mmdet3d/models/detectors/transfusion.py): fused voxelize +
@@ -6,7 +7,15 @@ mean (the ``HardSimpleVFE`` path) -> SparseEncoder -> SECOND -> SECONDFPN
 -> TransFusionHead, over fixed-capacity batch tensors. Submodule names are
 the reference's (``pts_middle_encoder``, ``pts_backbone``, ``pts_neck``,
 ``pts_bbox_head``), so ``state_dict()`` keys are the reference
-checkpoint's.
+checkpoint's. In training mode (``model.train()``: the JAX ``train=True``
+of every layer) the voxelizer takes the train-time capacity
+``max_voxels[0]`` (past it the highest keys are dropped and counted at
+``voxelize.mean_batch.voxel_cap``), every norm the batch's moments, the
+strided sparse convs build their transpose plans for the backward, the
+head's dropout draws from the step's ``generator``, and ``loss`` gives the
+head's losses: the reference's stage-1 step (``apis/train.py``'s
+``make_train_step`` takes the model as it is, ``batch['inputs']`` being
+``(points, points_mask)``).
 """
 from __future__ import annotations
 
@@ -34,7 +43,6 @@ class TransFusionDetector(nn.Module):
             raise NotImplementedError(
                 f"voxel encoder {pts_voxel_encoder['type']}: only the fused "
                 'HardSimpleVFE path is ported')
-        del train_cfg
         self.pts_voxel_layer = dict(pts_voxel_layer)
         self.pts_middle_encoder = MIDDLE_ENCODERS.build(
             dict(pts_middle_encoder))
@@ -42,6 +50,7 @@ class TransFusionDetector(nn.Module):
         self.pts_neck = NECKS.build(dict(pts_neck)) if pts_neck else None
         head_cfg = dict(pts_bbox_head)
         head_cfg['test_cfg'] = dict(test_cfg['pts'])
+        head_cfg['train_cfg'] = dict(train_cfg['pts']) if train_cfg else None
         self.pts_bbox_head = HEADS.build(head_cfg)
 
     def extract_pts_feat(self, points, points_mask):
@@ -50,7 +59,8 @@ class TransFusionDetector(nn.Module):
         vl = self.pts_voxel_layer
         max_voxels = vl['max_voxels']
         if isinstance(max_voxels, (tuple, list)):
-            max_voxels = max_voxels[1]          # the test-time capacity
+            # the train-time capacity, else the test-time one
+            max_voxels = max_voxels[0 if self.training else 1]
         batch_size = points.shape[0]
         with section('voxelize'):
             voxel_features, coors, valid = voxelize_mean_batch(
@@ -64,13 +74,26 @@ class TransFusionDetector(nn.Module):
                 feats = self.pts_neck(feats)
         return feats, encode_features
 
-    def forward(self, points, points_mask):
-        """points [B, N, F], points_mask [B, N] -> head predictions."""
-        if self.training:
-            raise NotImplementedError('the port runs inference only')
+    def forward(self, points, points_mask, generator=None):
+        """points [B, N, F], points_mask [B, N] -> head predictions.
+        ``generator``: the ``torch.Generator`` the head's dropout draws
+        from in training mode."""
         feats, _ = self.extract_pts_feat(points, points_mask)
         with section('head'):
-            return self.pts_bbox_head(feats[0])
+            return self.pts_bbox_head(feats[0], generator=generator)
+
+    def loss(self, preds, gt_bboxes, gt_labels, gt_valid, targets=None):
+        """The head's losses (``TransFusionHead.loss``)."""
+        with section('loss'):
+            return self.pts_bbox_head.loss(preds, gt_bboxes, gt_labels,
+                                           gt_valid, targets=targets)
+
+    def forward_train(self, points, points_mask, gt_bboxes, gt_labels,
+                      gt_valid, generator=None):
+        """The losses of one training-mode forward (JAX ``:116-119``)."""
+        self.train()
+        preds = self(points, points_mask, generator=generator)
+        return self.loss(preds, gt_bboxes, gt_labels, gt_valid)
 
     def get_bboxes(self, preds):
         with section('decode'):

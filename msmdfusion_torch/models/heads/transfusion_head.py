@@ -208,8 +208,8 @@ def topk_lower_index_first(x, k: int):
 
 
 def upcast(preds):
-    """The predictions with bf16 ones in fp32: the decode and the
-    targets run in fp32 (JAX ``transfusion_head.py:539-541,659-661``)."""
+    """The predictions with bf16 ones in fp32: the decode, the targets and
+    the losses run in fp32 (JAX ``transfusion_head.py:539-541,659-661``)."""
     return {k: v.float() if torch.is_tensor(v) and v.dtype == torch.bfloat16
             else v for k, v in preds.items()}
 
@@ -330,6 +330,7 @@ class TransFusionHead(nn.Module):
         (``layer_{i}`` for auxiliary layers), 'matched_ious'}."""
         p = self.num_proposals
         num_layers = self.num_decoder_layers if self.auxiliary else 1
+        preds = upcast(preds)
         if targets is None:
             targets = self.get_targets(preds, gt_bboxes, gt_labels, gt_valid)
         (labels, label_weights, bbox_targets, bbox_weights, num_pos,

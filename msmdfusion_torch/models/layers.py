@@ -131,19 +131,21 @@ class LayerNorm(nn.LayerNorm):
 
 
 class _Fp32Norm:
-    """A torch batch norm in eval mode on any input and parameter dtype:
-    computed in fp32, returned in the input's dtype (as the module itself
-    on fp32). Training-mode moments take fp32 only."""
+    """A torch batch norm on any input and parameter dtype: computed in
+    fp32, returned in the input's dtype (as the module itself on fp32).
+    In training mode the moments are those of the widened input and the
+    running statistics (fp32) update as the module's own do (JAX
+    ``MaskedBatchNorm``, ``layers.py:69-92``)."""
 
     def forward(self, x):
         if x.dtype == torch.float32 and self.weight.dtype == torch.float32:
             return super().forward(x)
         if self.training:
-            raise NotImplementedError('batch-norm moments in training mode '
-                                      'take fp32 inputs and parameters')
+            self.num_batches_tracked.add_(1)
         return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight.float(), self.bias.float(), False,
-                            0.0, self.eps).to(x.dtype)
+                            self.weight.float(), self.bias.float(),
+                            self.training, self.momentum if self.training
+                            else 0.0, self.eps).to(x.dtype)
 
 
 class BatchNorm1d(_Fp32Norm, nn.BatchNorm1d):

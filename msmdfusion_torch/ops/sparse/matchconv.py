@@ -1048,8 +1048,16 @@ def conv_dw(feats, rows, g, order: Optional[RowOrder] = None) -> torch.Tensor:
     product (kernel ``conv_dw``) under ``MSMD_CONV_GEMM=highest`` and for
     the one-hot engine, whose rows carry no order. Same fixed-order sums
     throughout. A CPU tensor takes the plain version's exact product
-    (bf16 operands under ``packed()``)."""
+    (bf16 operands under ``packed()``). bf16 features or gradient (the
+    bf16-compute train step) are widened to fp32 (exactly) first, as the
+    JAX package's ``_pallas_bwd`` widens both for its ``dw``; ``dw`` is
+    fp32 either way."""
     dev = feats.device
+    for name, t in (('feats', feats), ('g', g)):
+        if t.dtype not in MATCH_DTYPES:
+            raise TypeError(f'{name}: expected float32 or bfloat16, got '
+                            f'{t.dtype}')
+    feats, g = feats.float(), g.float()
     check_tensor('feats', feats, torch.float32, 2, dev)
     check_tensor('rows', rows, torch.int32, 2, dev)
     check_tensor('g', g, torch.float32, 2, dev)
@@ -1102,6 +1110,13 @@ class MatchConv(torch.autograd.Function):
       order); the one-hot engine builds them here, one
       ``rows_affine``/``rows_queries`` launch per conv, as the JAX
       package's ``_pallas_bwd`` does, and takes the exact product.
+
+    On bf16 features (the bf16-compute train step) the cotangent is bf16
+    too: ``d_feats`` is the same conv on it (the one-hot engine's
+    ``match_conv_bf16`` over the transpose plan, the rulebook kernels on
+    it widened), rounded once to the features' dtype, and ``d_weights``
+    the fp32 ``conv_dw`` of the widened operands, returned in the
+    weights' dtype (JAX ``_pallas_bwd``, ``matchconv.py:1555-1556``).
     """
 
     @staticmethod
@@ -1126,9 +1141,11 @@ class MatchConv(torch.autograd.Function):
             else:
                 dual, dual_keys = dual_plan(plan, in_keys)
                 d_feats = match_conv(g, dual_keys, dual, w_t)
+            d_feats = d_feats.to(feats.dtype)
         if ctx.needs_input_grad[1]:
             rows = plan.rows if in_keys is None else plan_rows(in_keys, plan)
-            d_weights = conv_dw(feats, rows, g, order=plan.order)
+            d_weights = conv_dw(feats, rows, g, order=plan.order).to(
+                weights.dtype)
         return d_feats, d_weights, None, None
 
 

@@ -302,6 +302,22 @@ def _pad(arrays, num_cams: int, cap: int, dim: int, site: str):
     return out, mask
 
 
+def scene_gt(objects, max_gt: int = 32):
+    """(gt_bboxes [max_gt, 9] bottom-centre (x, y, z, dx, dy, dz, yaw, vx,
+    vy), gt_labels [max_gt] int32, gt_valid [max_gt]) of ``lidar_scene``'s
+    objects, zero-padded."""
+    boxes = np.zeros((max_gt, 9), np.float32)
+    labels = np.zeros((max_gt,), np.int32)
+    valid = np.zeros((max_gt,), bool)
+    for gi, obj in enumerate(objects[:max_gt]):
+        c, d = obj['center'], obj['dims']
+        boxes[gi] = [c[0], c[1], c[2] - d[2] / 2, d[0], d[1], d[2],
+                     obj['yaw'], 0.0, 0.0]
+        labels[gi] = obj['label']
+        valid[gi] = True
+    return boxes, labels, valid
+
+
 def realistic_batch(shape: Dict, b: int, seed: int = 0,
                     num_virtual: int = 200, return_gt: bool = False,
                     max_gt: int = 32) -> Dict:
@@ -331,12 +347,8 @@ def realistic_batch(shape: Dict, b: int, seed: int = 0,
     for bi in range(b):
         pts, objects = lidar_scene(rng, n, pcr)
         points[bi] = pts
-        for gi, obj in enumerate(objects[:max_gt]):
-            c, d = obj['center'], obj['dims']
-            gt_bboxes[bi, gi] = [c[0], c[1], c[2] - d[2] / 2, d[0], d[1],
-                                 d[2], obj['yaw'], 0.0, 0.0]
-            gt_labels[bi, gi] = obj['label']
-            gt_valid[bi, gi] = True
+        gt_bboxes[bi], gt_labels[bi], gt_valid[bi] = scene_gt(objects,
+                                                              max_gt)
         l2i = camera_rig(img_hw, num_cams=v, seed=seed + 17 * bi)
         per_cam = [generate_camera_foreground(
             pts, np.asarray(l2i[ci], np.float64), img_hw,

@@ -16,10 +16,14 @@ and 192 on the subm, downsample and dual plans of a synthetic LiDAR frame
 misses inside the 16-row slices that hit a tap); random keys under INT_MAX
 rows and queries, a 128-row block that no tap hits, K_out not a multiple
 of the block, unaligned feature views. ``MSMD_CONV_GEMM=highest`` takes
-the exact FFMA kernel ``match_conv`` for fp32 features. Without a card
+the exact FFMA kernel ``match_conv`` for fp32 features. The bf16 train
+step's input gradient: ``MatchConv``'s backward on bf16 features runs
+``match_conv_bf16`` over a strided conv's dual plan. Without a card
 every test skips. No JAX here: the machine with the card runs the port
 alone.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -240,3 +244,45 @@ def test_highest_takes_the_ffma_kernel_for_fp32(card, monkeypatch):
     diff = (out - tmc.match_conv_plain(feats, keys, plan, w)).abs()
     assert (diff <= TOL * mag).all()
     assert out16.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cin,cout', [(16, 32), (32, 64), (64, 128),
+                                      (128, 128)])
+def test_bf16_input_gradient_over_the_dual_plan(cin, cout, card, frame,
+                                                monkeypatch):
+    """The bf16-compute train step's one-hot ``d_feats``: ``MatchConv``'s
+    backward on bf16 features and a bf16 cotangent runs ``match_conv_bf16``
+    over a strided conv's dual plan (explicit queries against the conv's
+    output keys) with the weights tap-flipped and transposed, held to the
+    plain bf16 version of that call by the bf16 rule; ``dw``, the exact
+    ``conv_dw`` on the widened operands, to its plain version."""
+    monkeypatch.setenv('MSMD_CONV_ALGO', 'onehot')
+    rng = np.random.RandomState(101 + cin)
+    (keys, down), (out_keys, dual) = [
+        (k, p) for name, k, p in frame if name.startswith(
+            ('down k3', 'dual k3'))][:2]
+    plan = dataclasses.replace(down, dual=dual, dual_keys=out_keys)
+    valid = (keys != INT_MAX).cpu().numpy()
+    feats = rand_feats(rng, keys.shape[0], cin, valid).to(card).to(
+        torch.bfloat16).requires_grad_(True)
+    w = torch.from_numpy((rng.randn(plan.num_taps, cin, cout) * 0.1)
+                         .astype(np.float32)).to(card).requires_grad_(True)
+    out = tmc.MatchConv.apply(feats, w, plan, keys)
+    g = rand_feats(rng, plan.k_out, cout).to(card).to(torch.bfloat16)
+    kernels.reset_launches()
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launches['match_conv_bf16'] == 1
+    assert kernels.launches['conv_dw'] == 1
+    assert feats.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+    w_t = w.detach().flip(0).transpose(1, 2).contiguous()
+    want = tmc.match_conv_plain(g, out_keys, dual, w_t)
+    mag = tmc.match_conv_plain(g.float().abs(), out_keys, dual, w_t.abs())
+    check_bf16(feats.grad, want, mag)
+    rows = tmc.plan_rows_plain(keys, plan)
+    dw = tmc.conv_dw_plain(feats.detach().float(), rows, g.float())
+    dw_mag = tmc.conv_dw_plain(feats.detach().float().abs(), rows,
+                               g.float().abs())
+    assert ((w.grad - dw).abs() <= TOL * dw_mag).all()
+    assert int((rows >= 0).sum()) > plan.k_out
