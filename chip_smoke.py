@@ -5,7 +5,8 @@ inference and train step on the two other sparse-conv engines, its bf16
 compute frames, its ablation and backend switches, its train step with
 the image branch trained, TransFusion-L's train step, the flagship's
 stage-2 step with its LiDAR encoders frozen and its bf16-compute train
-step.
+step, TransFusion-LC's inference and train step, and the Waymo
+TransFusion-L and LC.
 
     python3 chip_smoke.py
 
@@ -167,7 +168,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
    as an fp32 call on the widened ones; the all-plain twin with every loss
    and gradient within 10 times the plain path's own spread (never less
    than 1e-4 of max); a counted step (launches, the backward's apart),
-   overflow 0, bf16 encoder activations, fp32 gradients, 2 timed steps.
+   overflow 0, bf16 encoder activations, fp32 gradients, 2 timed steps;
+14. TransFusion-LC (``configs/transfusion_nusc_voxel_LC.py``) on phase
+   3's weights (kept before phase 11 trains them; the image branch and
+   the head's image fusion drawn from the seed, their norms calibrated)
+   and frame with six 448 x 800 cameras in the reference's view order
+   (``synth_scene.lc_batch``): without images its outputs are phase 3's;
+   the new dense layers on and off cuDNN; the path on it (launches 8/21,
+   no row dropped, the twin to phase 3's limits, the proposals checked
+   on the heatmap the head picks them from: ``Selection``); the share of
+   proposals on an image and the image stages' ms;
+15. its step under ``freeze_img`` with its config's recipe (phase 11's
+   launches and configured drop): the image branch's parameters and
+   statistics bit-equal, its norms in eval mode, its gradients nonzero
+   and in ``grad_norm`` (the JAX detector stops none), 2 timed steps;
+16. Waymo (``configs/transfusion_waymo_voxel_{L,LC}.py``) on a 180,000-
+   point frame over its range with five 448 x 800 cameras: the encoder's
+   strided outputs measured with open capacities and held to ``WAYMO``'s;
+   TransFusion-L's path (as phase 3's, 7-wide boxes); the LC model on its
+   weights (without images its outputs; a counted frame, the share on an
+   image, ms/frame); one TransFusion-L step with the config's recipe
+   (``drive_train``: its per-call checks, phase 11's launches; no twin,
+   see ``WAYMO``).
 
 Each phase prints its seconds by the host clock.
 
@@ -394,6 +416,34 @@ BF16_TRAIN = (
      {'rows_affine': 37, 'match_conv_bf16': 49, 'match_conv_x3': 24,
       'conv_dw': 37, 'masked_nn': 8, 'merge_take': 3}))
 BF16_TRAIN_STEPS = 2
+# phase 14: TransFusion-LC (configs/transfusion_nusc_voxel_LC.py) on phase
+# 3's LiDAR frame (the same seed's points) with six 448 x 800 cameras in
+# the reference's view order (synth_scene.lc_batch) and TransFusion-L's
+# encoder capacities: phase 3's launches and widths. Phase 15 trains it
+# under freeze_img with its config's recipe (phase 11's launches)
+LC = dict(config=ROOT / 'configs' / 'transfusion_nusc_voxel_LC.py',
+          dataset='nuScenes', img_hw=(448, 800), launches=TL['launches'],
+          widths=TL['widths'])
+LC_TRAIN_STEPS = 2          # timed, after the counted step
+# phase 16: Waymo (configs/transfusion_waymo_voxel_{L,LC}.py): the configs'
+# 180,000 points (max_points_per_sample) over [-75.2, 75.2] x [-2, 4], five
+# 448 x 800 cameras (neither config nor the JAX package names an image
+# scale: the flagship's), the configs' 150,000-voxel capacity and the
+# encoder's strided-output capacities (spconv1-3, conv_out) measured on
+# this scene as TL's were, rounded up to 256 rows (``probe_caps``). Its
+# step keeps phase 11's per-call checks and launches but not its twin:
+# phase 11 holds the same code's twin on nuScenes, and on this 188 x 188
+# BEV one head gradient (the decoder's key position embedding, a sum over
+# its 35,344 cells) read 10.1 times the reordered spread in one of two runs
+# (2.2 in the other), the rule's single-order spread being too noisy an
+# estimate there
+WAYMO = dict(config=ROOT / 'configs' / 'transfusion_waymo_voxel_L.py',
+             config_lc=ROOT / 'configs' / 'transfusion_waymo_voxel_LC.py',
+             dataset='Waymo', n_points=180000, img_hw=(448, 800),
+             enc_caps=[123904, 48640, 11264, 7680],
+             launches=TL['launches'], widths=TL['widths'],
+             train=dict(TL_TRAIN, steps=1, twin=False, extras=False))
+ENC_SITES = ('spconv1', 'spconv2', 'spconv3', 'spconv_down2')
 KERNEL_INFO = {
     'rows_affine': dict(
         route='cuda', source='msmdfusion_torch/csrc/rows_affine.cu',
@@ -665,6 +715,32 @@ def make_scene(model, shape, device):
     gt = batch['gt']
     return ((dev(batch['points']), dev(batch['points_mask']),
              dev(batch['img']), {k: dev(v) for k, v in batch['fg'].items()}),
+            (dev(gt['gt_bboxes']), dev(gt['gt_labels']), dev(gt['gt_valid'])))
+
+
+def make_lc_scene(config, dataset, n_points, img_hw, device):
+    """TransFusion-LC inputs (points [1, N, 5], mask, img [1, V, H, W, 3],
+    metas dict(lidar2img [1, V, 4, 4])) of ``synth_scene.lc_batch`` over
+    ``config``'s range with the dataset's rig, and the frame's ground truth
+    (boxes 9 wide with a velocity, else 7; labels below the head's
+    classes)."""
+    import torch
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.utils.synth_scene import LC_YAWS, lc_batch
+    cfg = load_config(str(config)).model
+    head = cfg.pts_bbox_head
+    batch = lc_batch(
+        dict(n=n_points, img_hw=img_hw, yaws=LC_YAWS[dataset],
+             pcr=cfg.pts_voxel_layer.point_cloud_range), seed=SEED,
+        return_gt=True, num_classes=head.num_classes,
+        box_dim=9 if head.bbox_coder.code_size == 10 else 7)
+
+    def dev(x):
+        return torch.from_numpy(x).to(device)
+    gt = batch['gt']
+    return ((dev(batch['points']), dev(batch['points_mask']),
+             dev(batch['img']),
+             {k: dev(v) for k, v in batch['metas'].items()}),
             (dev(gt['gt_bboxes']), dev(gt['gt_labels']), dev(gt['gt_valid'])))
 
 
@@ -1579,7 +1655,8 @@ def proposal_index(preds):
 def check_proposals(head, index, run, ref):
     """The kernel path's proposals ``index`` must be a top-P choice of the
     plain path's heatmap up to TOL: the head's own choice (local-max NMS
-    and top-P of the sigmoid) on a heatmap within TOL of the plain one's
+    and top-P of the sigmoid, or with image fusion of the mean of two
+    sigmoids: ``Selection``) on a heatmap within TOL of the plain one's
     largest value, the limit ``compare_outputs`` holds the dense heatmap
     to. The kernel path's heatmap is that heatmap: the proposals must be
     the head's choice on it (recomputed here) and it must lie so near.
@@ -1598,8 +1675,10 @@ def check_proposals(head, index, run, ref):
         local_maximum_nms, topk_lower_index_first)
 
     def nms(preds):
-        return local_maximum_nms(torch.sigmoid(preds['dense_heatmap']),
-                                 head.nms_kernel_size,
+        heatmap = preds.get('selection')        # where Selection kept it
+        if heatmap is None:
+            heatmap = torch.sigmoid(preds['dense_heatmap'])
+        return local_maximum_nms(heatmap, head.nms_kernel_size,
                                  head._flat_classes()).flatten(1)
     mine = topk_lower_index_first(nms(run), head.num_proposals)[1]
     check(torch.equal(mine, index), 'the kernel path\'s proposals are not '
@@ -1707,17 +1786,42 @@ class HeadInput:
         return False
 
 
+class Selection:
+    """Keep the heatmap the TransFusion head picks its proposals from
+    inside the scope: the input of its local-max NMS (the sigmoid of the
+    dense heatmap; with image fusion the mean of the LiDAR and the fused
+    maps' sigmoids, not an output)."""
+
+    def __enter__(self):
+        from msmdfusion_torch.models.heads import transfusion_head as th
+        self._th = th
+        self._orig = nms = th.local_maximum_nms
+        self.heatmap = None
+
+        def keep(heatmap, *a, **k):
+            self.heatmap = heatmap.clone()
+            return nms(heatmap, *a, **k)
+        th.local_maximum_nms = keep
+        return self
+
+    def __exit__(self, *exc):
+        self._th.local_maximum_nms = self._orig
+        return False
+
+
 def pinned_forward(model, inputs, index, *scopes):
-    """(head input, preds, boxes) of one forward decoding ``index`` (its
-    own proposals where ``index`` is None)."""
+    """(head input, preds, boxes, the heatmap the proposals come from) of
+    one forward decoding ``index`` (its own proposals where ``index`` is
+    None)."""
     with contextlib.ExitStack() as stack:
         for scope in scopes:
             stack.enter_context(scope)
         if index is not None:
             stack.enter_context(PinnedProposals(index))
         head_in = stack.enter_context(HeadInput(model.pts_bbox_head))
+        sel = stack.enter_context(Selection())
         preds, boxes = forward(model, inputs)
-    return dict(preds, **boxes, head_input=head_in.x)
+    return dict(preds, **boxes, head_input=head_in.x, selection=sel.heatmap)
 
 
 YAW = 6     # the yaw's column in a box (x, y, z, w, l, h, yaw, vx, vy)
@@ -1857,6 +1961,7 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
             recs['merge_take'] = take_calls(rec.calls['merge_take'],
                                             reps['kernel'], card)
     del rec
+    sums_lines(f'{label}: %s sums over one frame', recs, card)
 
     # the main path through the kernels, counted
     with torch.no_grad():
@@ -1867,16 +1972,7 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
         torch.cuda.synchronize()
     print(f'{label}: launches on the main path: {launches}', flush=True)
     check_launches(label, launches, expected)
-    check(cap.total() == 0, f'{label}: overflow {cap.counters()}')
-    b = boxes['bboxes']
-    check(b.shape[-1] == 9 and b.shape[1] == model.pts_bbox_head.num_proposals,
-          f'{label}: bboxes shape {tuple(b.shape)}')
-    check(bool(torch.isfinite(b).all()), f'{label}: non-finite boxes')
-    s = boxes['scores']
-    check(bool(((s >= 0) & (s <= 1)).all()), f'{label}: scores outside [0, 1]')
-    occupancy = {k: v for k, v in cap.gauge_values().items()
-                 if k.startswith('occ.')}
-    print(f'{label}: overflow_total 0; occupancy {occupancy}', flush=True)
+    check_frame(label, model, cap, boxes, spec.get('overflow', {}))
     stage_ms = {k: round(v, 4) for k, v in tr.ms().items()}
     print(f'{label}: stage_ms {json.dumps(stage_ms)} [{card}]', flush=True)
     host_ms = {k: round(v, 4) for k, v in tr.host_ms().items()}
@@ -1947,6 +2043,42 @@ def drive(label, model, inputs, spec, card, reps, fp32=None):
     for ms, name in ranked:
         print(f'{label}: profile: {ms:9.3f} ms  {name[:100]}', flush=True)
     return recs, launches
+
+
+def check_frame(label, model, cap, boxes, overflow=None):
+    """A counted frame's checks: rows dropped only where ``overflow``
+    ({site: rows}, the configuration's own cap) says, finite boxes of the
+    coder's width (9 with a velocity, else 7), scores in [0, 1]; prints
+    the occupancy gauges."""
+    import torch
+    dropped = {k: v for k, v in cap.counters().items() if v}
+    check(dropped == (overflow or {}),
+          f'{label}: overflow {dropped}, expected {overflow or {}}')
+    head = model.pts_bbox_head
+    b = boxes['bboxes']
+    width = 9 if head.coder.code_size == 10 else 7
+    check(b.shape[-1] == width and b.shape[1] == head.num_proposals,
+          f'{label}: bboxes shape {tuple(b.shape)}')
+    check(bool(torch.isfinite(b).all()), f'{label}: non-finite boxes')
+    s = boxes['scores']
+    check(bool(((s >= 0) & (s <= 1)).all()), f'{label}: scores outside [0, 1]')
+    occupancy = {k: v for k, v in cap.gauge_values().items()
+                 if k.startswith('occ.')}
+    print(f'{label}: overflow {dropped or 0} (every other site 0); '
+          f'occupancy {occupancy}', flush=True)
+
+
+def sums_lines(what, recs, card):
+    """One line per kernel of ``recs``: its calls, their summed ms, plain
+    ms and bound, and its route's shares; ``what`` % the kernel's name
+    leads the line."""
+    for name, rs in recs.items():
+        extra = ''.join(f'{k}={v:.3f} ' for k, v in route_shares(rs).items())
+        print(f'{what % name}: {len(rs)} calls, '
+              f'ms={sum(r["ms"] for r in rs):.3f} '
+              f'plain_ms={sum(r["plain_ms"] for r in rs):.3f} bound_ms='
+              f'{sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs):.3f} '
+              f'{extra}[{card}]', flush=True)
 
 
 def path_outputs(model, inputs):
@@ -2051,18 +2183,50 @@ def dense_engines(model, inputs, card, reps=3):
              lambda: resnet_body(x16, backbone16)),
             (f'FPN bf16 at {b * v} images', lambda: neck16(feats16)),
         ]
-        was = torch.backends.cudnn.enabled
-        try:
-            for name, fn in cases:
-                times = []
-                for on in (True, False, True):
-                    torch.backends.cudnn.enabled = on
-                    times.append(cuda_ms(fn, reps))
-                print(f'dense engines: {name}: cuDNN {times[0]:.3f} / '
-                      f'{times[2]:.3f} ms, off cuDNN {times[1]:.3f} ms '
-                      f'[{card}]', flush=True)
-        finally:
-            torch.backends.cudnn.enabled = was
+        engine_lines(cases, card, reps)
+
+
+def engine_lines(cases, card, reps=3):
+    """Each (name, fn) of ``cases`` timed on cuDNN, off it and on it again
+    (the global flag), one line each."""
+    import torch
+    was = torch.backends.cudnn.enabled
+    try:
+        for name, fn in cases:
+            times = []
+            for on in (True, False, True):
+                torch.backends.cudnn.enabled = on
+                times.append(cuda_ms(fn, reps))
+            print(f'dense engines: {name}: cuDNN {times[0]:.3f} / '
+                  f'{times[2]:.3f} ms, off cuDNN {times[1]:.3f} ms '
+                  f'[{card}]', flush=True)
+    finally:
+        torch.backends.cudnn.enabled = was
+
+
+def lc_dense_engines(model, inputs, card, reps=3):
+    """The dense layers new to TransFusion-LC at its shapes, on and off
+    cuDNN: the head's ``shared_conv_img`` over the views' FPN level 0,
+    the FPN itself in fp32 and the fused heatmap's convs on the BEV."""
+    import torch
+    head = model.pts_bbox_head
+    with torch.no_grad():
+        img = inputs[2]
+        b, v, h, w, _ = img.shape
+        x = img.reshape(b * v, h, w, 3).permute(0, 3, 1, 2).contiguous()
+        feats = model.img_backbone(x)
+        level0 = model.img_neck(feats)[0]
+        gh, gw = head._bev_shape()
+        bev = torch.randn(1, head.shared_conv.out_channels, gh, gw,
+                          device=img.device)
+        engine_lines([
+            (f'shared_conv_img {level0.shape[1]}->'
+             f'{head.shared_conv_img.out_channels} 3x3 at {b * v}x'
+             f'{level0.shape[2]}x{level0.shape[3]}',
+             lambda: head.shared_conv_img(level0)),
+            (f'FPN fp32 at {b * v} images', lambda: model.img_neck(feats)),
+            (f'heatmap_head_img at {gh}x{gw}',
+             lambda: head.heatmap_head_img(bev))], card, reps)
 
 
 class HeadGrad:
@@ -2413,13 +2577,7 @@ def drive_train(model, inputs, gt, card, spec=TRAIN,
             if x3 in recs:
                 recs[ffma] = [r['ffma'] for r in recs[x3]]
     del rec
-    for name, rs in recs.items():
-        extra = ''.join(f'{k}={v:.3f} ' for k, v in route_shares(rs).items())
-        print(f'{label}: {name} sums over one step: '
-              f'{len(rs)} calls, ms={sum(r["ms"] for r in rs):.3f} '
-              f'plain_ms={sum(r["plain_ms"] for r in rs):.3f} bound_ms='
-              f'{sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs):.3f} '
-              f'{extra}[{card}]', flush=True)
+    sums_lines(f'{label}: %s sums over one step', recs, card)
 
     if spec['twin']:
         # the same step on the plain versions (and with reordered sums), on
@@ -3364,6 +3522,307 @@ def bf16_train_steps(model, inputs, gt, card, build=build_flagship):
     return out
 
 
+def keep_tl(model, inputs):
+    """Phase 3's calibrated TransFusion-L weights, its frame and its
+    outputs on it, for phase 14 (phase 11 trains the model)."""
+    import torch
+    with torch.no_grad():
+        preds, boxes = forward(model, inputs)
+    return dict(state={k: v.detach().clone()
+                       for k, v in model.state_dict().items()},
+                inputs=inputs, preds=dict(preds, **boxes))
+
+
+def lc_model(device, config, lidar_state, inputs, caps=TL['enc_caps'],
+             max_voxels=TL['max_voxels']):
+    """A TransFusion-LC model at full width on a TransFusion-L's LiDAR
+    weights (``lidar_state``): the image branch and the head's image
+    fusion drawn from the seed, their norms calibrated on ``inputs``
+    (``calibrate_norms``), then the LiDAR weights and statistics loaded
+    over every module the two models share."""
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    model = build_model(device, config=config, n_caps=caps,
+                        max_voxels=max_voxels)
+    calibrate_norms(model, *inputs)
+    missing, unexpected = model.load_state_dict(lidar_state, strict=False)
+    head = model.pts_bbox_head
+    nl = head.num_decoder_layers
+    image = ('img_backbone.', 'img_neck.') + tuple(
+        f'pts_bbox_head.{m}.' for m in
+        ['shared_conv_img', 'heatmap_head_img', 'fc', f'prediction_heads.{nl}']
+        + [f'decoder.{i}' for i in range(nl, len(head.decoder))])
+    check(not unexpected and missing
+          and all(k.startswith(image) for k in missing),
+          f'{config.name}: keys the LiDAR model lacks {missing[:4]}, keys it '
+          f'has that the LC model lacks {unexpected[:4]}')
+    return model
+
+
+def without_images(label, model, inputs, ref):
+    """The LC model called without images is TransFusion-L: its outputs
+    on the LiDAR inputs against ``ref`` (a TransFusion-L's on the same
+    weights), every key within TOL of its largest value (the same
+    computation: 0 expected, printed)."""
+    import torch
+    with torch.no_grad():
+        preds, boxes = forward(model, inputs[:2])
+    out = dict(preds, **boxes)
+    check(set(out) == set(ref) and 'on_the_image' not in out,
+          f'{label}: keys {sorted(set(out) ^ set(ref))} differ from '
+          'TransFusion-L\'s')
+    worst = 0.0
+    for key, want in ref.items():
+        if want.dtype in (torch.bool, torch.int64, torch.int32):
+            check(torch.equal(out[key], want), f'{label}: {key} differ '
+                  'from TransFusion-L\'s')
+            continue
+        rel = rel_err(out[key], want)[1]
+        check(rel <= TOL, f'{label}: {key} {rel:.3g} of max from '
+              'TransFusion-L\'s')
+        worst = max(worst, rel)
+    print(f'{label}: called without images, TransFusion-L\'s outputs on '
+          f'the same weights: largest difference {worst:.3g} of max',
+          flush=True)
+
+
+def image_stages(label, model, inputs, card):
+    """The share of proposals on an image and the image stages' ms of one
+    forward (CUDA events)."""
+    import torch
+    from msmdfusion_torch.utils import timing
+    with torch.no_grad(), timing.record('cuda') as tr:
+        preds = model(*inputs)
+    on = preds['on_the_image']
+    stages = {k: round(v, 4) for k, v in tr.ms().items()}
+    print(f'{label}: {int(on.sum())} of {on.numel()} proposals on an image '
+          f'(share {float(on.float().mean()):.3f}); image branch '
+          f'{stages["img"]:.3f} ms, image-to-BEV {stages["img_bev"]:.3f} ms, '
+          f'the proposals\' image refinement {stages["img_fusion"]:.3f} ms, '
+          f'head {stages["head"]:.3f} ms [{card}]', flush=True)
+    return float(on.float().mean())
+
+
+def lc_inference(tl, card):
+    """Phase 14: TransFusion-LC inference at full width on phase 3's
+    weights and frame with six cameras: the LC model without images gives
+    phase 3's outputs; the path (``drive``: every kernel call against its
+    plain version, launches 8/21, no row dropped, the twin to phase 3's
+    limits); the share of proposals on an image and the image stages' ms.
+    Returns (model, inputs, ground truth)."""
+    label = 'TransFusion-LC'
+    dev = tl['inputs'][0].device
+    inputs, gt = make_lc_scene(LC['config'], LC['dataset'], TL['n_points'],
+                               LC['img_hw'], dev)
+    check(all(a.equal(b) for a, b in zip(inputs[:2], tl['inputs'])),
+          f'{label}: the frame\'s points are not phase 3\'s')
+    model = lc_model(dev, LC['config'], tl['state'], inputs)
+    without_images(label, model, inputs, tl['preds'])
+    lc_dense_engines(model, inputs, card)
+    drive(label, model, inputs, LC, card, reps=dict(kernel=4, frame=5))
+    image_stages(label, model, inputs, card)
+    return model, inputs, gt
+
+
+def lc_train_step(model, inputs, gt, card, steps=LC_TRAIN_STEPS):
+    """Phase 15: TransFusion-LC's step under ``freeze_img`` with its
+    config's recipe (phase 11's: AdamW, clip 0.1, the cyclic schedule, the
+    train-time voxel capacity, whose drop alone is expected). One counted
+    step (phase 11's launches), then ``steps`` timed steps: the image
+    branch's parameters and statistics bit-equal after, its norms in eval
+    mode throughout, its gradients nonzero and counted in ``grad_norm``
+    (the JAX detector stops none: metric^2 = the clip's norm^2 + theirs^2),
+    the trainable parameters moved."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.train import (FROZEN_IMG_PREFIXES,
+                                             build_lr_schedule,
+                                             build_optimizer,
+                                             frozen_prefixes, global_norm,
+                                             make_train_step)
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.utils import overflow
+    label = 'TransFusion-LC train'
+    cfg = load_config(str(LC['config']))
+    frozen = frozen_prefixes(cfg)
+    check(frozen == FROZEN_IMG_PREFIXES, f'{label}: the config freezes '
+          f'{frozen}')
+    under = tuple(f + '.' for f in frozen)
+    train_cap = cfg.model.pts_voxel_layer.max_voxels[0]
+    model.eval()
+    with torch.no_grad(), overflow.capture() as cap:
+        model(*inputs)
+    n_voxels = max(cap.gauge_values()['occ.voxelize_mean'])
+    check(n_voxels > train_cap, f'{label}: {n_voxels} voxels, not more than '
+          f'the train-time capacity {train_cap}')
+    model.pts_voxel_layer['max_voxels'] = (train_cap, TL['max_voxels'])
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 cfg.total_epochs * TL_STEPS_PER_EPOCH,
+                                 TL_STEPS_PER_EPOCH)
+    opt = build_optimizer(model, dict(cfg.optimizer),
+                          dict(cfg.optimizer_config), schedule,
+                          frozen_prefixes=frozen)
+    trainable = optimized(model, opt)
+    check(trainable and not any(n.startswith(under) for n, _ in trainable),
+          f'{label}: the optimizer holds a frozen parameter')
+    modes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: modes.append(m.training))
+        for n, m in model.named_modules() if n.startswith(under)
+        and isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, opt, seed=SEED)
+    batch = dict(inputs=inputs, gt_bboxes=gt[0], gt_labels=gt[1],
+                 gt_valid=gt[2])
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with overflow.capture() as cap:
+            metrics = step(batch, 0)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+        print(f'{label}: frozen {frozen}; launches of one step: {launches}',
+              flush=True)
+        check_launches(label, launches, TL_TRAIN['launches'])
+        dropped = {k: v for k, v in cap.counters().items() if v}
+        want = {'voxelize.mean_batch.voxel_cap': n_voxels - train_cap}
+        check(dropped == want, f'{label}: overflow {dropped}, expected {want}')
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        img = [n for n in grads if n.startswith(under)]
+        with_grad = [n for n in img if grads[n] is not None
+                     and bool(grads[n].abs().max() > 0)]
+        grad_norm = float(metrics['grad_norm'])
+        clip_norm = float(opt.grad_norm())
+        img_norm = float(global_norm(grads[n] for n in img))
+        check(len(with_grad) > len(img) // 2 and abs(
+            grad_norm - math.hypot(clip_norm, img_norm)) <= TOL * grad_norm,
+              f'{label}: grad_norm {grad_norm}, trainable {clip_norm}, the '
+              f'image branch {img_norm} ({len(with_grad)} of {len(img)} '
+              'image parameters with a gradient)')
+        split_steps(label, step, model, opt, batch, steps, card)
+        check(modes and not any(modes), f'{label}: an image-branch norm ran '
+              'in training mode')
+        sd = model.state_dict()
+        kept = [k for k in start if k.startswith(under)]
+        check(all(torch.equal(sd[k], start[k]) for k in kept),
+              f'{label}: a frozen image parameter or statistic changed')
+        moved = sum(not torch.equal(p, start[n]) for n, p in trainable)
+        check(moved >= 0.9 * len(trainable),
+              f'{label}: only {moved} of {len(trainable)} parameters moved')
+        print(f'{label}: step 0 total_loss '
+              f'{float(metrics["total_loss"]):.6f}, {n_voxels - train_cap} '
+              f'voxels dropped by the configured cap; grad_norm '
+              f'{grad_norm:.6f} over every gradient, the clip\'s '
+              f'{clip_norm:.6f}, the frozen image branch\'s {img_norm:.6f} '
+              f'({len(with_grad)} of {len(img)} image parameters with a '
+              f'gradient: the FPN levels above 0 feed nothing); {len(kept)} '
+              f'image tensors bit-equal and its {len(modes)} norm calls in '
+              f'eval mode over {steps + 1} steps; {moved} of '
+              f'{len(trainable)} trainable tensors moved; peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+              f'[{card}]', flush=True)
+    finally:
+        for h in hooks:
+            h.remove()
+        model.pts_voxel_layer['max_voxels'] = (TL['max_voxels'],) * 2
+        model.eval()
+    return launches
+
+
+def probe_caps(device, inputs):
+    """The Waymo encoder's strided-output occupancy on ``inputs`` (one
+    eval forward with every capacity at four times the voxel capacity):
+    ({site: rows}, the frame's voxels)."""
+    import torch
+    from msmdfusion_torch.utils import overflow
+    probe = build_model(device, config=WAYMO['config'], n_caps=[4 * max(
+        WAYMO['enc_caps'])] * len(ENC_SITES))
+    with torch.no_grad(), overflow.capture() as cap:
+        probe(*inputs[:2])
+    occ = cap.gauge_values()
+    dropped = {k: v for k, v in cap.counters().items() if v
+               and k != 'voxelize.mean_batch.voxel_cap'}
+    check(not dropped, f'Waymo probe: overflow {dropped}')
+    return ({site: max(occ[f'occ.downsample_out[{site}]'])
+             for site in ENC_SITES}, max(occ['occ.voxelize_mean']))
+
+
+def waymo_phases(card, dev):
+    """Phase 16: Waymo TransFusion-L and LC at full width on the Waymo
+    scene: the encoder's capacities measured and held to ``WAYMO``'s; the
+    TransFusion-L path (``drive``: every kernel against its plain version,
+    launches 8/21, the twin), the LC model on its weights (without images
+    its outputs; one counted frame: launches, overflow, finite 7-wide
+    boxes, the share on an image, ms/frame), and one TransFusion-L step
+    under the config's recipe (``drive_train`` without the twin, see
+    ``WAYMO``; phase 11's launches). The
+    only drop allowed is the configured voxel capacity's."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.utils import overflow
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    label = 'Waymo TransFusion-L'
+    cfg = load_config(str(WAYMO['config']))
+    cap_voxels = cfg.model.pts_voxel_layer.max_voxels[1]
+    inputs, gt = make_lc_scene(WAYMO['config_lc'], WAYMO['dataset'],
+                               WAYMO['n_points'], WAYMO['img_hw'], dev)
+    occ, n_voxels = probe_caps(dev, inputs)
+    rounded = [-(-occ[site] // 256) * 256 for site in ENC_SITES]
+    print(f'{label}: the scene\'s {WAYMO["n_points"]} points fill '
+          f'{n_voxels} voxels (capacity {cap_voxels}); the encoder\'s '
+          f'strided outputs {occ}, rounded up to 256: {rounded}; capacities '
+          f'{WAYMO["enc_caps"]}', flush=True)
+    check(all(o <= c for o, c in zip(rounded, WAYMO['enc_caps'])),
+          f'{label}: the encoder outputs {rounded} exceed the capacities '
+          f'{WAYMO["enc_caps"]}')
+    drop = {'voxelize.mean_batch.voxel_cap': n_voxels - cap_voxels} \
+        if n_voxels > cap_voxels else {}
+    model = build_model(dev, config=WAYMO['config'], n_caps=WAYMO['enc_caps'])
+    calibrate_norms(model, *inputs[:2])
+    spec = dict(WAYMO, overflow=drop)
+    drive(label, model, inputs[:2], spec, card, reps=dict(kernel=4, frame=3))
+    with torch.no_grad():
+        preds, boxes = forward(model, inputs[:2])
+    ref = dict(preds, **boxes)
+
+    lc_label = 'Waymo TransFusion-LC'
+    lc = lc_model(dev, WAYMO['config_lc'], model.state_dict(), inputs,
+                  caps=WAYMO['enc_caps'], max_voxels=None)
+    check(len(lc.pts_bbox_head.decoder) == 1 + 1 + 5,
+          f'{lc_label}: {len(lc.pts_bbox_head.decoder)} decoders')
+    without_images(lc_label, lc, inputs, ref)
+    with torch.no_grad():
+        kernels.reset_launches()
+        with overflow.capture() as cap:
+            _, boxes = forward(lc, inputs)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+    print(f'{lc_label}: launches on the main path: {launches}', flush=True)
+    check_launches(lc_label, launches, WAYMO['launches'])
+    check_frame(lc_label, lc, cap, boxes, drop)
+    image_stages(lc_label, lc, inputs, card)
+    with torch.no_grad():
+        frame_ms = cuda_ms(lambda: forward(lc, inputs), 3)
+    print(f'{lc_label}: e2e {frame_ms:.3f} ms/frame (CUDA events, 3 '
+          f'frames), {1e3 / frame_ms:.2f} frames/s [{card}]', flush=True)
+    del lc
+    torch.cuda.empty_cache()
+
+    recipe = dict(optimizer=dict(cfg.optimizer),
+                  optimizer_config=dict(cfg.optimizer_config),
+                  lr_config=dict(cfg.lr_config),
+                  total_steps=cfg.total_epochs * TL_STEPS_PER_EPOCH,
+                  steps_per_epoch=TL_STEPS_PER_EPOCH, frozen=())
+    check(recipe['lr_config']['policy'] == 'cyclic'
+          and len(cfg.model.train_cfg.pts.code_weights) == 8,
+          f'{label}: the config\'s recipe {recipe}')
+    print(f'{label} train: {recipe}', flush=True)
+    drive_train(model, inputs[:2], gt, card, dict(WAYMO['train'],
+                                                   overflow=drop),
+                label=f'{label} train', recipe=recipe)
+    model.eval()
+
+
 def flagship_phases(model, inputs, gt, card, specs=(FLAGSHIP, PACKED,
                                                       ONEHOT)):
     """Phases 4-10 on the calibrated flagship (``specs``: the fp32, packed
@@ -3602,7 +4061,7 @@ def main():
     card_tests()
     lap('2 (build and card tests)')
 
-    # 3. TransFusion-L (kept for phase 11)
+    # 3. TransFusion-L (kept for phase 11, its weights for phase 14)
     t0 = time.perf_counter()
     tl_model = build_model(dev, max_voxels=TL['max_voxels'])
     tl_inputs, tl_gt = make_points(tl_model, TL['n_points'], dev)
@@ -3611,6 +4070,7 @@ def main():
           f'{time.perf_counter() - t0:.1f} s', flush=True)
     drive('TransFusion-L', tl_model, tl_inputs, TL, card,
           reps=dict(kernel=10, frame=5))
+    tl_kept = keep_tl(tl_model, tl_inputs)
     lap('3 (TransFusion-L)')
 
     # 4. MSMDFusion
@@ -3633,6 +4093,17 @@ def main():
     lap('12 (stage-2 train, LiDAR encoders frozen)')
     phases += bf16_train_steps(model, inputs, gt, card)
     lap('13 (bf16-compute train steps)')
+    del model, inputs, gt
+    torch.cuda.empty_cache()
+
+    lc, lc_inputs, lc_gt = lc_inference(tl_kept, card)
+    lap('14 (TransFusion-LC)')
+    lc_train_step(lc, lc_inputs, lc_gt, card)
+    del lc, lc_inputs, lc_gt, tl_kept
+    torch.cuda.empty_cache()
+    lap('15 (TransFusion-LC train, image branch frozen)')
+    waymo_phases(card, dev)
+    lap('16 (Waymo TransFusion-L and LC)')
 
     report(phases, card)
     print(json.dumps({'ok': True, 'device': {

@@ -20,9 +20,10 @@ global norm counts the trainable gradients only, and the step gives
 their modules' norm statistics back as they were (``_keep_frozen_stats``)
 although those norms take the batch's moments in training mode. Their
 gradients are still computed: the step's ``grad_norm`` metric is the norm
-of every gradient, as JAX's ``optax.global_norm(grads)``. The image branch
-under ``freeze_img`` gets none, since the detector runs it without
-autograd (the JAX package's ``stop_gradient``).
+of every gradient, as JAX's ``optax.global_norm(grads)``. The flagship's
+image branch under ``freeze_img`` gets none, since that detector runs it
+without autograd (its JAX ``stop_gradient``); TransFusion-LC's gets its
+gradients and they count, as the JAX ``TransFusionDetector`` stops none.
 """
 from __future__ import annotations
 
@@ -235,7 +236,8 @@ def make_train_step(model: nn.Module, optimizer: ClippedAdamW,
     optimizer update; the norm statistics of the optimizer's frozen
     modules are given back as they were before the step. ``batch``:
     dict(inputs=the model's positional inputs (points, points_mask[, img,
-    fg]), gt_bboxes, gt_labels, gt_valid) on the model's device. Metrics:
+    fg] for the flagship, [, img, metas] for TransFusion-LC), gt_bboxes,
+    gt_labels, gt_valid) on the model's device. Metrics:
     the loss dict, 'total_loss' and 'grad_norm' (before clipping, over
     every gradient, the frozen parameters' included), as tensors."""
     frozen = optimizer.frozen_prefixes

@@ -10,11 +10,27 @@ heatmap targets and the losses. In training mode the batch norms take the
 batch's moments and dropout draws from the ``torch.Generator`` passed to
 ``forward``.
 
+With ``fuse_img`` (TransFusion-LC) and image features given, the head
+also runs the reference's image fusion (JAX ``:283-463``): the BEV
+features cross-attend, view after view, to the height-collapsed image
+columns (image-to-BEV); the query heatmap is the mean of the LiDAR and the
+fused maps' sigmoids; after the LiDAR decoder every proposal that projects
+onto an image is refined by a cross-attention to that view's features
+under a gaussian mask around its centre (a later view wins a proposal two
+views see), and the fused FFN predicts from the refined and the LiDAR
+query; proposals on no image keep the LiDAR predictions, and the losses
+count only proposals on an image. Without image features the head is
+TransFusion-L's.
+
 Module and parameter names are the reference's (``shared_conv``,
 ``heatmap_head``, ``class_encoding``, ``decoder.{i}``,
-``prediction_heads.{i}``; pointwise convs are Conv1d with kernel 1), while
-the decoder runs channels-last like the JAX package and applies the Conv1d
-weights as linear maps.
+``prediction_heads.{i}``; with ``fuse_img`` also ``shared_conv_img``,
+``heatmap_head_img``, ``fc``, ``decoder.{L}`` the fusion decoder,
+``decoder.{L + 1 + v}`` view ``v``'s image-to-BEV decoder and
+``prediction_heads.{L}`` the fused FFN, for ``L`` decoder layers;
+pointwise convs are Conv1d with kernel 1), while the decoder runs
+channels-last like the JAX package and applies the Conv1d weights as
+linear maps.
 """
 from __future__ import annotations
 
@@ -25,13 +41,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.boxes import corners_3d
 from ...core.gaussian import draw_heatmap, gaussian_radius
 from ...core.iou3d import boxes_iou_3d
 from ...ops.matching import assign_proposals
 from ...registry import BBOX_CODERS, HEADS
+from ...utils.timing import section
 from ..layers import (BatchNorm1d, Conv1d, Conv2d, ConvModule, LayerNorm,
-                      Linear, batch_norm_last, get_activation, pointwise,
-                      promoted)
+                      Linear, batch_norm_last, cudnn_enabled, get_activation,
+                      pointwise, promoted)
 from ..losses import (clip_sigmoid, gaussian_focal_loss, l1_loss,
                       sigmoid_focal_loss)
 
@@ -227,13 +245,16 @@ class TransFusionHead(nn.Module):
                  num_heatmap_convs: int = 2, bbox_coder: Any = None,
                  train_cfg: Any = None, test_cfg: Any = None,
                  loss_cls: Any = None, loss_bbox: Any = None,
-                 fuse_img: bool = False, **unused):
+                 fuse_img: bool = False, num_views: int = 0,
+                 in_channels_img: int = 64, out_size_factor_img: int = 4,
+                 **unused):
         super().__init__()
-        if fuse_img:
-            raise NotImplementedError('image fusion is not ported yet')
         # the config's loss types and loss_heatmap are not read: the losses
         # are the JAX package's (focal, L1, unweighted gaussian focal)
         del unused
+        self.fuse_img = fuse_img
+        self.num_views = num_views
+        self.out_size_factor_img = out_size_factor_img
         self.num_proposals = num_proposals
         self.num_classes = num_classes
         self.num_decoder_layers = num_decoder_layers
@@ -251,37 +272,66 @@ class TransFusionHead(nn.Module):
                        bias=True),
             Conv2d(hidden_channel, num_classes, 3, padding=1, bias=True))
         self.class_encoding = Conv1d(num_classes, hidden_channel, 1)
-        self.decoder = nn.ModuleList([
-            TransformerDecoderLayer(hidden_channel, num_heads, ffn_channel,
-                                    dropout, activation)
-            for _ in range(num_decoder_layers)])
+
+        def decoder(cross_only=False):
+            return TransformerDecoderLayer(hidden_channel, num_heads,
+                                           ffn_channel, dropout, activation,
+                                           cross_only=cross_only)
+        decoders = [decoder() for _ in range(num_decoder_layers)]
         heads = {k: tuple(v) for k, v in (common_heads or {}).items()}
         heads['heatmap'] = (num_classes, num_heatmap_convs)
-        self.prediction_heads = nn.ModuleList([
-            FFN(hidden_channel, heads) for _ in range(num_decoder_layers)])
+        pred_heads = [FFN(hidden_channel, heads)
+                      for _ in range(num_decoder_layers)]
+        if fuse_img:
+            # the reference's image-fusion modules (JAX :238-263)
+            self.shared_conv_img = Conv2d(in_channels_img, hidden_channel,
+                                          3, padding=1, bias=True)
+            self.heatmap_head_img = nn.Sequential(
+                ConvModule(hidden_channel, hidden_channel, 3, padding=1,
+                           bias=True),
+                Conv2d(hidden_channel, num_classes, 3, padding=1, bias=True))
+            self.fc = nn.Sequential(Conv1d(hidden_channel, hidden_channel, 1))
+            decoders.append(decoder())                      # fusion
+            decoders += [decoder(cross_only=True)           # image-to-BEV
+                         for _ in range(num_views)]
+            pred_heads.append(FFN(2 * hidden_channel, heads))
+        self.decoder = nn.ModuleList(decoders)
+        self.prediction_heads = nn.ModuleList(pred_heads)
 
     def _flat_classes(self) -> Tuple[int, ...]:
         dataset = (self.test_cfg or {}).get('dataset')
         return {'nuScenes': (8, 9), 'Waymo': (1, 2)}.get(dataset, ())
 
-    def forward(self, inputs, generator=None):
+    def forward(self, inputs, img_inputs=None, metas=None, generator=None):
         """inputs [B, C_in, H, W] BEV -> dict of [B, C, P * layers]
         predictions, 'dense_heatmap' [B, C, H, W], 'query_heatmap_score'
         [B, C, P], 'query_labels' [B, P] and 'query_spatial' [B, P] (the
-        BEV cell index ``y * W + x`` of each proposal). ``generator``: the
-        source of the dropout masks in training mode."""
+        BEV cell index ``y * W + x`` of each proposal). With ``fuse_img``,
+        ``img_inputs`` [B, V, C_img, h, w] (the image features of the
+        ``num_views`` views) and ``metas`` dict(lidar2img [B, V, 4, 4],
+        optional img_scale_factor [B, 2]): the fused layer's predictions
+        alone, 'dense_heatmap' the image-fused map and 'on_the_image'
+        [B, P] (JAX ``:353-374``). ``generator``: the source of the dropout
+        masks in training mode."""
         b, _, h, w = inputs.shape
+        nl = self.num_decoder_layers
         lidar_feat = self.shared_conv(inputs)                 # [B, hid, H, W]
         lidar_flat = lidar_feat.flatten(2).transpose(1, 2)    # [B, HW, hid]
-        ys, xs = torch.meshgrid(
-            torch.arange(h, dtype=inputs.dtype, device=inputs.device) + 0.5,
-            torch.arange(w, dtype=inputs.dtype, device=inputs.device) + 0.5,
-            indexing='ij')
-        bev_pos = torch.stack([xs, ys], dim=-1).reshape(1, h * w, 2)
-        bev_pos = bev_pos.expand(b, -1, -1)
+        bev_pos = self._bev_pos(h, w, inputs).expand(b, -1, -1)
+        fused = self.fuse_img and img_inputs is not None
+        if fused:
+            with section('img_bev'):
+                img_feat, bev_img = self._image_to_bev(
+                    img_inputs, lidar_flat, bev_pos, generator)
 
         dense_heatmap = self.heatmap_head(lidar_feat)         # [B, C, H, W]
         heatmap = torch.sigmoid(dense_heatmap.detach())
+        if fused:
+            # the image-fused heatmap replaces the LiDAR one in the output;
+            # the queries start from the mean of the two (JAX :311-318)
+            dense_heatmap = self.heatmap_head_img(
+                bev_img.transpose(1, 2).reshape(b, -1, h, w))
+            heatmap = (heatmap + torch.sigmoid(dense_heatmap.detach())) / 2.0
         heatmap = local_maximum_nms(heatmap, self.nms_kernel_size,
                                     self._flat_classes())
         heatmap = heatmap.reshape(b, self.num_classes, h * w)
@@ -298,17 +348,28 @@ class TransFusionHead(nn.Module):
         query_pos = torch.gather(bev_pos, 1, index.expand(-1, -1, 2))
 
         ret_layers = []
-        for decoder, pred_head in zip(self.decoder, self.prediction_heads):
+        # the LiDAR decoder layers only: with fuse_img the lists go on with
+        # the fusion and image-to-BEV decoders and the fused FFN
+        for decoder, pred_head in zip(self.decoder[:nl],
+                                      self.prediction_heads[:nl]):
             query_feat = decoder(query_feat, lidar_flat, query_pos, bev_pos,
                                  generator=generator)
             res = pred_head(query_feat)
             res['center'] = res['center'] + query_pos
             query_pos = res['center'].detach()
             ret_layers.append(res)
+        if fused:
+            with section('img_fusion'):
+                res, on_any = self._image_refinement(
+                    query_feat, query_pos, ret_layers[-1], img_feat, metas,
+                    generator)
+            ret_layers = [res]
 
         out = {key: torch.cat([r[key].transpose(1, 2) for r in ret_layers],
                               dim=-1)
                for key in ret_layers[0]}
+        if fused:
+            out['on_the_image'] = on_any
         out['dense_heatmap'] = dense_heatmap
         out['query_heatmap_score'] = torch.gather(
             heatmap, 2, top_spatial[:, None, :].expand(
@@ -317,15 +378,125 @@ class TransFusionHead(nn.Module):
         out['query_spatial'] = top_spatial
         return out
 
+    @staticmethod
+    def _bev_pos(h: int, w: int, like):
+        """[1, H * W, 2] cell centres (x + 0.5, y + 0.5), row-major (the
+        reference's create_2D_grid)."""
+        ys, xs = torch.meshgrid(
+            torch.arange(h, dtype=like.dtype, device=like.device) + 0.5,
+            torch.arange(w, dtype=like.dtype, device=like.device) + 0.5,
+            indexing='ij')
+        return torch.stack([xs, ys], dim=-1).reshape(1, h * w, 2)
+
+    def _image_to_bev(self, img_inputs, lidar_flat, bev_pos, generator):
+        """(image features [B, V, hid, h, w], the BEV features [B, HW, hid]
+        after a cross-attention to each view's height-collapsed columns in
+        turn) (JAX :283-303)."""
+        b, v, _, ih, iw = img_inputs.shape
+        if v != self.num_views:
+            raise ValueError(f'{v} image views, the head has '
+                             f'{self.num_views}')
+        nl = self.num_decoder_layers
+        # off cuDNN: see layers.cudnn_enabled
+        with cudnn_enabled(False):
+            img_feat = self.shared_conv_img(img_inputs.flatten(0, 1))
+        img_feat = img_feat.reshape(b, v, -1, ih, iw)
+        collapsed = img_feat.max(dim=3).values.transpose(2, 3)  # [B,V,w,hid]
+        collapsed = pointwise(self.fc[0], collapsed)
+        col_x = torch.arange(iw, dtype=img_feat.dtype,
+                             device=img_feat.device)
+        bev_feat = lidar_flat
+        for vi in range(v):
+            col_pos = torch.stack([col_x + vi * iw + 0.5,
+                                   torch.full_like(col_x, 0.5)], -1)
+            bev_feat = self.decoder[nl + 1 + vi](
+                bev_feat, collapsed[:, vi], bev_pos,
+                col_pos.expand(b, -1, -1), generator=generator)
+        return img_feat, bev_feat
+
+    def _image_refinement(self, query_feat, query_pos, last, img_feat,
+                          metas, generator):
+        """The proposals refined by the image features of the views they
+        project onto (JAX :377-463): (the fused predictions, each [B, P, *],
+        the LiDAR layer's ``last`` where a proposal is on no image;
+        on_the_image [B, P]). The proposal's centre (its query position
+        and the predicted height) and its decoded box's corners are
+        projected through ``lidar2img``; the centre is on a view's image
+        where it lies strictly inside the padded image; the fusion
+        decoder's attention to that view's features takes the log of a
+        gaussian around the centre's feature cell (truncated toward zero)
+        with a sigma from the corners' extent. Views run one at a time; a
+        later view overwrites an earlier one's refinement."""
+        tc = self.test_cfg
+        b, v, hid, ih, iw = img_feat.shape
+        nl = self.num_decoder_layers
+        osf = self.out_size_factor_img
+        prev_query = query_feat.detach()
+        vel = last.get('vel')
+        dec = self.coder.decode(*(last[k].detach().transpose(1, 2) for k in (
+            'heatmap', 'rot', 'dim', 'center', 'height')),
+            None if vel is None else vel.detach().transpose(1, 2))
+        corners = corners_3d(dec['bboxes'][..., :7])          # [B, P, 8, 3]
+        centers = torch.stack([
+            query_pos[..., 0] * tc['out_size_factor'] * tc['voxel_size'][0]
+            + tc['pc_range'][0],
+            query_pos[..., 1] * tc['out_size_factor'] * tc['voxel_size'][1]
+            + tc['pc_range'][1],
+            last['height'][..., 0]], -1)
+        pts = torch.cat([centers[:, :, None, :], corners], 2)  # [B, P, 9, 3]
+        hom = torch.cat([pts, torch.ones_like(pts[..., :1])], -1)
+        proj = torch.einsum('bvij,bpkj->bvpki', metas['lidar2img'].to(
+            hom.dtype), hom)                                  # [B,V,P,9,4]
+        uv = proj[..., :2] / torch.clamp(proj[..., 2:3], min=1e-5)
+        scale = metas.get('img_scale_factor')
+        if scale is not None:
+            uv = uv * scale.to(uv.dtype)[:, None, None, None, :]
+        ctr_uv = uv[:, :, :, 0, :]                            # [B, V, P, 2]
+        on_image = ((ctr_uv[..., 0] > 0) & (ctr_uv[..., 0] < iw * osf)
+                    & (ctr_uv[..., 1] > 0) & (ctr_uv[..., 1] < ih * osf))
+        corner_uv = uv[:, :, :, 1:, :] / osf
+        extent = corner_uv.amax(3) - corner_uv.amin(3)        # [B, V, P, 2]
+        radius = torch.ceil(torch.linalg.vector_norm(extent, dim=-1) / 2.0)
+        sigma = (radius * 2 + 1) / 6.0                        # [B, V, P]
+        centers_feat = ctr_uv / osf
+        cells = centers_feat.detach().to(torch.int32).to(ctr_uv.dtype)
+        feat_pos = self._bev_pos(ih, iw, img_feat)            # [1, hw, 2]
+        grid = feat_pos[0] - 0.5
+
+        new_query = prev_query
+        assigned = torch.full((b, self.num_proposals), -1, dtype=torch.int64,
+                              device=query_feat.device)
+        for vi in range(v):
+            # the gaussian mask of this view alone ([B, P, h * w])
+            d2 = ((cells[:, vi, :, None, :] - grid) ** 2).sum(-1)
+            gauss = torch.exp(-d2 / (2 * sigma[:, vi, :, None] ** 2))
+            mask = torch.log(torch.clamp(gauss, min=1e-30))
+            refined = self.decoder[nl](
+                prev_query, img_feat[:, vi].flatten(2).transpose(1, 2),
+                centers_feat[:, vi], feat_pos.expand(b, -1, -1),
+                attn_mask=mask[:, None], generator=generator)
+            sel = on_image[:, vi]
+            new_query = torch.where(sel[..., None], refined, new_query)
+            assigned = torch.where(sel, vi, assigned)
+        on_any = assigned >= 0
+        res = self.prediction_heads[nl](torch.cat([new_query, prev_query],
+                                                  -1))
+        res['center'] = res['center'] + query_pos
+        return ({k: torch.where(on_any[..., None], x, last[k])
+                 for k, x in res.items()}, on_any)
+
     # ------------------------------------------------------------------
     # loss and targets
     # ------------------------------------------------------------------
     def loss(self, preds, gt_bboxes, gt_labels, gt_valid, targets=None):
         """Training losses (reference :1220-1286) of ``forward``'s
         ``preds`` against padded ground truth: gt_bboxes [B, G, 9]
-        bottom-centre boxes with velocity, gt_labels [B, G], gt_valid
-        [B, G]. ``targets``: a ``get_targets`` result to use instead of
-        assigning anew (so that two paths can share one assignment).
+        bottom-centre boxes with velocity (or [B, G, 7] where the coder's
+        code size is 8), gt_labels [B, G], gt_valid [B, G]. With
+        'on_the_image' in ``preds`` the classification and box terms count
+        the proposals on an image only. ``targets``: a ``get_targets``
+        result to use instead of assigning anew (so that two paths can
+        share one assignment).
         Returns {'loss_heatmap', 'layer_-1_loss_cls', 'layer_-1_loss_bbox'
         (``layer_{i}`` for auxiliary layers), 'matched_ious'}."""
         p = self.num_proposals
@@ -335,6 +506,13 @@ class TransFusionHead(nn.Module):
             targets = self.get_targets(preds, gt_bboxes, gt_labels, gt_valid)
         (labels, label_weights, bbox_targets, bbox_weights, num_pos,
          matched_ious, heatmap_tgt) = targets
+        if 'on_the_image' in preds:
+            # image fusion: only the proposals on an image are supervised
+            # (JAX :485-491, reference :1237-1240)
+            on = preds['on_the_image'].to(label_weights.dtype)
+            label_weights = label_weights * on
+            bbox_weights = bbox_weights * on[..., None]
+            num_pos = bbox_weights.amax(-1).sum()
         losses = {}
         clipped = clip_sigmoid(preds['dense_heatmap'])
         hm_avg = torch.clamp((heatmap_tgt == 1.0).sum(), min=1)

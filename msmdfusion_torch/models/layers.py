@@ -53,8 +53,10 @@ def cudnn_enabled(enabled: bool):
     The layers whose fp32 cuDNN engine (TF32 off) measured slower on an
     H100 than PyTorch's own path run with it off: SECOND (its first conv,
     256 -> 128 3x3 at 180 x 180, two orders of magnitude slower on cuDNN),
-    ResNet-50 on six 448 x 800 images (1.2x) and SPP's two dilated 3x3
-    convs at 180 x 180 (1.5-1.7x). In bf16 (parameters cast, the JAX
+    ResNet-50 on six 448 x 800 images (1.2x), SPP's two dilated 3x3
+    convs at 180 x 180 (1.5-1.7x) and the TransFusion-LC head's
+    ``shared_conv_img`` (256 -> 128 3x3 over six 112 x 200 maps: cuDNN
+    picked an FFT engine with a complex GEMM, ~430 ms). In bf16 (parameters cast, the JAX
     package's ``MSMD_BF16``) ResNet-50 runs on cuDNN: 8.4-8.8 ms there
     against 14.1 off it (the only dense layers that compute in bf16 are
     the image branch's). ``chip_smoke.py``'s dense-engine lines time these

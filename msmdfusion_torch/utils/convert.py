@@ -4,9 +4,12 @@ The port's parameters carry the reference mmdet3d torch names and layouts,
 which the JAX package's checkpoint converter (``utils/torch_convert.py``,
 ``convert_transfusion_l``) maps onto its flax tree. This module holds a
 private copy of that converter's TransFusion-L and MSMDFusion tables
-(``_pts_trunk_rules``, ``resnet_rules``, ``fpn_rules``, ``msmdfusion_rules``)
-and reads them backwards: a flax variable tree (as numpy arrays) becomes a
-state dict the port loads with ``load_state_dict``.
+(``_pts_trunk_rules``, ``resnet_rules``, ``fpn_rules``, ``msmdfusion_rules``),
+adds TransFusion-LC's (``transfusion_lc_rules``: the head's image fusion
+under the reference TransFusion head's keys, which the JAX converter's
+view-order contract names) and the code-size-8 Waymo head's, and reads
+them backwards: a flax variable tree (as numpy arrays) becomes a state
+dict the port loads with ``load_state_dict``.
 
 | flax                               | torch (port)                        |
 |------------------------------------|-------------------------------------|
@@ -24,15 +27,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+# the reference's view order (nuscenes_dataset.py:203; the JAX package's
+# ``datasets.nuscenes.CAM_ORDER``): the LC head's image-to-BEV decoder of
+# view v is the one trained on camera CAM_ORDER[v]
+CAM_ORDER = ('CAM_FRONT_LEFT', 'CAM_FRONT', 'CAM_FRONT_RIGHT',
+             'CAM_BACK_RIGHT', 'CAM_BACK', 'CAM_BACK_LEFT')
+
 # (torch prefix, flax path, kind, spconv kernel size)
 Rule = Tuple[str, str, str, Tuple[int, int, int]]
 
 
 def _pts_trunk_rules(add, backbone_f: str, neck_f: str,
-                     layer_nums: Sequence[int] = (5, 5)) -> None:
+                     layer_nums: Sequence[int] = (5, 5),
+                     velocity: bool = True) -> None:
     """SparseEncoder (basic blocks, four stages) + SECOND + SECONDFPN +
     TransFusionHead with one decoder layer: the torch keys TransFusion-L and
-    MSMDFusion share."""
+    MSMDFusion share (the head's ``vel`` branch where ``velocity``)."""
     me_t, me_f = 'pts_middle_encoder', 'middle_encoder'
     add(f'{me_t}.conv_input.0', f'{me_f}/SparseConvBlock_0/SubMConv3d_0',
         'spconv')
@@ -81,12 +91,25 @@ def _pts_trunk_rules(add, backbone_f: str, neck_f: str,
         'bn')
     add(f'{h_t}.heatmap_head.1', f'{h_f}/heatmap_conv2', 'conv2d')
     add(f'{h_t}.class_encoding', f'{h_f}/class_encoding', 'conv1d')
-    d_t, d_f = f'{h_t}.decoder.0', f'{h_f}/decoder_0'
-    add(f'{d_t}.self_attn', f'{d_f}/self_attn', 'mha')
+    _decoder_rules(add, f'{h_t}.decoder.0', f'{h_f}/decoder_0')
+    _ffn_rules(add, f'{h_t}.prediction_heads.0', f'{h_f}/prediction_head_0',
+               velocity)
+
+
+def _decoder_rules(add, d_t: str, d_f: str, cross_only: bool = False):
+    """One ``TransformerDecoderLayer``. A cross-only layer (the LC head's
+    image-to-BEV decoders) has no self-attention; its ``norm1``, which the
+    reference module holds and never applies and the flax layer lacks,
+    takes LayerNorm's initial values (``ln_init``, shaped as norm2)."""
+    if cross_only:
+        add(f'{d_t}.norm1', f'{d_f}/norm2', 'ln_init')
+    else:
+        add(f'{d_t}.self_attn', f'{d_f}/self_attn', 'mha')
+        add(f'{d_t}.norm1', f'{d_f}/norm1', 'ln')
     add(f'{d_t}.multihead_attn', f'{d_f}/multihead_attn', 'mha')
     add(f'{d_t}.linear1', f'{d_f}/linear1', 'linear')
     add(f'{d_t}.linear2', f'{d_f}/linear2', 'linear')
-    for i in (1, 2, 3):
+    for i in (2, 3):
         add(f'{d_t}.norm{i}', f'{d_f}/norm{i}', 'ln')
     for pe in ('self_posembed', 'cross_posembed'):
         add(f'{d_t}.{pe}.position_embedding_head.0', f'{d_f}/{pe}/Dense_0',
@@ -95,12 +118,41 @@ def _pts_trunk_rules(add, backbone_f: str, neck_f: str,
             f'{d_f}/{pe}/MaskedBatchNorm_0', 'bn')
         add(f'{d_t}.{pe}.position_embedding_head.3', f'{d_f}/{pe}/Dense_1',
             'conv1d')
-    for head in ('center', 'height', 'dim', 'rot', 'vel', 'heatmap'):
-        t = f'{h_t}.prediction_heads.0.{head}'
-        f = f'{h_f}/prediction_head_0'
-        add(f'{t}.0.conv', f + f'/{head}_0', 'conv1d')
-        add(f'{t}.0.bn', f + f'/{head}_0_bn', 'bn')
-        add(f'{t}.1', f + f'/{head}_out', 'conv1d')
+
+
+def _ffn_rules(add, t: str, f: str, velocity: bool = True):
+    """One FFN prediction head (``vel`` where ``velocity``: code size 10)."""
+    heads = ('center', 'height', 'dim', 'rot') + \
+        (('vel',) if velocity else ()) + ('heatmap',)
+    for head in heads:
+        add(f'{t}.{head}.0.conv', f + f'/{head}_0', 'conv1d')
+        add(f'{t}.{head}.0.bn', f + f'/{head}_0_bn', 'bn')
+        add(f'{t}.{head}.1', f + f'/{head}_out', 'conv1d')
+
+
+def _lc_head_rules(add, num_views: int, velocity: bool = True,
+                   num_decoder_layers: int = 1) -> None:
+    """The LC head's image-fusion modules onto the reference TransFusion
+    head's torch keys: ``decoder.{L}`` the fusion decoder,
+    ``decoder.{L + 1 + v}`` view ``v``'s image-to-BEV decoder (the JAX
+    converter's ``decoder[2 + idx_view]`` for L = 1), ``prediction_heads.
+    {L}`` the fused FFN, for L decoder layers. View ``v`` is the camera
+    ``CAM_ORDER`` gives it."""
+    h_t, h_f = 'pts_bbox_head', 'bbox_head'
+    nl = num_decoder_layers
+    add(f'{h_t}.shared_conv_img', f'{h_f}/shared_conv_img', 'conv2d')
+    add(f'{h_t}.heatmap_head_img.0.conv', f'{h_f}/heatmap_conv1_img/Conv_0',
+        'conv2d')
+    add(f'{h_t}.heatmap_head_img.0.bn',
+        f'{h_f}/heatmap_conv1_img/MaskedBatchNorm_0', 'bn')
+    add(f'{h_t}.heatmap_head_img.1', f'{h_f}/heatmap_conv2_img', 'conv2d')
+    add(f'{h_t}.fc.0', f'{h_f}/fc_collapsed', 'conv1d')
+    _decoder_rules(add, f'{h_t}.decoder.{nl}', f'{h_f}/img_fusion_decoder')
+    for v in range(num_views):
+        _decoder_rules(add, f'{h_t}.decoder.{nl + 1 + v}',
+                       f'{h_f}/img_bev_decoder_{v}', cross_only=True)
+    _ffn_rules(add, f'{h_t}.prediction_heads.{nl}',
+               f'{h_f}/prediction_head_fused', velocity)
 
 
 def new_rules():
@@ -112,11 +164,13 @@ def new_rules():
     return rules, add
 
 
-def transfusion_l_rules(layer_nums: Sequence[int] = (5, 5)) -> List[Rule]:
+def transfusion_l_rules(layer_nums: Sequence[int] = (5, 5),
+                        velocity: bool = True) -> List[Rule]:
     """The TransFusion-L mapping, the layout of
-    ``configs/transfusion_nusc_voxel_L.py``."""
+    ``configs/transfusion_nusc_voxel_L.py`` (``velocity=False``: the
+    code-size-8 head of ``configs/transfusion_waymo_voxel_L.py``)."""
     rules, add = new_rules()
-    _pts_trunk_rules(add, 'backbone', 'neck', layer_nums)
+    _pts_trunk_rules(add, 'backbone', 'neck', layer_nums, velocity)
     return rules
 
 
@@ -143,6 +197,21 @@ def fpn_rules(add, t: str, f: str, num_ins: int = 4) -> None:
     for i in range(num_ins):
         add(f'{t}.lateral_convs.{i}.conv', f'{f}/lateral_{i}', 'conv2d')
         add(f'{t}.fpn_convs.{i}.conv', f'{f}/fpn_conv_{i}', 'conv2d')
+
+
+def transfusion_lc_rules(num_views: int, depth: int = 50,
+                         velocity: bool = True) -> List[Rule]:
+    """The TransFusion-LC mapping (``configs/transfusion_nusc_voxel_LC.py``,
+    ``transfusion_waymo_voxel_LC.py`` with ``velocity=False``): the
+    TransFusion-L trunk, the ResNet and FPN image branch (flax
+    ``backbone_img``/``neck_img``) and the head's image fusion for
+    ``num_views`` views."""
+    rules, add = new_rules()
+    _pts_trunk_rules(add, 'backbone', 'neck', velocity=velocity)
+    resnet_rules(add, 'img_backbone', 'backbone_img', depth)
+    fpn_rules(add, 'img_neck', 'neck_img')
+    _lc_head_rules(add, num_views, velocity)
+    return rules
 
 
 def msmdfusion_rules(depth: int = 50, layer_nums: Sequence[int] = (5, 5),
@@ -255,6 +324,9 @@ def from_jax_variables(variables, rules: Optional[List[Rule]] = None
                 p(f + '/kernel')[::-1, ::-1].transpose(2, 3, 0, 1))
         elif kind in ('conv1d', 'linear'):
             dense(t, f, kind == 'conv1d')
+        elif kind == 'ln_init':
+            put(t + '.weight', np.ones_like(params[f + '/scale']))
+            put(t + '.bias', np.zeros_like(params[f + '/bias']))
         elif kind in ('bn', 'ln'):
             put(t + '.weight', p(f + '/scale'))
             put(t + '.bias', p(f + '/bias'))

@@ -10,7 +10,9 @@ model with ground rings, walls with 1/r^2 return density and car-sized
 object clusters, accumulated over 10 sweeps; a 6-camera ring; foreground
 virtual points on the objects' surfaces. The same seed gives the same
 arrays as the JAX package's copies: the flagship's capacities were
-measured on that scene.
+measured on that scene. ``lc_batch`` (the port's own) draws TransFusion-LC
+inputs: the LiDAR frame, camera images and a rig per dataset
+(``LC_YAWS``).
 """
 from __future__ import annotations
 
@@ -141,9 +143,20 @@ def lidar_scene(rng: np.random.RandomState, n_points: int,
 # Camera rig
 # ---------------------------------------------------------------------------
 
-def camera_rig(img_hw, num_cams: int = 6, seed: int = 0) -> np.ndarray:
+# the camera yaws (degrees, counter-clockwise from the LiDAR's x axis) of
+# ``lc_batch``'s rigs, views in each dataset's order: nuScenes' CAM_ORDER
+# (FRONT_LEFT, FRONT, FRONT_RIGHT, BACK_RIGHT, BACK, BACK_LEFT) on the
+# 60-degree ring, Waymo's five cameras (FRONT, FRONT_LEFT, FRONT_RIGHT,
+# SIDE_LEFT, SIDE_RIGHT); neighbouring views overlap
+LC_YAWS = {'nuScenes': (60.0, 0.0, -60.0, -120.0, 180.0, 120.0),
+           'Waymo': (0.0, 45.0, -45.0, 90.0, -90.0)}
+
+
+def camera_rig(img_hw, num_cams: int = 6, seed: int = 0,
+               yaws=None) -> np.ndarray:
     """[V, 4, 4] lidar2img of a nuScenes-like ring of outward cameras at
-    60-degree yaw steps, ~70-degree horizontal FOV."""
+    60-degree yaw steps, ~70-degree horizontal FOV (``yaws``: the views'
+    yaws in degrees instead, one per camera)."""
     h, w = img_hw
     rng = np.random.RandomState(seed)
     fx = w / (2.0 * np.tan(np.deg2rad(35.0)))        # 70 deg hFOV
@@ -151,10 +164,11 @@ def camera_rig(img_hw, num_cams: int = 6, seed: int = 0) -> np.ndarray:
     cx, cy = w / 2.0, h / 2.0
     intr = np.array([[fx, 0, cx, 0], [0, fy, cy, 0],
                      [0, 0, 1, 0], [0, 0, 0, 1]], np.float64)
-    yaws = np.deg2rad([0.0, -60.0, 60.0, 180.0, 120.0, -120.0])
+    yaws = np.deg2rad([0.0, -60.0, 60.0, 180.0, 120.0, -120.0]
+                      if yaws is None else yaws)
     mats = []
     for i in range(num_cams):
-        psi = yaws[i % 6] + rng.uniform(-0.02, 0.02)
+        psi = yaws[i % len(yaws)] + rng.uniform(-0.02, 0.02)
         c, s = np.cos(psi), np.sin(psi)
         fwd = np.array([c, s, 0.0])                  # camera z (lidar frame)
         right = np.array([s, -c, 0.0])               # camera x
@@ -368,6 +382,44 @@ def realistic_batch(shape: Dict, b: int, seed: int = 0,
     fg['lidar2img'] = np.stack(l2i_batches)
     batch = dict(points=points, points_mask=np.ones((b, n), bool), img=imgs,
                  fg=fg)
+    if return_gt:
+        batch['gt'] = dict(gt_bboxes=gt_bboxes, gt_labels=gt_labels,
+                           gt_valid=gt_valid)
+    return batch
+
+
+def lc_batch(shape: Dict, b: int = 1, seed: int = 0,
+             return_gt: bool = False, max_gt: int = 32,
+             num_classes: int = 10, box_dim: int = 9) -> Dict:
+    """TransFusion-LC inputs: dict(points [B, N, 5], points_mask, img
+    [B, V, H, W, 3], metas=dict(lidar2img [B, V, 4, 4])) as numpy arrays.
+
+    shape: dict(n, img_hw, pcr, yaws) (``LC_YAWS``: one camera a yaw).
+    Each sample's points are ``lidar_scene``'s draw first from the seed's
+    generator, so a one-sample batch's points are the TransFusion-L
+    frame's of the same seed; the images (unit gaussian noise, as
+    ``realistic_batch``'s) come after. ``return_gt`` adds ``gt`` as
+    ``realistic_batch`` does, with labels below ``num_classes`` and the
+    boxes' first ``box_dim`` columns (7 drops the velocity).
+    """
+    n, img_hw, pcr = shape['n'], shape['img_hw'], shape['pcr']
+    yaws = shape['yaws']
+    v = len(yaws)
+    rng = np.random.RandomState(seed)
+    points = np.zeros((b, n, 5), np.float32)
+    gt_bboxes = np.zeros((b, max_gt, box_dim), np.float32)
+    gt_labels = np.zeros((b, max_gt), np.int32)
+    gt_valid = np.zeros((b, max_gt), bool)
+    for bi in range(b):
+        points[bi], objects = lidar_scene(rng, n, pcr)
+        boxes, labels, gt_valid[bi] = scene_gt(objects, max_gt)
+        gt_bboxes[bi] = boxes[:, :box_dim]
+        gt_labels[bi] = labels % num_classes
+    imgs = rng.randn(b, v, img_hw[0], img_hw[1], 3).astype(np.float32)
+    lidar2img = np.stack([camera_rig(img_hw, v, seed + 17 * bi, yaws)
+                          for bi in range(b)])
+    batch = dict(points=points, points_mask=np.ones((b, n), bool), img=imgs,
+                 metas=dict(lidar2img=lidar2img))
     if return_gt:
         batch['gt'] = dict(gt_bboxes=gt_bboxes, gt_labels=gt_labels,
                            gt_valid=gt_valid)

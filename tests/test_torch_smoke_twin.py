@@ -7,7 +7,8 @@ heatmap within TOL of the plain one, with a near-tie at the NMS or at the
 top-P cut, and refuses one farther away or proposals that are not the
 head's choice on it. ``compare_outputs`` holds a box's yaw through the
 head's ``rot``. Last, the twin of a tiny TransFusion-L, where both paths
-are the plain ones.
+are the plain ones, and of a tiny TransFusion-LC, whose proposals come
+from the mean of two heatmaps' sigmoids (``Selection``).
 """
 import math
 from types import SimpleNamespace
@@ -255,3 +256,37 @@ def test_tiny_twin_decodes_a_suppressed_cell(tiny):
     value = float(raw.flatten(1)[0, cell])
     assert value > 0
     assert float(twin['query_heatmap_score'][0, cell // hw, -1]) == value
+
+
+def test_tiny_lc_twin_chooses_from_the_fused_selection():
+    # with image fusion the head picks its proposals from the mean of the
+    # LiDAR and the fused heatmaps' sigmoids, not from the dense heatmap
+    # it outputs: check_proposals must take the heatmap Selection keeps
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.models.builder import build_detector
+    from tests.test_torch_transfusion_l import make_points
+    from tests.test_torch_transfusion_lc import IMG_HW, lc_model_cfg, rig
+    rng = np.random.RandomState(6)
+    model = build_detector(lc_model_cfg(load_config), device='cpu',
+                           seed=smoke.SEED)
+    points, mask = make_points(rng)
+    inputs = (torch.from_numpy(points), torch.from_numpy(mask),
+              torch.from_numpy(rng.randn(1, 2, *IMG_HW, 3).astype(
+                  np.float32)), dict(lidar2img=torch.from_numpy(rig())))
+    with torch.no_grad():
+        run = smoke.pinned_forward(model, inputs, None)
+        index = smoke.proposal_index(run)
+        ref = smoke.pinned_forward(model, inputs, index)
+        alt = smoke.pinned_forward(model, inputs, index, smoke.ReorderedSums())
+    head = model.pts_bbox_head
+    nms = th.local_maximum_nms(torch.sigmoid(run['dense_heatmap']),
+                               head.nms_kernel_size, head._flat_classes())
+    own = th.topk_lower_index_first(nms.flatten(1), head.num_proposals)[1]
+    assert not torch.equal(own, index)       # not the dense heatmap's choice
+    assert 'on_the_image' in run
+    assert torch.equal(run['on_the_image'], ref['on_the_image'])
+    dist, excess, suppressed, differ = smoke.check_proposals(
+        head, index, run, ref)
+    assert (dist, suppressed, differ) == (0.0, 0, 0) and excess <= 0
+    worst = smoke.compare_outputs(run, ref, alt)
+    assert worst['bboxes'][0] == 0.0

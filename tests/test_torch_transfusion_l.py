@@ -36,8 +36,9 @@ PCR = [-2.4, -2.4, -5.0, 2.4, 2.4, 3.0]
 CAP = 6000
 
 
-def tiny_model_cfg(load=load_config):
-    cfg = load('configs/transfusion_nusc_voxel_L.py').model
+def tiny_model_cfg(load=load_config,
+                   config='configs/transfusion_nusc_voxel_L.py'):
+    cfg = load(config).model
     cfg.pts_voxel_layer.update(max_voxels=(CAP, CAP), point_cloud_range=PCR)
     cfg.pts_middle_encoder.update(
         sparse_shape=[41, 64, 64], base_channels=4, output_channels=8,
