@@ -5,8 +5,8 @@ inference and train step on the two other sparse-conv engines, its bf16
 compute frames, its ablation and backend switches, its train step with
 the image branch trained, TransFusion-L's train step, the flagship's
 stage-2 step with its LiDAR encoders frozen and its bf16-compute train
-step, TransFusion-LC's inference and train step, and the Waymo
-TransFusion-L and LC.
+step, TransFusion-LC's inference and train step, the Waymo
+TransFusion-L and LC, and the eval and train CLIs on files.
 
     python3 chip_smoke.py
 
@@ -189,7 +189,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
    weights (without images its outputs; a counted frame, the share on an
    image, ms/frame); one TransFusion-L step with the config's recipe
    (``drive_train``: its per-call checks, phase 11's launches; no twin,
-   see ``WAYMO``).
+   see ``WAYMO``);
+17. the system's own entry points on files: a nuScenes-layout dataset of
+   4 full-size samples in a temporary directory (``write_nuscenes``: each
+   a realistic 250k-point frame split over its keyframe ``.bin`` and 9
+   sweeps, six 900 x 1600 uint8 ``.npy`` views in ``CAM_ORDER`` with the
+   rig's calibration, the MDU ``.pkl.npy`` artifacts of its objects, its
+   GT, an info ``.pkl``; no PIL), a checkpoint of the seed's weights with
+   norms calibrated on sample 0, then the eval CLI
+   (``msmdfusion_torch.tools.test``) on the flagship config with
+   ``FLAGSHIP``'s capacities through ``--cfg-options``, ``--out --eval
+   bbox``: launches 16/37/8/3 a frame, overflow 0, the metrics' keys,
+   sample 0's detections bit-equal to ``model.get_bboxes(model(...))`` on
+   the same batch; the pipeline's ms per sample alone (1 worker and the
+   config's ``workers_per_gpu``), the model's ms/frame, the CLI's frames/s;
+   ``--format-only`` and the submission's schema; the train CLI
+   (``tools.train``) on the config's stage-2 recipe under CBGS, its two
+   samples a batch at twice the capacities, 3 steps, one val frame
+   (launches of phase 5 a step plus one frame's), finite losses in the
+   JSON log, the checkpoint and TensorBoard files; a resume at step 3
+   that replays epoch 0's first batch; the eval CLI loading that
+   checkpoint with every tensor bit-equal to the state after step 3; no
+   worker process left.
 
 Each phase prints its seconds by the host clock.
 
@@ -3964,6 +3985,396 @@ def engines_interleaved(model, inputs, card, engines, rounds=6):
               f'{max(h):.3f}) [{card}]', flush=True)
 
 
+# phase 17: the system's own entry points on files. A nuScenes-layout
+# dataset of full-size samples (``write_nuscenes``): phase 4's frame
+# (``realistic_batch``'s, on which FLAGSHIP's capacities were measured:
+# the same generator's other seeds overflow them) split over each
+# keyframe's .bin and 9 sweeps, six 900 x 1600 uint8 views of noise
+# (.npy, read without PIL) on the same rig, the MDU artifacts of its
+# objects with the virtual points split over the keyframe and its sweeps,
+# its GT. The timed pass reads a second info file that lists the samples
+# ``timed`` times over; its first ``2 x workers`` samples (start-up and
+# the loader's prefetch) are left out of the rates. The train CLI's
+# batch of two augmented frames runs at ``train_caps`` times FLAGSHIP's
+# capacities: at twice them (one frame's each) its steps dropped up to
+# 15% of a stage's rows (PERF.md section 6, PR 14)
+ENTRY = dict(samples=4, sweeps=9, img_hw=(900, 1600), num_virtual=200,
+             steps=3, timed=100, timed_one_worker=20, train_caps=3)
+
+
+def flagship_frame(pcr, shape=FLAGSHIP['shape']):
+    """(points, objects) of ``realistic_batch(shape, b=1, seed=SEED)``'s
+    frame: its generator draws the images first, then the scene."""
+    import numpy as np
+    from msmdfusion_torch.utils.synth_scene import lidar_scene
+    rng = np.random.RandomState(SEED)
+    rng.randn(1, shape['v'], *shape['img_hw'], 3)
+    return lidar_scene(rng, shape['n'], pcr)
+
+
+def camera_info(lidar2img):
+    """A view's calibration as the nuScenes infos hold it (intrinsic,
+    sensor2lidar rotation and translation) from its lidar2img: K R = M by
+    a QR factorisation of M^-1, K's diagonal made positive."""
+    import numpy as np
+    m = np.asarray(lidar2img, np.float64)
+    q, r = np.linalg.qr(np.linalg.inv(m[:3, :3]))
+    k, rot = np.linalg.inv(r), q.T
+    sign = np.diag(np.sign(np.diag(k)))
+    k, rot = k @ sign, sign @ rot
+    return dict(cam_intrinsic=k, sensor2lidar_rotation=rot.T,
+                sensor2lidar_translation=-rot.T @ np.linalg.solve(k,
+                                                                  m[:3, 3]))
+
+
+def split_artifact(artifact, parts):
+    """``artifact`` as ``parts`` artifacts: the virtual rows of each
+    camera split in order, the real ones all in the first (a sweep's
+    artifact adds its virtual points only); together they hold the rows of
+    ``artifact``, so the capacities see the same counts."""
+    import numpy as np
+    out = [dict(artifact, virtual_points=[], virtual_pixel_indices=[])
+           for _ in range(parts)]
+    for part in out[1:]:
+        part.update(real_points=[r[:0] for r in artifact['real_points']],
+                    real_pixel_indices=[r[:0] for r in
+                                        artifact['real_pixel_indices']])
+    for key in ('virtual_points', 'virtual_pixel_indices'):
+        for rows in artifact[key]:
+            for part, chunk in zip(out, np.array_split(rows, parts)):
+                part[key].append(chunk)
+    return out
+
+
+def write_nuscenes(root, pts, objects, spec=ENTRY):
+    """Write ``spec['samples']`` samples of the frame (``pts``,
+    ``objects``) in the nuScenes layout under ``root`` (samples/LIDAR_TOP,
+    sweeps/LIDAR_TOP, samples/CAM_*, {samples,sweeps}/FOREGROUND_MIXED_6NN_
+    WITH_DEPTH), each with its own split of the points over the sweeps and
+    its own views, the info file ``nuscenes_infos.pkl`` and the timed
+    pass's ``nuscenes_infos_timed.pkl`` (the samples ``spec['timed']``
+    times over, each entry its own token); returns their paths."""
+    import pickle
+    import numpy as np
+    from msmdfusion_torch.datasets.nuscenes import CAM_ORDER, NuScenesDataset
+    from msmdfusion_torch.utils.synth_scene import (camera_rig,
+                                                    foreground_artifact,
+                                                    scene_gt)
+    root = Path(root)
+    fg = 'FOREGROUND_MIXED_6NN_WITH_DEPTH'
+    dirs = {d: root / d for d in (
+        'samples/LIDAR_TOP', 'sweeps/LIDAR_TOP', f'samples/{fg}',
+        f'sweeps/{fg}', *(f'samples/{c}' for c in CAM_ORDER))}
+    for d in dirs.values():
+        d.mkdir(parents=True, exist_ok=True)
+    l2i = camera_rig(spec['img_hw'], len(CAM_ORDER), seed=SEED)
+    artifacts = [np.asarray(a, dtype=object) for a in split_artifact(
+        foreground_artifact(pts, objects, l2i, spec['img_hw'],
+                            spec['num_virtual'], SEED), spec['sweeps'] + 1)]
+    boxes, labels, valid = scene_gt(objects)
+    infos = []
+    for i in range(spec['samples']):
+        rng = np.random.RandomState(SEED + i)
+        parts = np.array_split(rng.permutation(len(pts)), spec['sweeps'] + 1)
+        ts = 1_500_000_000_000_000 + i * 500_000           # microseconds
+        key = dirs['samples/LIDAR_TOP'] / f'sample{i}.bin'
+        pts[parts[0]].tofile(key)
+        np.save(dirs[f'samples/{fg}'] / f'{key.name}.pkl.npy', artifacts[0])
+        sweeps = []
+        for j, part in enumerate(parts[1:]):
+            path = dirs['sweeps/LIDAR_TOP'] / f'sample{i}_sweep{j}.bin'
+            pts[part].tofile(path)
+            np.save(dirs[f'sweeps/{fg}'] / f'{path.name}.pkl.npy',
+                    artifacts[j + 1])
+            sweeps.append(dict(data_path=str(path),
+                               timestamp=ts - 50_000 * (j + 1),
+                               sensor2lidar_rotation=np.eye(3),
+                               sensor2lidar_translation=np.zeros(3)))
+        cams = {}
+        for v, cam in enumerate(CAM_ORDER):
+            path = dirs[f'samples/{cam}'] / f'sample{i}.npy'
+            np.save(path, rng.randint(0, 256, (*spec['img_hw'], 3),
+                                      dtype=np.uint8))
+            cams[cam] = dict(data_path=str(path), **camera_info(l2i[v]))
+        infos.append(dict(
+            token=f'sample{i}', lidar_path=str(key), timestamp=ts,
+            sweeps=sweeps, cams=cams, gt_boxes=boxes[valid, :7],
+            gt_names=np.array([NuScenesDataset.CLASSES[c]
+                               for c in labels[valid]]),
+            gt_velocity=boxes[valid, 7:9]))
+    paths = []
+    for name, entries in (
+            ('nuscenes_infos.pkl', infos),
+            ('nuscenes_infos_timed.pkl',
+             [dict(infos[k % len(infos)], token=f'sample{k % len(infos)}_{k}')
+              for k in range(spec['timed'])])):
+        paths.append(root / name)
+        with open(paths[-1], 'wb') as f:
+            pickle.dump(dict(infos=entries,
+                             metadata=dict(version='v1.0-trainval')), f)
+    return paths
+
+
+def capacity_options(caps, scale=1):
+    """``--cfg-options`` of ``caps`` (``FLAGSHIP``'s), each times
+    ``scale`` (the batch's samples: the capacities hold a batch)."""
+    def joined(key):
+        return ','.join(str(c * scale) for c in caps[key])
+    v = caps['max_voxels'] * scale
+    return [f'model.pts_voxel_layer.max_voxels={v},{v}',
+            f'model.pts_middle_encoder.stage_capacities={joined("enc_caps")}',
+            'model.multimodal_middle_encoder.stage_capacities='
+            + joined('gma_caps'),
+            'model.multimodal_middle_encoder.union_capacities='
+            + joined('union_caps'),
+            f'model.fg_max_voxels={joined("fg_caps")}']
+
+
+def data_options(split, root, ann):
+    return [f'data.{split}.data_root={root}/', f'data.{split}.ann_file={ann}']
+
+
+def steady_ms(times, skip):
+    """ms between successive entries of ``times`` (seconds) from the
+    ``skip``-th on."""
+    return (times[-1] - times[skip]) * 1e3 / (len(times) - 1 - skip)
+
+
+def pipeline_ms(dataset, workers, count):
+    """Host ms per sample of the loader alone over the first ``count``
+    samples of ``dataset`` with ``workers`` worker processes, from its
+    ``2 x workers``-th sample on (start-up and the prefetch left out)."""
+    from msmdfusion_torch.datasets.loader import DataLoader
+    times = []
+    with DataLoader(dataset, 1, shuffle=False, drop_last=False,
+                    num_workers=workers) as loader:
+        for _ in loader:
+            times.append(time.perf_counter())
+            if len(times) == count:
+                break
+    return steady_ms(times, 2 * workers)
+
+
+def json_records(work):
+    out = []
+    for path in sorted(Path(work).glob('*.log.json')):
+        out += [json.loads(line) for line in path.read_text().splitlines()]
+    return out
+
+
+def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP):
+    """Phase 17: the eval and train CLIs (``msmdfusion_torch.tools``) on
+    the flagship config with ``caps`` through ``--cfg-options``, from
+    ``write_nuscenes``' files (see the module docstring)."""
+    import multiprocessing
+    import tempfile
+    import numpy as np
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.inference import (batch_model_inputs,
+                                                 unpack_detections)
+    from msmdfusion_torch.config import load_config, parse_cli_overrides
+    from msmdfusion_torch.datasets.loader import DataLoader
+    from msmdfusion_torch.models.builder import build_detector
+    from msmdfusion_torch.registry import DATASETS
+    from msmdfusion_torch.tools import test as test_cli
+    from msmdfusion_torch.tools import train as train_cli
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    from msmdfusion_torch.utils import overflow
+    from msmdfusion_torch.utils.checkpoint import save_checkpoint
+    config = str(caps['config'])
+    label = 'entry points'
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        pts, objects = flagship_frame(load_config(config).point_cloud_range,
+                                      caps['shape'])
+        ann, timed_ann = write_nuscenes(Path(tmp) / 'nuscenes', pts,
+                                        objects, spec)
+        print(f'{label}: {spec["samples"]} samples written in '
+              f'{time.perf_counter() - t0:.1f} s (phase 4\'s {len(pts)} '
+              f'points and its virtual points over 1 + {spec["sweeps"]} '
+              f'files, six {spec["img_hw"]} uint8 views)', flush=True)
+        del pts, objects
+        root = ann.parent
+        test_opts = capacity_options(caps) + data_options('test', root, ann)
+
+        # a checkpoint: the seed's weights, norms calibrated on sample 0
+        cfg = load_config(config, parse_cli_overrides(test_opts))
+        dataset = DATASETS.build(dict(cfg.data.test))
+        model = build_detector(cfg.model, device=dev, seed=SEED)
+        with DataLoader(dataset, 1, shuffle=False, drop_last=False,
+                        num_workers=0, device=dev) as loader:
+            inputs = batch_model_inputs(cfg.model.type, next(iter(loader)),
+                                        dev)
+        fg = inputs[3]
+        swept = int((fg['fg_points'][..., -1][fg['fg_mask']] > 0).sum())
+        check(swept > 0, f'{label}: no foreground point from a sweep')
+        with torch.no_grad():
+            calibrate_norms(model, *inputs)
+        ckpt = save_checkpoint(tmp, 0, model, meta=dict(config=config))
+        del model
+
+        # the eval CLI, --out --eval bbox, its launches counted
+        kernels.reset_launches()
+        run = test_cli.main([config, ckpt, '--out', str(Path(tmp) / 'r.pkl'),
+                             '--eval', 'bbox', '--device', str(dev),
+                             '--cfg-options', *test_opts])
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        n = len(run['results'])
+        check(n == spec['samples'], f'{label}: {n} results')
+        print(f'{label}: eval CLI launches over {n} frames {launches}',
+              flush=True)
+        check_launches(f'{label}: eval CLI', launches,
+                       {k: v * n for k, v in caps['launches'].items()})
+        total = sum(run['overflow'].values())
+        check(total == 0, f'{label}: eval CLI overflow {run["overflow"]}')
+        check({'mAP', 'NDS'} <= set(run['metrics']),
+              f'{label}: metrics {run["metrics"]}')
+        for det in run['results']:
+            check(np.isfinite(det['bboxes']).all()
+                  and det['bboxes'].shape[1] == 9, f'{label}: boxes')
+        model = run['model']
+        with torch.no_grad():
+            direct = unpack_detections(model.get_bboxes(model(*inputs)))[0]
+        for key in ('bboxes', 'scores', 'labels'):
+            check(np.array_equal(run['results'][0][key], direct[key]),
+                  f'{label}: sample 0 {key} differ from the direct call')
+        print(f'{label}: eval CLI: overflow_total {total}; {swept} of '
+              f'sample 0\'s {int(fg["fg_mask"].sum())} foreground points '
+              f'from its sweeps\' artifacts; sample 0\'s '
+              f'{len(direct["scores"])} detections bit-equal to '
+              'model.get_bboxes(model(...)) on the same batch; mAP '
+              f'{run["metrics"]["mAP"]:.4f} NDS {run["metrics"]["NDS"]:.4f}'
+              ' (seed weights: no meaning)', flush=True)
+        with torch.no_grad():
+            frame_ms = cuda_ms(lambda: forward(model, inputs), 5)
+        print(f'{label}: eval CLI, whole run {run["fps"]:.3f} frames/s '
+              f'({run["seconds"]:.2f} s for {n} frames, worker start-up in '
+              f'it) [{card}]', flush=True)
+        del run, model, inputs, fg
+
+        # the timed pass: the eval CLI over the samples listed
+        # spec['timed'] times, and the pipeline alone on the same entries
+        workers, skip = cfg.data.workers_per_gpu, 2 * cfg.data.workers_per_gpu
+        timed_opts = capacity_options(caps) + data_options('test', root,
+                                                           timed_ann)
+        run = test_cli.main([config, ckpt, '--device', str(dev),
+                             '--cfg-options', *timed_opts])
+        n_timed = len(run['results'])
+        check(n_timed == spec['timed'] and not sum(run['overflow'].values()),
+              f'{label}: timed pass {n_timed} results, overflow '
+              f'{run["overflow"]}')
+        cli_ms = steady_ms(run['frame_s'], skip)
+        timed = run['dataset']
+        del run
+        one = pipeline_ms(timed, 1, spec['timed_one_worker'])
+        many = pipeline_ms(timed, workers, spec['timed'])
+        print(f'{label}: timed pass, {spec["timed"]} frames: eval CLI '
+              f'{1e3 / cli_ms:.3f} frames/s ({cli_ms:.1f} ms/frame from '
+              f'frame {skip} on, host clock); pipeline alone {one:.1f} '
+              f'ms/sample with 1 worker (from sample 2 of '
+              f'{spec["timed_one_worker"]}), {many:.1f} with {workers} (from '
+              f'sample {skip} of {spec["timed"]}); model {frame_ms:.3f} ms/frame (CUDA events, 5 frames of '
+              f'sample 0) [{card}]', flush=True)
+
+        run = test_cli.main([config, ckpt, '--format-only', '--device',
+                             str(dev), '--cfg-options', *test_opts])
+        with open(run['submission']) as f:
+            sub = json.load(f)
+        fields = {'sample_token', 'translation', 'size', 'rotation',
+                  'velocity', 'detection_name', 'detection_score',
+                  'attribute_name'}
+        check(set(sub) == {'meta', 'results'} and len(sub['results']) == n
+              and all(set(a) == fields for annos in sub['results'].values()
+                      for a in annos), f'{label}: submission schema')
+        print(f'{label}: --format-only: {run["submission"]} with '
+              f'{sum(map(len, sub["results"].values()))} boxes; '
+              f'{run["fps"]:.3f} frames/s whole run [{card}]', flush=True)
+        del run
+
+        # the train CLI: the config's stage-2 recipe under CBGS, its two
+        # augmented samples a batch at spec['train_caps'] x the capacities
+        work = str(Path(tmp) / 'work')
+        train_opts = (capacity_options(caps, spec['train_caps'])
+                      + data_options('train.dataset', root, ann)
+                      + data_options('val', root, ann)
+                      + ['evaluation.interval=1', 'evaluation.max_samples=1',
+                         'log_config.interval=1'])
+        args = [config, '--work-dir', work, '--device', str(dev),
+                '--cfg-options', *train_opts]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with overflow.capture() as cap:
+            run = train_cli.main(args + ['--max-steps', str(spec['steps'])])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        train_dropped = {k: v for k, v in cap.counters().items() if v}
+        launches = dict(kernels.launches)
+        expected = {k: spec['steps'] * v + caps['launches'].get(k, 0)
+                    for k, v in TRAIN['launches'].items()}
+        print(f'{label}: train CLI launches over {spec["steps"]} steps and '
+              f'1 val frame {launches}', flush=True)
+        check_launches(f'{label}: train CLI', launches, expected)
+        records = json_records(work)
+        train = [r for r in records if r['mode'] == 'train']
+        val = [r for r in records if r['mode'] == 'val']
+        check(len(train) == spec['steps']
+              and all(math.isfinite(r['total_loss']) for r in train),
+              f'{label}: train records {train}')
+        check(len(val) == 1 and 'NDS' in val[0], f'{label}: val {val}')
+        check(run['checkpoint'] == str(Path(work) / f'ckpt_{spec["steps"]}')
+              and Path(run['checkpoint']).is_file()
+              and list(Path(work, 'tf_logs').glob('events.out.tfevents.*')),
+              f'{label}: checkpoint or event file missing')
+        dropped = {k: v for k, v in val[0].items()
+                   if k.startswith('overflow/') and v}
+        check(not train_dropped and not dropped and any(
+            k.startswith('overflow/') for k in val[0]),
+              f'{label}: train CLI overflow: steps {train_dropped}, val '
+              f'{dropped}')
+        print(f'{label}: train CLI: {spec["steps"]} steps + checkpoint + 1 '
+              f'val frame in {seconds:.1f} s; total_loss '
+              f'{[round(r["total_loss"], 4) for r in train]}, samples/s '
+              f'{[r["samples_per_s"] for r in train]}; overflow 0 in the steps '
+              f'and the val frame at {spec["train_caps"]}x the capacities '
+              f'[{card}]', flush=True)
+        after = {k: v.detach().clone()
+                 for k, v in run['model'].state_dict().items()}
+        first, ckpt = run['batches'], run['checkpoint']
+        del run
+        torch.cuda.empty_cache()
+
+        again = train_cli.main(args + ['--max-steps',
+                                       str(spec['steps'] + 1),
+                                       '--no-validate'])
+        check(again['start_step'] == spec['steps']
+              and again['step'] == spec['steps'] + 1
+              and again['batches'] == first[:1],
+              f'{label}: resume at {again["start_step"]} with batches '
+              f'{again["batches"]}, the fresh run\'s {first}')
+        print(f'{label}: resumed at step {again["start_step"]}, epoch 0 '
+              f'again from its first batch {again["batches"][0]} (the fresh '
+              f'run\'s batches {first})', flush=True)
+        del again
+        torch.cuda.empty_cache()
+
+        run = test_cli.main([config, ckpt, '--max-samples', '1', '--device',
+                             str(dev), '--cfg-options', *test_opts])
+        state = run['model'].state_dict()
+        check(set(state) == set(after)
+              and all(torch.equal(state[k], after[k]) for k in after),
+              f'{label}: the eval CLI\'s model differs from the state after '
+              f'step {spec["steps"]}')
+        print(f'{label}: the eval CLI loaded {ckpt}: {len(after)} tensors '
+              f'bit-equal to the state after step {spec["steps"]}',
+              flush=True)
+        del run, after
+    check(not multiprocessing.active_children(),
+          f'{label}: worker processes left')
+    torch.cuda.empty_cache()
+
+
 def report(phases, card):
     """The rows kernels' sums lines and the ``kernels`` line of the
     flagship's phases (``flagship_phases``)."""
@@ -4104,6 +4515,8 @@ def main():
     lap('15 (TransFusion-LC train, image branch frozen)')
     waymo_phases(card, dev)
     lap('16 (Waymo TransFusion-L and LC)')
+    entry_points(card, dev)
+    lap('17 (the eval and train CLIs on files)')
 
     report(phases, card)
     print(json.dumps({'ok': True, 'device': {

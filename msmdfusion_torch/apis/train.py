@@ -157,6 +157,16 @@ class ClippedAdamW(torch.optim.Optimizer):
         self.frozen_prefixes = tuple(frozen_prefixes)
         self.count = 0
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The Adam moments and groups, and the step ``count`` (the
+        schedule's and the bias corrections' step, as optax's count)."""
+        return dict(super().state_dict(), count=self.count)
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop('count'))
+        super().load_state_dict(state_dict)
+
     @torch.no_grad()
     def grad_norm(self) -> torch.Tensor:
         """The global norm of the trainable gradients (the clip's)."""

@@ -134,3 +134,14 @@ def apply_overrides(cfg: ConfigDict, overrides: Dict[str, Any]) -> ConfigDict:
         else:
             node[last] = ConfigDict._wrap(value)
     return cfg
+
+
+def parse_cli_overrides(pairs: Sequence[str]) -> Dict[str, str]:
+    """Parse ['a.b=1', 'c=2'] into a dict for apply_overrides."""
+    out = {}
+    for pair in pairs:
+        if '=' not in pair:
+            raise ValueError(f'override must be key=value, got {pair!r}')
+        key, _, value = pair.partition('=')
+        out[key] = value
+    return out

@@ -1,0 +1,9 @@
+"""Datasets, pipelines and the loader: importing this package registers
+every dataset and transform."""
+from . import pipelines  # noqa: F401
+from .custom_3d import CBGSDataset, Custom3DDataset
+from .loader import DataLoader, collate
+from .nuscenes import NuScenesDataset
+
+__all__ = ['CBGSDataset', 'Custom3DDataset', 'DataLoader', 'NuScenesDataset',
+           'collate']

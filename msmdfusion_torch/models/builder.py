@@ -72,17 +72,24 @@ def init_random_weights(model: nn.Module, generator: torch.Generator,
     return model
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no card raises:
+    there is no silent fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'device {device!r} requested but torch.cuda.is_available() is '
+            'False; pass device="cpu" to run on the CPU')
+    return dev
+
+
 def build_detector(cfg: Dict[str, Any], device='cuda',
                    seed: Optional[int] = None) -> nn.Module:
     """The detector of ``cfg`` (a config's ``model`` dict) on ``device``,
     in eval mode; ``seed`` draws random weights (``init_random_weights``).
     ``device='cuda'`` with no card raises: there is no silent fallback to
     the CPU."""
-    dev = torch.device(device)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(
-            f'device {device!r} requested but torch.cuda.is_available() is '
-            'False; pass device="cpu" to run on the CPU')
+    dev = resolve_device(device)
     model = DETECTORS.build(_plain(dict(cfg)))
     if seed is not None:
         init_random_weights(model, torch.Generator().manual_seed(seed))

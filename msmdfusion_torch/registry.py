@@ -61,3 +61,5 @@ NECKS = Registry('necks')
 HEADS = Registry('heads')
 MIDDLE_ENCODERS = Registry('middle_encoders')
 BBOX_CODERS = Registry('bbox_coders')
+DATASETS = Registry('datasets')
+PIPELINES = Registry('pipelines')

@@ -281,6 +281,25 @@ def _instances_for_camera(objects, lidar2img, img_hw):
     return instances
 
 
+def foreground_artifact(points, objects, lidar2img, img_hw,
+                        num_virtual: int = 200, seed: int = 0
+                        ) -> Dict[str, List[np.ndarray]]:
+    """A frame's MDU artifact in the layout ``LoadForeground2D`` reads
+    (``FOREGROUND_MIXED_6NN_WITH_DEPTH/<lidar file>.pkl.npy``): per camera
+    of ``lidar2img`` [V, 4, 4], ``generate_camera_foreground`` over the
+    objects it sees (seed ``seed + camera``), as lists
+    virtual_pixel_indices, real_pixel_indices, virtual_points,
+    real_points."""
+    per_cam = [generate_camera_foreground(
+        points, np.asarray(l2i, np.float64), img_hw,
+        _instances_for_camera(objects, l2i, img_hw),
+        num_virtual=num_virtual, seed=seed + ci)
+        for ci, l2i in enumerate(lidar2img)]
+    keys = ('virtual_pixel_indices', 'real_pixel_indices', 'virtual_points',
+            'real_points')
+    return {k: [cam[j] for cam in per_cam] for j, k in enumerate(keys)}
+
+
 # ---------------------------------------------------------------------------
 # Foreground packing (LoadForeground2D._organize + PadForeground2D)
 # ---------------------------------------------------------------------------
@@ -364,12 +383,9 @@ def realistic_batch(shape: Dict, b: int, seed: int = 0,
         gt_bboxes[bi], gt_labels[bi], gt_valid[bi] = scene_gt(objects,
                                                               max_gt)
         l2i = camera_rig(img_hw, num_cams=v, seed=seed + 17 * bi)
-        per_cam = [generate_camera_foreground(
-            pts, np.asarray(l2i[ci], np.float64), img_hw,
-            _instances_for_camera(objects, l2i[ci], img_hw),
-            num_virtual=num_virtual, seed=seed + 31 * bi + ci)
-            for ci in range(v)]
-        pix, pts_fg, real_pix = _organize(*zip(*per_cam))
+        artifact = foreground_artifact(pts, objects, l2i, img_hw,
+                                       num_virtual, seed + 31 * bi)
+        pix, pts_fg, real_pix = _organize(*artifact.values())
         fg_points, fg_mask = _pad(pts_fg, v, m, 15, 'foreground.points_cap')
         fg_pixels, _ = _pad(pix, v, m, 3, 'foreground.pixels_cap')
         fg_real, real_mask = _pad(real_pix, v, mr, 3,
