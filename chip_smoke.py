@@ -6,7 +6,8 @@ compute frames, its ablation and backend switches, its train step with
 the image branch trained, TransFusion-L's train step, the flagship's
 stage-2 step with its LiDAR encoders frozen and its bf16-compute train
 step, TransFusion-LC's inference and train step, the Waymo
-TransFusion-L and LC, and the eval and train CLIs on files.
+TransFusion-L and LC, the eval and train CLIs on files, and the
+flagship's step and CLIs over process groups.
 
     python3 chip_smoke.py
 
@@ -210,7 +211,41 @@ Phases (any failure raises and ends the run with a non-zero exit):
    JSON log, the checkpoint and TensorBoard files; a resume at step 3
    that replays epoch 0's first batch; the eval CLI loading that
    checkpoint with every tensor bit-equal to the state after step 3; no
-   worker process left.
+   worker process left;
+18. the flagship data-parallel (``DIST``), each part in child processes
+   (the main process joins no group): (a) phase 5's step (``FLAGSHIP``'s
+   capacities times 4; phase 17 trains at 3x) on the first frame of a
+   realistic batch of two (4x: the encoder's and the GMA's capacities
+   hold the batch), through ``make_train_step`` in a world-1 NCCL
+   group (``parallel.init_dist('manual')``), against the single-process
+   step on that frame; (b) the batch of two split over two ranks that
+   share the card over gloo (NCCL refuses two ranks on one card; where
+   there are two cards, over NCCL on both as well), one frame a rank, the
+   config's dropout on, against the single-process step on both frames.
+   Each split step runs on the reference step's proposals, assignment
+   and ReLU masks on inputs with a batch axis (``PinnedProposals``,
+   ``PinnedTargets``, ``BatchReluMasks``: discrete functions of the
+   values, which rounding can turn at a near-tie), each rank on its
+   share; the sparse rows' ReLUs decide for themselves. Held in each: the loss terms, ``grad_norm``, every gradient and
+   running statistic within 10 times the spread of the single-process step
+   under reordered sums (``Reordered``: the norms' moments summed in
+   another order, the dense convs off cuDNN, the perturbation a split
+   brings; on the same pins), never less than 1e-4 of max (phase 5's twin
+   limit); each parameter's update within 1e-3 of the learning rate (2.01
+   times it where the gradient's sign is unsettled or its clipped value
+   near Adam's eps) plus 4 ulp of the parameter; phase 5's launches and
+   overflow 0 on every rank; every rank ends with the same bits; the
+   collectives of a step counted; ``grad_norm``'s largest parts printed;
+   3 steps timed on each side. (c) The eval CLI on phase 17's files under
+   ``msmdfusion_torch/tools/dist_test.sh``
+   (torchrun, ``--launcher pytorch``, 2 ranks on the card over gloo): the
+   merged detections in dataset order, each bit-equal to phase 17's
+   single-process output, overflow 0. (d) The train CLI over 2 ranks
+   (``--launcher manual``, gloo, one sample a rank): 2 steps and
+   ``ckpt_2``, written by rank 0 alone, equal to both ranks' tensors; a
+   resume to step 3 (epoch 0 again from its first batch), ``ckpt_3`` equal
+   to both ranks. A ``dist`` line sums up each part's worst deviation
+   against its limit, the collectives of a step and its seconds.
 
 Each phase prints its seconds by the host clock.
 
@@ -4162,10 +4197,13 @@ def json_records(work):
     return out
 
 
-def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP):
+def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
     """Phase 17: the eval and train CLIs (``msmdfusion_torch.tools``) on
     the flagship config with ``caps`` through ``--cfg-options``, from
-    ``write_nuscenes``' files (see the module docstring)."""
+    ``write_nuscenes``' files (see the module docstring). ``then(files)``
+    runs last, on the same files (dict(config, checkpoint: the seed's
+    weights, out: the eval CLI's ``--out`` pickle, test_opts, train_opts,
+    card, dev))."""
     import multiprocessing
     import tempfile
     import numpy as np
@@ -4370,9 +4408,612 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP):
               f'bit-equal to the state after step {spec["steps"]}',
               flush=True)
         del run, after
+        torch.cuda.empty_cache()
+        if then is not None:
+            then(dict(config=config, checkpoint=str(Path(tmp) / 'ckpt_0'),
+                      out=str(Path(tmp) / 'r.pkl'), test_opts=test_opts,
+                      train_opts=train_opts, card=card, dev=dev))
     check(not multiprocessing.active_children(),
           f'{label}: worker processes left')
     torch.cuda.empty_cache()
+
+
+# phase 18: the flagship data-parallel, every part in child processes (the
+# main process joins no group): the step at FLAGSHIP's capacities times
+# ``caps`` on a realistic batch of two frames (the encoder's and the GMA's
+# capacities hold a batch: twice phase 17's 3x a frame would be 6; the
+# second frame of the batch needs less, and every step is checked to drop
+# nothing), ``timed`` steps timed on each side; the CLIs on phase 17's
+# files, each rank's pipeline on ``cli_workers`` workers
+DIST = dict(caps=4, timed=3, cli_workers=2, timeout=600)
+ADAM_EPS = 1e-8                 # apis.train.ClippedAdamW's default
+
+
+def scaled_caps(scale, caps=FLAGSHIP):
+    """``caps`` with every capacity times ``scale``."""
+    return dict(caps, max_voxels=caps['max_voxels'] * scale, **{
+        k: [c * scale for c in caps[k]]
+        for k in ('enc_caps', 'gma_caps', 'union_caps', 'fg_caps')})
+
+
+class Reordered:
+    """Inside the scope the training step's sums run in another fp32
+    order: every batch norm takes its moments by the port's two-pass
+    formula (``layers.global_moments``, the dense norms too, as inside a
+    process group, without one) over its rows in reverse order, and the
+    dense convs run off cuDNN (another algorithm). That is what splitting
+    a batch over ranks does to the step (each rank's partial sums, then
+    their sum; cuDNN's algorithm for the smaller batch): the spread of
+    this step from the plain one measures what the model makes of it, as
+    phase 5's reordered sums do for the sparse convs."""
+
+    def __enter__(self):
+        import torch
+        from msmdfusion_torch.models import layers
+        self._layers = layers
+        self._orig = layers.grouped, layers.all_sum, layers.global_moments
+        moments = layers.global_moments
+
+        def reversed_rows(xf, dims, weight=None):
+            flip = [d % xf.dim() for d in dims]
+            return moments(xf.flip(flip), dims, None if weight is None
+                           else weight.flip([d for d in flip
+                                             if weight.shape[d] > 1]))
+        layers.grouped = lambda: True
+        layers.all_sum = lambda x: x
+        layers.global_moments = reversed_rows
+        self._cudnn = torch.backends.cudnn.flags(enabled=False)
+        self._cudnn.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._cudnn.__exit__(*exc)
+        (self._layers.grouped, self._layers.all_sum,
+         self._layers.global_moments) = self._orig
+        return False
+
+
+class Collectives:
+    """Count the collectives of ``torch.distributed`` called inside the
+    scope, by name."""
+    NAMES = ('all_reduce', 'broadcast', 'all_gather', 'all_gather_object',
+             'barrier')
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self._orig = {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self._orig.items():
+            def counted(*a, _name=name, _fn=fn, **k):
+                self.counts[_name] += 1
+                return _fn(*a, **k)
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._orig.items():
+            setattr(dist, name, fn)
+        return False
+
+
+class BatchReluMasks(ReluMasks):
+    """``ReluMasks`` for the ReLUs whose masks a split batch can share:
+    inside the scope every ReLU called with autograd on an input with a
+    batch axis (three or more dims, the batch's rows leading: the BEV maps,
+    the head's queries, the foreground points) records its mask or, given
+    ``masks`` recorded over the global batch, applies this rank's rows of
+    them (``local_batch_slice`` of ``world``), in call order. ReLUs without
+    autograd (the frozen image branch) and on sparse rows [rows, C] (laid
+    out by the whole batch's keys) decide for themselves."""
+
+    def __init__(self, masks=None, rank=0, world=1):
+        super().__init__(masks)
+        self.rank, self.world = rank, world
+
+    def relu(self, x, inplace=False):
+        import torch
+        from msmdfusion_torch.parallel import local_batch_slice
+        if x.dim() < 3 or not torch.is_grad_enabled():
+            return self._orig[0](x)
+        if self.replay:
+            mask = self.masks[self.calls]
+            mask = mask[local_batch_slice(mask.shape[0], self.rank,
+                                          self.world)]
+            check(mask.shape == x.shape, f'ReLU call {self.calls}: shape '
+                  f'{tuple(x.shape)}, recorded {tuple(mask.shape)}')
+            out = torch.where(mask, x, 0.0)
+        else:
+            self.masks.append(x > 0)
+            out = self._orig[0](x)
+        self.calls += 1
+        return out
+
+
+class PinnedTargets:
+    """Inside the scope the head's ``get_targets`` returns ``targets``
+    (another step's assignment and targets) in place of assigning anew;
+    with ``targets`` None it assigns and keeps what it returned there."""
+
+    def __init__(self, head, targets=None):
+        self.head, self.targets, self._keep = head, targets, targets is None
+
+    def __enter__(self):
+        assign = self.head.get_targets
+
+        def get_targets(*a, **k):
+            if self._keep:
+                self.targets = assign(*a, **k)
+            return self.targets
+        self.head.get_targets = get_targets
+        return self
+
+    def __exit__(self, *exc):
+        del self.head.get_targets
+        return False
+
+
+def rank_pins(pins, rank, world):
+    """This rank's share of a step's proposals, targets and ReLU masks
+    (``dist_step``'s ``pins`` over the global batch): its rows of the
+    proposals and targets, its own count of positives, the matched IoU a
+    world-th each (its share of the metric), the masks whole
+    (``BatchReluMasks`` takes the rank's rows of each)."""
+    from msmdfusion_torch.parallel import shard_batch
+    labels, lw, boxes, weights, _, _, heatmap = shard_batch(
+        pins['targets'], rank, world)
+    return dict(index=shard_batch(pins['index'], rank, world),
+                targets=(labels, lw, boxes, weights,
+                         (weights[..., 0] > 0).sum(), pins['targets'][5] /
+                         world, heatmap),
+                relu=pins['relu'], rank=rank, world=world)
+
+
+def dist_step(label, model, start, batch, card, scopes=(), timed=0,
+              pins=None):
+    """One ``make_train_step`` of phase 5's recipe from the state ``start``
+    on ``batch`` (inside a group, this rank's share of the global batch),
+    then ``timed`` more steps split and timed (``split_steps``): dict(metrics,
+    grads, state after the first step, launches, collectives, overflow:
+    this rank's and summed over the ranks, split, pins). The first step
+    runs inside ``scopes`` and, given ``pins`` (``rank_pins`` of another
+    step on the same samples), on that step's proposals, assignment and
+    batch-axis ReLU masks (``BatchReluMasks``), as phase 5's twin does:
+    each is a discrete function of the values, and at full scale rounding
+    alone can turn a near-tie; without ``pins`` it records its own."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.train import (build_lr_schedule,
+                                             build_optimizer,
+                                             make_train_step)
+    from msmdfusion_torch.utils import overflow
+    model.load_state_dict(start)
+    opt = build_optimizer(
+        model, TRAIN['optimizer'], TRAIN['optimizer_config'],
+        build_lr_schedule(TRAIN['lr_config'], TRAIN['optimizer']['lr'],
+                          TRAIN['total_steps'], TRAIN['steps_per_epoch']),
+        frozen_prefixes=TRAIN['frozen'])
+    step = make_train_step(model, opt, seed=SEED)
+    seen = {}
+    with contextlib.ExitStack() as stack:
+        for scope in scopes:
+            stack.enter_context(scope)
+        targets = stack.enter_context(PinnedTargets(
+            model.pts_bbox_head, pins and pins['targets']))
+        relu = stack.enter_context(BatchReluMasks(
+            *(() if pins is None else (pins['relu'], pins['rank'],
+                                       pins['world']))))
+        if pins is not None:
+            stack.enter_context(PinnedProposals(pins['index']))
+        else:
+            def keep(module, args, out):
+                seen.setdefault('index', proposal_index(out))
+            hook = model.register_forward_hook(keep)
+            stack.callback(hook.remove)
+        with Collectives() as coll, overflow.capture() as cap:
+            kernels.reset_launches()
+            metrics = step(batch, 0)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+    rec = dict(metrics={k: float(v) for k, v in metrics.items()},
+               grads={n: p.grad.detach().to('cpu', copy=True)
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+               state={k: v.detach().to('cpu', copy=True)
+                      for k, v in model.state_dict().items()},
+               launches=launches, collectives=coll.counts,
+               overflow=cap.counters(),
+               overflow_global=cap.global_counters(),
+               pins=None if pins is not None else dict(
+                   index=seen['index'].cpu(),
+                   targets=tuple(t.cpu() for t in targets.targets),
+                   relu=[m.cpu() for m in relu.masks]))
+    rec['split'] = split_steps(label, step, model, opt, batch, timed,
+                               card) if timed else []
+    return rec
+
+
+def step_ms(rec):
+    return [round(sum(s), 1) for s in rec['split']]
+
+
+def dist_rows(run, ref, alt, start):
+    """``run`` against ``ref`` (``dist_step`` records), ``alt`` the
+    reference step with its sums reordered (``Reordered``): the loss
+    terms, ``grad_norm``, every gradient, running statistic and parameter
+    update, each within ``FLOOR_MARGIN`` times ``alt``'s spread from
+    ``ref``, never less than ``TOL`` of its largest value (phase 5's twin
+    limits after the decoder: the split moves the head-input gradient
+    too, so the rule holds below the head as well). An update is held to
+    its limit times the learning rate's scale: Adam's first step moves a
+    parameter by about the rate whatever its gradient, so where the
+    gradient lies within ten times its limit of 0 (its sign unsettled), or
+    its clipped value within 100 times Adam's eps of 0 (the update then
+    follows the clip's scale, ``grad_norm``), the update may differ by up
+    to 2.01 times the rate; 4 ulp of the parameter for its rounding.
+    Returns [(error over max |ref|, limit, spread, name)], worst first by
+    error over limit."""
+    import torch
+    from msmdfusion_torch.apis.train import build_lr_schedule
+    rows = []
+    lr = build_lr_schedule(TRAIN['lr_config'], TRAIN['optimizer']['lr'],
+                           TRAIN['total_steps'], TRAIN['steps_per_epoch'])(0)
+
+    def held(name, got, want, other):
+        got, want, other = (torch.as_tensor(x, dtype=torch.float64)
+                            for x in (got, want, other))
+        rel = rel_err(got, want)[1]
+        spread = rel_err(other, want)[1]
+        rows.append((rel, max(TOL, FLOOR_MARGIN * spread), spread, name))
+
+    for key, want in ref['metrics'].items():
+        if 'loss' in key or key == 'grad_norm':
+            held(key, run['metrics'][key], want, alt['metrics'][key])
+    check(set(run['grads']) == set(ref['grads']),
+          'the split and whole steps give gradients to different '
+          'parameters')
+    limits = {}
+    for name, want in ref['grads'].items():
+        held(name, run['grads'][name], want, alt['grads'][name])
+        limits[name] = rows[-1][1] * float(want.abs().max())
+    # the clip's scale on the first step (Adam's first update is g over
+    # |g| + eps: where the clipped |g| nears eps it follows the scale)
+    clip = TRAIN['optimizer_config']['grad_clip']['max_norm']
+    scale = min(1.0, clip / ref['metrics']['grad_norm'])
+    for name, want in ref['state'].items():
+        if name.endswith(('running_mean', 'running_var')):
+            held(name, run['state'][name], want, alt['state'][name])
+        elif name in limits:
+            g = ref['grads'][name]
+            moved = want.double() - start[name].double()
+            got = run['state'][name].double() - start[name].double()
+            settled = (g.abs() > 10 * limits[name]) & (
+                g.abs() * scale > 100 * ADAM_EPS)
+            allowed = torch.where(settled, 1e-3 * lr, 2.01 * lr) \
+                + 2 ** -21 * want.double().abs()       # 4 ulp of fp32
+            err = float(((got - moved).abs() / allowed).max())
+            rows.append((err, 1.0, 0.0, f'{name} update'))
+    rows.sort(key=lambda r: r[0] / r[1], reverse=True)
+    return rows
+
+
+def norm_parts(run, ref, alt, top=5):
+    """The ``top`` largest parts of the reference's squared ``grad_norm``:
+    [(name, share, that tensor's norm in ``run`` and ``alt`` over ref's)]."""
+    parts = sorted(((float(g.double().pow(2).sum()), n)
+                    for n, g in ref['grads'].items()), reverse=True)
+    total = sum(p for p, _ in parts)
+    return [(n, round(p / total, 4),
+             round(float(run['grads'][n].double().norm()) / p ** 0.5, 4),
+             round(float(alt['grads'][n].double().norm()) / p ** 0.5, 4))
+            for p, n in parts[:top]]
+
+
+def worst(rows):
+    """The worst held value and the worst update of ``dist_rows``."""
+    held = [r for r in rows if not r[3].endswith(' update')]
+    updates = [r for r in rows if r[3].endswith(' update')]
+    rel, limit, spread, name = held[0]
+    return (f'worst {rel:.3g} of max |ref| against a limit of {limit:.3g} '
+            f'({name}; reordered spread {spread:.3g}) of {len(held)} '
+            f'values; updates at worst {updates[0][0]:.3g} of their '
+            f'allowance ({updates[0][3]}) of {len(updates)}')
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def run_children(fn, world, args, label, timeout=DIST['timeout']):
+    """``fn(rank, world, port, *args)`` in ``world`` spawned processes (a
+    free localhost port for their group), waited for; a child that fails
+    or outlives ``timeout`` seconds fails the phase, and every child is
+    stopped."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world, free_port(), *args),
+                             nprocs=world, join=False, start_method='spawn')
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f'{label}: {world} ranks still running after {timeout} s')
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+
+
+def manual_env(rank, world, port):
+    import os
+    os.environ.update(MSMD_COORDINATOR=f'127.0.0.1:{port}',
+                      MSMD_NUM_PROCESSES=str(world),
+                      MSMD_PROCESS_ID=str(rank))
+
+
+def tensor_digests(state):
+    """{name: sha256 of the tensor's bytes} of a state dict."""
+    import hashlib
+    import torch
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().reshape(-1)
+                              .view(torch.uint8).numpy().tobytes()
+                              ).hexdigest() for k, v in state.items()}
+
+
+def moved(x, dev):
+    """``x`` (tensors in nested dicts, lists and tuples) on ``dev``."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: moved(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(moved(v, dev) for v in x)
+    return x
+
+
+def step_child(rank, world, port, work, part, backend, card):
+    """A rank of phase 18 (a)/(b): joins a group of ``world`` (``manual``
+    launcher, ``backend``; on ``cuda:0`` for gloo, where the ranks share a
+    card), loads the calibrated weights, the batch and the reference
+    step's proposals and assignment that ``work`` holds for ``part``
+    (dict(samples: ``shard_batch``'s (rank, world) of the saved batch of
+    two that make up this part's global batch, name)), takes this rank's
+    share of them and runs ``dist_step``; saves its record (rank 0's whole,
+    the others' without gradients) and the digests of its state."""
+    import torch
+    from msmdfusion_torch.parallel import dist_scope, shard_batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    manual_env(rank, world, port)
+    saved = torch.load(Path(work) / 'step.pt', weights_only=False)
+    with dist_scope('manual', 'cuda:0' if backend == 'gloo' else 'cuda',
+                    backend) as dev:
+        model = build_flagship(dev, caps=scaled_caps(DIST['caps']))
+        model.load_state_dict(saved['start'])
+        share = shard_batch(shard_batch(saved['batch'], *part['samples']))
+        pins = rank_pins(saved['pins'][part['name']], rank, world)
+        rec = dist_step(f'dist ({world} rank{"s" if world > 1 else ""}, '
+                        f'{backend}) rank {rank}', model, saved['start'],
+                        moved(share, dev), card, timed=DIST['timed'],
+                        pins=moved(pins, dev))
+        rec['digests'] = tensor_digests(rec['state'])
+        if rank:
+            del rec['grads'], rec['state']
+        torch.save(rec, Path(work) / f'rank{rank}.pt')
+
+
+def dist_steps(card, dev):
+    """Phase 18 (a) and (b): the flagship's step over a process group
+    against the single-process step on the same batch (see the module
+    docstring)."""
+    import tempfile
+    import torch
+    from msmdfusion_torch.parallel import shard_batch
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    from msmdfusion_torch.utils.synth_scene import realistic_batch
+    label = 'dist'
+    t0 = time.perf_counter()
+    model = build_flagship(dev, caps=scaled_caps(DIST['caps']))
+    scene = realistic_batch(
+        dict(FLAGSHIP['shape'], pcr=model.pts_voxel_layer[
+            'point_cloud_range']), b=2, seed=SEED, return_gt=True)
+    t = torch.from_numpy
+    batch = dict(inputs=(t(scene['points']), t(scene['points_mask']),
+                         t(scene['img']),
+                         {k: t(v) for k, v in scene['fg'].items()}),
+                 gt_bboxes=t(scene['gt']['gt_bboxes']),
+                 gt_labels=t(scene['gt']['gt_labels']),
+                 gt_valid=t(scene['gt']['gt_valid']))
+    whole = moved(batch, dev)
+    with torch.no_grad():
+        calibrate_norms(model, *whole['inputs'])
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    refs, pins = {}, {}
+    for name, b in (('frame 0', shard_batch(whole, 0, 2)),
+                    ('batch of 2', whole)):
+        ref = dist_step(f'{label}: single process, {name}', model, start, b,
+                        card, timed=DIST['timed'] if name == 'frame 0'
+                        else 0)
+        pins[name] = ref['pins']
+        refs[name] = (ref, dist_step(
+            f'{label}: single process, {name}, sums reordered', model,
+            start, b, card, scopes=[Reordered()],
+            pins=moved(rank_pins(pins[name], 0, 1), dev)))
+        for rec in refs[name]:
+            check(not any(rec['overflow'].values()),
+                  f'{label}: the single-process step on the {name} drops '
+                  f'rows: {rec["overflow"]}')
+    del model, whole
+    torch.cuda.empty_cache()
+    print(f'{label}: setup and the single-process steps in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    parts = [('(a) world 1, nccl', 1, dict(samples=(0, 2), name='frame 0'),
+              'nccl'),
+             ('(b) 2 ranks on one card, gloo', 2,
+              dict(samples=(0, 1), name='batch of 2'), 'gloo')]
+    if torch.cuda.device_count() >= 2:
+        parts.append(('(b) 2 ranks on 2 cards, nccl', 2,
+                      dict(samples=(0, 1), name='batch of 2'), 'nccl'))
+    else:
+        print(f'{label}: (b) over nccl on two cards not run: '
+              f'{torch.cuda.device_count()} card', flush=True)
+    lines = []
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(dict(start=start, batch=batch, pins=pins),
+                   Path(work) / 'step.pt')
+        for name, world, part, backend in parts:
+            t1 = time.perf_counter()
+            for old in Path(work).glob('rank*.pt'):
+                old.unlink()
+            run_children(step_child, world, (work, part, backend, card),
+                         f'{label} {name}')
+            ranks = [torch.load(Path(work) / f'rank{r}.pt',
+                                weights_only=False) for r in range(world)]
+            ref, alt = refs[part['name']]
+            run = ranks[0]
+            for r, rec in enumerate(ranks):
+                check_launches(f'{label} {name}: rank {r}', rec['launches'],
+                               TRAIN['launches'])
+                check(not any(rec['overflow'].values())
+                      and not any(rec['overflow_global'].values()),
+                      f'{label} {name}: rank {r} overflow {rec["overflow"]}')
+                check(rec['digests'] == run['digests'],
+                      f'{label} {name}: rank {r} ends with other tensors '
+                      'than rank 0')
+                check(rec['metrics'] == run['metrics'],
+                      f'{label} {name}: rank {r} metrics differ')
+            rows = dist_rows(run, ref, alt, start)
+            print(f'{label} {name}: grad_norm {run["metrics"]["grad_norm"]} '
+                  f'(reference {ref["metrics"]["grad_norm"]}, sums '
+                  f'reordered {alt["metrics"]["grad_norm"]}); its largest '
+                  f'parts (name, share of the square, norm here and '
+                  f'reordered over the reference\'s): '
+                  f'{norm_parts(run, ref, alt)}', flush=True)
+            bad = [r for r in rows if r[0] > r[1]]
+            check(not bad, f'{label} {name}: over the limit: {bad[:5]}')
+            coll = {k: v for k, v in run['collectives'].items() if v}
+            lines.append(f'{name}: {worst(rows)}; collectives a step '
+                         f'{sum(coll.values())} {coll}; launches a rank '
+                         f'{ {k: v for k, v in run["launches"].items() if v} }'
+                         f', overflow 0 on {world} '
+                         f'rank{"s" if world > 1 else ""} '
+                         f'({time.perf_counter() - t1:.1f} s)')
+            print(f'{label} {lines[-1]} [{card}]', flush=True)
+            if world == 1:
+                print(f'{label}: step ms (CUDA events at the seams of '
+                      f'make_train_step, {DIST["timed"]} steps each, one '
+                      f'card, one call): single process {step_ms(ref)}, '
+                      f'world-1 nccl {step_ms(run)} [{card}]', flush=True)
+            else:
+                print(f'{label}: {name} rank 0 step ms {step_ms(run)} '
+                      '(plumbing: two ranks share one card, not a rate) '
+                      f'[{card}]', flush=True)
+    return lines
+
+
+def train_cli_child(rank, world, port, argv, out):
+    """A rank of phase 18 (d): the train CLI under ``--launcher manual``
+    over gloo, the ranks sharing ``cuda:0``; saves its steps, batches and
+    the digests of its model's state in the directory ``out``."""
+    import torch
+    from msmdfusion_torch.tools import train as train_cli
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    manual_env(rank, world, port)
+    run = train_cli.main(argv + ['--launcher', 'manual', '--backend', 'gloo',
+                                 '--device', 'cuda:0'])
+    torch.save(dict(start_step=run['start_step'], step=run['step'],
+                    checkpoint=run['checkpoint'], batches=run['batches'],
+                    digests=tensor_digests(run['model'].state_dict())),
+               Path(out) / f'cli{rank}.pt')
+
+
+def dist_clis(files):
+    """Phase 18 (c) and (d): the eval CLI under torchrun and the train CLI
+    over 2 ranks, on phase 17's files (``entry_points``' ``then``)."""
+    import os
+    import pickle
+    import numpy as np
+    import torch
+    card = files['card']
+    label = 'dist'
+    lines = []
+    t0 = time.perf_counter()
+    out = Path(files['out']).with_name('r_2ranks.pkl')
+    workers = f'data.workers_per_gpu={DIST["cli_workers"]}'
+    proc = subprocess.run(
+        ['bash', str(ROOT / 'msmdfusion_torch' / 'tools' / 'dist_test.sh'),
+         files['config'], files['checkpoint'], '2', '--backend', 'gloo',
+         '--device', 'cuda:0', '--out', str(out), '--cfg-options',
+         *files['test_opts'], workers],
+        capture_output=True, text=True, timeout=DIST['timeout'],
+        env=dict(os.environ, PORT=str(free_port()), PYTHON=sys.executable,
+                 PYTHONPATH=str(ROOT)))
+    check(proc.returncode == 0, f'{label} (c): dist_test.sh exit '
+          f'{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+    with open(files['out'], 'rb') as f:
+        one = pickle.load(f)
+    with open(out, 'rb') as f:
+        two = pickle.load(f)
+    check(len(two) == len(one) and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(two, one)
+        for k in ('bboxes', 'scores', 'labels')),
+        f'{label} (c): the 2-rank detections differ from phase 17\'s')
+    check('overflow_total 0' in proc.stdout and 'rank 0 of 2' in proc.stdout
+          and 'rank 1 of 2' in proc.stdout,
+          f'{label} (c): ranks or overflow:\n{proc.stdout[-3000:]}')
+    lines.append(f'(c) eval CLI under torchrun, --launcher pytorch, 2 ranks '
+                 f'on one card (gloo): {len(two)} samples merged in dataset '
+                 'order, each bit-equal to phase 17\'s single-process '
+                 f'output; overflow 0 ({time.perf_counter() - t0:.1f} s)')
+    print(f'{label} {lines[-1]} [{card}]', flush=True)
+
+    t0 = time.perf_counter()
+    work = Path(files['out']).with_name('work_2ranks')
+    argv = [files['config'], '--work-dir', str(work), '--cfg-options',
+            *files['train_opts'], 'data.samples_per_gpu=1', workers]
+    recs = []
+    for steps, extra in ((2, []), (3, ['--no-validate'])):
+        run_children(train_cli_child, 2,
+                     (argv + ['--max-steps', str(steps)] + extra,
+                      str(work.parent)), f'{label} (d)')
+        recs.append([torch.load(work.parent / f'cli{r}.pt',
+                                weights_only=False) for r in range(2)])
+        ckpt = torch.load(work / f'ckpt_{steps}', weights_only=True)
+        want = tensor_digests(ckpt['state_dict'])
+        for r, rec in enumerate(recs[-1]):
+            check(rec['step'] == steps and rec['checkpoint'] == str(
+                work / f'ckpt_{steps}') and rec['digests'] == want,
+                  f'{label} (d): rank {r} after {steps} steps: step '
+                  f'{rec["step"]}, checkpoint {rec["checkpoint"]}, its '
+                  'tensors equal to the checkpoint\'s: '
+                  f'{rec["digests"] == want}')
+    names = sorted(p.name for p in work.iterdir())
+    logs = [n for n in names if n.endswith('.log.json')]
+    check([n for n in names if n not in logs] == [
+        'ckpt_2', 'ckpt_3', 'tf_logs', 'train.log'] and len(logs) in (1, 2),
+          f'{label} (d): the work dir holds {names}')
+    fresh, resumed = recs
+    check(all(r['start_step'] == 2 and r['batches'] == f['batches'][:1]
+              for f, r in zip(fresh, resumed)),
+          f'{label} (d): resumed at {resumed[0]["start_step"]} with batches '
+          f'{[r["batches"] for r in resumed]}, the fresh run\'s '
+          f'{[r["batches"] for r in fresh]}')
+    lines.append(f'(d) train CLI over 2 ranks on one card (gloo): 2 steps, '
+                 f'ckpt_2 written once (by rank 0), both ranks\' '
+                 f'{len(want)} tensors equal to it; resumed at step 2 and '
+                 'stepped to 3, ckpt_3 equal to both ranks; batches '
+                 f'{[r["batches"] for r in fresh]} then '
+                 f'{[r["batches"] for r in resumed]} '
+                 f'({time.perf_counter() - t0:.1f} s)')
+    print(f'{label} {lines[-1]} [{card}]', flush=True)
+    return lines
 
 
 def report(phases, card):
@@ -4515,8 +5156,16 @@ def main():
     lap('15 (TransFusion-LC train, image branch frozen)')
     waymo_phases(card, dev)
     lap('16 (Waymo TransFusion-L and LC)')
-    entry_points(card, dev)
-    lap('17 (the eval and train CLIs on files)')
+    dist = []
+
+    def then(files):
+        lap('17 (the eval and train CLIs on files)')
+        dist.extend(dist_clis(files))
+    entry_points(card, dev, then=then)
+    lap('18 (c, d: the CLIs over 2 ranks)')
+    dist += dist_steps(card, dev)
+    lap('18 (a, b: the flagship step over a process group)')
+    print('dist: ' + ' | '.join(dist), flush=True)
 
     report(phases, card)
     print(json.dumps({'ok': True, 'device': {

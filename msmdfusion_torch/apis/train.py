@@ -24,6 +24,19 @@ of every gradient, as JAX's ``optax.global_norm(grads)``. The flagship's
 image branch under ``freeze_img`` gets none, since that detector runs it
 without autograd (its JAX ``stop_gradient``); TransFusion-LC's gets its
 gradients and they count, as the JAX ``TransFusionDetector`` stops none.
+
+Inside a process group (``parallel.distributed``) a step over the ranks'
+shares of a global batch is the single-process step on the whole batch,
+as the JAX step is over a batch-sharded mesh: the batch norms' moments and
+the head's loss normalisers are global, so each rank's loss is its share
+of the global loss and the ranks' gradients sum to its gradient
+(``reduce_gradients``: after the backward, one all-reduce per bucket in a
+fixed order, every gradient ``grad_norm`` reads included; not torch's
+``DistributedDataParallel``, whose mean would need the loss scaled by the
+ranks, and whose reductions, started by hooks as gradients come ready,
+would interleave on one group with the norms' own all-reduces of the
+backward); dropout draws the global batch's masks (``SharedGenerator``);
+the metrics are the global batch's.
 """
 from __future__ import annotations
 
@@ -32,6 +45,9 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.distributed import (SharedGenerator, all_sum, get_rank,
+                                    get_world_size, grouped)
 
 # the JAX package's tools/train.py:36-37 predicates, under the port's
 # module names (a prefix rule: JAX's 'middle_encoder' substring does not
@@ -239,6 +255,45 @@ def dropout_generator(device, seed: int, step: int) -> torch.Generator:
         seed * 1_000_003 + step)
 
 
+# gradients summed over the ranks in buckets of this many bytes (torch
+# DistributedDataParallel's default bucket size)
+BUCKET_BYTES = 25 * 2 ** 20
+
+
+@torch.no_grad()
+def reduce_gradients(params: Sequence[torch.Tensor]) -> None:
+    """Each gradient of ``params`` replaced by its sum over the ranks of the
+    group (a no-op without one), bucketed. A parameter with a gradient on
+    some rank and none on another takes a zero gradient there: which ones
+    have one is agreed first (one small all-reduce), so every rank's
+    buckets hold the same tensors in the same order."""
+    if not grouped():
+        return
+    params = list(params)
+    if not params:
+        return
+    has = torch.tensor([p.grad is not None for p in params],
+                       dtype=torch.float32, device=params[0].device)
+    has = all_sum(has).tolist()
+    live = []
+    for p, n in zip(params, has):
+        if n:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            live.append(p)
+    bucket, size = [], 0
+    for i, p in enumerate(live):
+        bucket.append(p.grad)
+        size += p.grad.numel() * p.grad.element_size()
+        if (i + 1 == len(live) or size >= BUCKET_BYTES
+                or live[i + 1].grad.dtype != p.grad.dtype):
+            flat = all_sum(torch.cat([g.reshape(-1) for g in bucket]))
+            for g, part in zip(bucket, flat.split([g.numel()
+                                                   for g in bucket])):
+                g.copy_(part.view_as(g))
+            bucket, size = [], 0
+
+
 def make_train_step(model: nn.Module, optimizer: ClippedAdamW,
                     seed: int = 0):
     """train_step(batch, step) -> metrics: a training-mode forward with
@@ -247,9 +302,12 @@ def make_train_step(model: nn.Module, optimizer: ClippedAdamW,
     modules are given back as they were before the step. ``batch``:
     dict(inputs=the model's positional inputs (points, points_mask[, img,
     fg] for the flagship, [, img, metas] for TransFusion-LC), gt_bboxes,
-    gt_labels, gt_valid) on the model's device. Metrics:
+    gt_labels, gt_valid) on the model's device; inside a process group,
+    this rank's share of the global batch (``parallel.shard_batch``), every
+    rank holding the same parameters (``parallel.replicate``). Metrics:
     the loss dict, 'total_loss' and 'grad_norm' (before clipping, over
-    every gradient, the frozen parameters' included), as tensors."""
+    every gradient, the frozen parameters' included), as tensors, the
+    global batch's inside a group."""
     frozen = optimizer.frozen_prefixes
 
     def train_step(batch: Dict[str, Any], step: int) -> Dict[str, Any]:
@@ -258,18 +316,26 @@ def make_train_step(model: nn.Module, optimizer: ClippedAdamW,
         kept = [(b, b.clone()) for n, b in model.named_buffers()
                 if _under(n, frozen)]
         gen = dropout_generator(batch['gt_bboxes'].device, seed, step)
+        if grouped():
+            gen = SharedGenerator(gen, get_rank(), get_world_size())
         preds = model(*batch['inputs'], generator=gen)
         losses = model.loss(preds, batch['gt_bboxes'], batch['gt_labels'],
                             batch['gt_valid'])
         total = total_loss(losses)
         total.backward()
         with torch.no_grad():
+            reduce_gradients(model.parameters())
             for b, old in kept:                 # _keep_frozen_stats
                 b.copy_(old)
             grad_norm = global_norm(p.grad for p in model.parameters())
         optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics['total_loss'] = total.detach()
+        if grouped():                           # the ranks' shares summed
+            keys = list(metrics)
+            summed = all_sum(torch.stack([metrics[k].float()
+                                          for k in keys]))
+            metrics = dict(zip(keys, summed.unbind()))
         metrics['grad_norm'] = grad_norm
         return metrics
     return train_step

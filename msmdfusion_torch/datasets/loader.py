@@ -14,6 +14,12 @@ Counterpart of the JAX package's ``datasets/loader.py`` (reference mmdet
 - the batch order of an epoch is the JAX loader's: the indices shuffled by
   ``np.random.RandomState(seed + epoch)`` (``set_epoch``), so a resumed run
   sees the order a fresh one would;
+- over ``world`` ranks, every rank draws the same order and loads its
+  share of each global batch of ``batch_size x world`` samples, the
+  contiguous slice ``rank`` (each JAX process's share of a batch-sharded
+  global batch); at world 1 the loader is the single-process one.
+  ``indices`` restricts the loader to some dataset indices (an eval
+  rank's ``shard_indices``), each sample still seeded by its own index;
 - fixed shapes make collation a plain stack; batches are pinned and moved
   to ``device`` with non-blocking copies, the foreground dict included
   (``metas`` stays on the host);
@@ -28,6 +34,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import local_batch_slice
 from ..utils import overflow
 
 
@@ -113,11 +120,14 @@ class DataLoader:
     """Batches of ``dataset`` (a dataset with ``sample(index, rng)``),
     pipelines run by ``num_workers`` worker processes; with ``device``,
     pinned and moved there. The workers persist across epochs until
-    ``close``."""
+    ``close``. ``rank``/``world``: this rank's ``batch_size`` samples of
+    each global batch; ``indices``: the dataset indices to load (all where
+    None)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0,
-                 drop_last: bool = True, device=None):
+                 drop_last: bool = True, device=None, rank: int = 0,
+                 world: int = 1, indices=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -125,6 +135,10 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.device = torch.device(device) if device is not None else None
+        self.rank = rank
+        self.world = world
+        self.indices = (np.arange(len(dataset)) if indices is None
+                        else np.asarray(indices, np.int64))
         self.epoch = 0
         self._loader = None
 
@@ -134,19 +148,22 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset)
+        n, g = len(self.indices), self.batch_size * self.world
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return n // g
+        return -(-n // g)
 
     def index_batches(self) -> List[np.ndarray]:
-        """The epoch's batches of dataset indices: ``RandomState(seed +
-        epoch)`` shuffles them where ``shuffle``."""
-        idx = np.arange(len(self.dataset))
+        """This rank's batches of dataset indices in the epoch:
+        ``RandomState(seed + epoch)`` shuffles the indices where
+        ``shuffle``, global batches of ``batch_size x world`` follow in
+        order, and the rank takes its slice of each."""
+        idx = self.indices.copy()
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        return [idx[i * self.batch_size:(i + 1) * self.batch_size]
-                for i in range(len(self))]
+        g = self.batch_size * self.world
+        mine = local_batch_slice(g, self.rank, self.world)
+        return [idx[i * g:(i + 1) * g][mine] for i in range(len(self))]
 
     def _torch_loader(self):
         if self._loader is None:

@@ -45,6 +45,7 @@ from ...core.boxes import corners_3d
 from ...core.gaussian import draw_heatmap, gaussian_radius
 from ...core.iou3d import boxes_iou_3d
 from ...ops.matching import assign_proposals
+from ...parallel.distributed import all_sum, batch_rand, gather_rows
 from ...registry import BBOX_CODERS, HEADS
 from ...utils.timing import section
 from ..layers import (BatchNorm1d, Conv1d, Conv2d, ConvModule, LayerNorm,
@@ -56,11 +57,11 @@ from ..losses import (clip_sigmoid, gaussian_focal_loss, l1_loss,
 
 def dropout(x, p: float, training: bool, generator=None):
     """Inverted dropout with rate ``p`` in training mode; the mask draws
-    from ``generator`` (the default generator when None)."""
+    from ``generator`` (the default generator when None; a
+    ``SharedGenerator``: the global batch's mask, this rank's rows)."""
     if not training or p <= 0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= p
+    keep = batch_rand(x.shape, generator, x.device, x.dtype) >= p
     return torch.where(keep, x / (1 - p), 0.0)
 
 
@@ -513,9 +514,15 @@ class TransFusionHead(nn.Module):
             label_weights = label_weights * on
             bbox_weights = bbox_weights * on[..., None]
             num_pos = bbox_weights.amax(-1).sum()
+        # the normalisers are the global batch's: inside a process group
+        # each rank's terms are its share of the global loss, which the
+        # ranks' sum gives (JAX's are global under GSPMD)
+        num_pos, hm_peaks = all_sum(torch.stack([
+            num_pos.to(torch.float32),
+            (heatmap_tgt == 1.0).sum().to(torch.float32)]))
         losses = {}
         clipped = clip_sigmoid(preds['dense_heatmap'])
-        hm_avg = torch.clamp((heatmap_tgt == 1.0).sum(), min=1)
+        hm_avg = torch.clamp(hm_peaks, min=1)
         losses['loss_heatmap'] = \
             gaussian_focal_loss(clipped, heatmap_tgt).sum() / hm_avg
         code_weights = preds['heatmap'].new_tensor(
@@ -532,8 +539,10 @@ class TransFusionHead(nn.Module):
                 alpha=self.loss_cls.get('alpha', 0.25))
             # [N] losses times [N, 1] weights: the JAX package's broadcast,
             # which sums the outer product, i.e. N times the reference's
-            # weighted sum when every weight is 1 (ROADMAP section 3)
-            lw = label_weights[..., sl].reshape(-1)
+            # weighted sum when every weight is 1 (ROADMAP section 3); the
+            # weights are the global batch's (gather_rows), so the ranks'
+            # shares sum to the global batch's outer product
+            lw = gather_rows(label_weights[..., sl]).reshape(-1)
             loss_cls = (loss_cls * lw[:, None]).sum() / avg
             losses[f'{prefix}_loss_cls'] = \
                 loss_cls * self.loss_cls.get('loss_weight', 1.0)
@@ -582,8 +591,9 @@ class TransFusionHead(nn.Module):
                                                safe), self.num_classes)
         label_weights = torch.ones_like(labels, dtype=enc.dtype)
         num_pos = pos.sum()
+        # this rank's share of the global mean (the ranks' sum)
         matched_ious = torch.where(pos, max_iou, 0.0).sum() / \
-            torch.clamp(num_pos, min=1)
+            torch.clamp(all_sum(num_pos), min=1)
 
         # dense heatmap targets
         fm_h, fm_w = self._bev_shape()

@@ -22,6 +22,12 @@ the product as flax does, each rounded; on fp32 inputs and parameters the
 casts are no-ops. ``cast_params`` casts a model's parameters as the JAX
 bench casts its params tree (``bench.py:128-133``): parameters only, the
 norms' running statistics stay fp32.
+
+Inside a process group (``parallel.distributed``) a batch norm in training
+mode takes its moments over every rank's rows (``global_moments``: the
+JAX package's two passes, ``layers.py:69-84``, each sum over the group),
+as the JAX package's are over a batch-sharded mesh; the running statistics
+then come out the same on every rank. Outside one they are this process's.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.distributed import all_sum, grouped
 
 
 def get_activation(name: Optional[str]) -> Optional[Callable]:
@@ -132,14 +140,59 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
 
 
+def global_moments(xf, dims, weight=None):
+    """(mean, biased variance, count) of fp32 ``xf`` over ``dims`` (mean
+    and variance keep those dims, of size 1), rows weighted by ``weight``
+    (0 or 1, broadcast against ``xf``; all rows where None), over every
+    rank of the process group: the count and the sum summed over the ranks
+    (one reduction), then the squared deviations from the global mean (a
+    second); the count clamped to at least 1 after the sum, so a rank may
+    hold no valid row. Without a group, this process's moments in the same
+    arithmetic."""
+    if weight is None:
+        s = xf.sum(dims, keepdim=True)
+        count = xf.new_full((), xf.numel() / s.numel())  # a fill: no copy
+    else:
+        s = (xf * weight).sum(dims, keepdim=True)
+        count = weight.sum().to(xf.dtype)
+    packed = all_sum(torch.cat([s.reshape(-1), count.reshape(1)]))
+    count = torch.clamp(packed[-1], min=1.0)
+    mean = (packed[:-1] / count).reshape(s.shape)
+    dev = (xf - mean) ** 2
+    if weight is not None:
+        dev = dev * weight
+    return mean, all_sum(dev.sum(dims, keepdim=True)) / count, count
+
+
+@torch.no_grad()
+def update_running(bn, mean, var, count):
+    """The running statistics' update with torch's momentum convention
+    (new = (1 - m) old + m batch, the unbiased variance)."""
+    m = bn.momentum
+    unbiased = var.reshape(-1) * count / torch.clamp(count - 1.0, min=1.0)
+    bn.running_mean.mul_(1 - m).add_(m * mean.reshape(-1))
+    bn.running_var.mul_(1 - m).add_(m * unbiased)
+    bn.num_batches_tracked.add_(1)
+
+
 class _Fp32Norm:
     """A torch batch norm on any input and parameter dtype: computed in
     fp32, returned in the input's dtype (as the module itself on fp32).
     In training mode the moments are those of the widened input and the
     running statistics (fp32) update as the module's own do (JAX
-    ``MaskedBatchNorm``, ``layers.py:69-92``)."""
+    ``MaskedBatchNorm``, ``layers.py:69-92``); inside a process group they
+    are the global moments (``global_moments``)."""
 
     def forward(self, x):
+        if self.training and grouped():
+            xf = x.float()
+            mean, var, count = global_moments(xf, (0, *range(2, x.dim())))
+            update_running(self, mean, var, count)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            y = (xf - mean) * torch.rsqrt(var + self.eps) \
+                * self.weight.float().reshape(shape) \
+                + self.bias.float().reshape(shape)
+            return y.to(x.dtype)
         if x.dtype == torch.float32 and self.weight.dtype == torch.float32:
             return super().forward(x)
         if self.training:
@@ -187,8 +240,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     of the valid rows only (``nn.BatchNorm1d``'s own would count the
     padding rows): the biased variance normalises, and the running mean
     and the unbiased variance update with torch's momentum convention
-    (new = (1 - m) * old + m * batch). ``fold()`` (eval only) returns the
-    affine as ``(scale, shift)`` for fusion into a conv kernel's epilogue.
+    (new = (1 - m) * old + m * batch); inside a process group the moments
+    and the count are every rank's (``global_moments``). ``fold()`` (eval
+    only) returns the affine as ``(scale, shift)`` for fusion into a conv
+    kernel's epilogue.
     """
 
     def forward(self, x, mask=None):
@@ -200,15 +255,8 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         else:
             w = (torch.ones_like(xf[:, :1]) if mask is None
                  else mask.to(xf.dtype)[:, None])
-            count = torch.clamp(w.sum(), min=1.0)
-            mean = (xf * w).sum(0) / count
-            var = (((xf - mean) ** 2) * w).sum(0) / count
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * unbiased)
-                self.num_batches_tracked.add_(1)
+            mean, var, count = global_moments(xf, (0,), w)
+            update_running(self, mean, var, count)
             y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight \
                 + self.bias
         if mask is not None:

@@ -39,6 +39,7 @@ from torch import nn
 from ...ops.nn_argmin import masked_nn
 from ...ops.sparse.tensor import (SparseTensor, lookup_sorted_pair,
                                   make_sparse_tensor, sparse_add)
+from ...parallel import distributed
 from ...registry import MIDDLE_ENCODERS
 from ...utils.prng import uniform
 from ..layers import MLP
@@ -62,7 +63,8 @@ def modality_split(voxel_3d: SparseTensor, voxel_2d: SparseTensor):
 
 
 def approx_nn_3d(query_coords, query_valid, key_coords, key_valid,
-                 num_reps: int, radius: float, dist_thresh: float):
+                 num_reps: int, radius: float, dist_thresh: float,
+                 global_batch: bool = False):
     """Representative-based nearest 3D voxel of each valid query, in
     voxel-index space: [K2] int32 key row, -1 where unassigned.
 
@@ -71,6 +73,17 @@ def approx_nn_3d(query_coords, query_valid, key_coords, key_valid,
     JAX ``argsort(~query_valid)`` does). A representative is kept when its
     nearest key lies within ``dist_thresh``; a query joins its nearest
     representative within ``radius``.
+
+    The choice spans the batch: in training the JAX package's spans its
+    global batch under GSPMD, and with ``global_batch`` (training inside a
+    process group) this one spans the global batch too: ``K2`` is the
+    global capacity (every rank's, ``world`` times this one's), and this
+    rank keeps the representatives that fall on its valid rows, which
+    follow the earlier ranks' (``rank_offset``), in the global numbering;
+    queries only match representatives of their own sample, so each
+    sample gets the representatives of the single-process choice on the
+    global batch. Evaluation runs each rank's batch alone (the JAX
+    package's rank-sharded evaluation runs each process's).
     """
     q = query_coords[:, 1:].to(torch.float32).contiguous()
     k = key_coords[:, 1:].to(torch.float32).contiguous()
@@ -78,11 +91,19 @@ def approx_nn_3d(query_coords, query_valid, key_coords, key_valid,
     kb = key_coords[:, 0].contiguous()
     k2 = q.shape[0]
     order = torch.argsort((~query_valid).to(torch.int8), stable=True)
-    stride = max(k2 // num_reps, 1)
-    rep_rows = order[::stride][:num_reps]
+    if global_batch:
+        stride = max(k2 * distributed.get_world_size() // num_reps, 1)
+        pos = torch.arange(0, num_reps * stride, stride, device=q.device) \
+            - distributed.rank_offset(query_valid.sum())
+        mine = (pos >= 0) & (pos < query_valid.sum())
+        rep_rows = order[torch.clamp(pos, 0, k2 - 1)]
+        reps_valid = query_valid[rep_rows] & mine
+    else:
+        stride = max(k2 // num_reps, 1)
+        rep_rows = order[::stride][:num_reps]
+        reps_valid = query_valid[rep_rows]
     reps = q[rep_rows]
     reps_b = qb[rep_rows]
-    reps_valid = query_valid[rep_rows]
 
     nn_row, nn_d2 = masked_nn(reps, reps_b, k, kb, key_valid)
     rep_ok = reps_valid & (torch.sqrt(nn_d2) < dist_thresh)
@@ -189,7 +210,8 @@ class SparseMultiModalEncoderPaint(nn.Module):
             else:
                 nn_row = approx_nn_3d(
                     v2.coords, split['only_2d'], v3.coords, v3.valid,
-                    fps_num_list[i], radius_list[i], dist_thresh_list[i])
+                    fps_num_list[i], radius_list[i], dist_thresh_list[i],
+                    global_batch=self.training and distributed.grouped())
             seed = dummy_seed()
             dummy = (getattr(self, f'dummy_embedding_{i}') if seed is None
                      else uniform(seed * 8 + i, c3,

@@ -31,13 +31,18 @@ _NAME = re.compile(r'^ckpt_(\d+)$')
 _NO_REFERENCE_KEY = re.compile(r'(^|\.)dummy_embedding_\d+$')
 
 
+def checkpoint_path(work_dir: str, step: int) -> str:
+    """The absolute path of step ``step``'s checkpoint in ``work_dir``."""
+    return os.path.abspath(os.path.join(work_dir, f'ckpt_{step}'))
+
+
 def save_checkpoint(work_dir: str, step: int, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     meta: Optional[Dict[str, Any]] = None) -> str:
     """Write ``{state_dict, optimizer, step, meta}`` (tensors on the CPU)
-    to ``<work_dir>/ckpt_<step>``; returns the path."""
+    to ``checkpoint_path(work_dir, step)``; returns the path."""
     os.makedirs(work_dir, exist_ok=True)
-    path = os.path.abspath(os.path.join(work_dir, f'ckpt_{step}'))
+    path = checkpoint_path(work_dir, step)
     state = {'state_dict': {k: v.detach().cpu()
                             for k, v in model.state_dict().items()},
              'step': int(step), 'meta': dict(meta or {})}

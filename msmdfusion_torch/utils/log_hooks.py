@@ -11,7 +11,9 @@ mmcv hooks, configs/MSMDFusion_nusc_voxel_LC.py:295-299 ``log_config`` /
   ``evaluation = dict(interval=1)``) with a batch inference function and
   the dataset's own ``evaluate``; the rows dropped at every capacity site
   during it (pipeline and model) go into the record as
-  ``overflow/<site>``.
+  ``overflow/<site>``. Over ``world`` ranks each rank runs its
+  ``shard_indices``, the detections are gathered in dataset order and
+  rank 0 evaluates.
 """
 from __future__ import annotations
 
@@ -50,34 +52,50 @@ class EvalHook:
         interval: epochs between evaluations (reference EvalHook.interval).
         max_samples: cap on val samples (None = all).
         num_workers, device: the val loader's (``datasets.DataLoader``).
+        rank, world: this rank of a process group (every rank calls
+        ``run``).
     """
 
     def __init__(self, dataset, infer_fn: Callable,
                  interval: int = 1, max_samples: Optional[int] = None,
-                 num_workers: int = 0, device=None):
+                 num_workers: int = 0, device=None, rank: int = 0,
+                 world: int = 1):
         self.dataset = dataset
         self.infer_fn = infer_fn
         self.interval = max(int(interval), 1)
         self.max_samples = max_samples
         self.num_workers = num_workers
         self.device = device
+        self.rank = rank
+        self.world = world
 
     def should_run(self, epoch: int) -> bool:
         return (epoch + 1) % self.interval == 0
 
-    def run(self) -> Dict[str, float]:
+    def run(self) -> Optional[Dict[str, float]]:
+        """The metrics and the overflow counts summed over the ranks (on
+        rank 0; None on the others)."""
         from ..datasets.loader import DataLoader
+        from ..parallel.distributed import (collect_results,
+                                            merge_sharded_results,
+                                            shard_indices)
+        n = len(self.dataset)
+        if self.max_samples is not None:
+            n = min(n, self.max_samples)
         results = []
         with overflow.capture() as cap, DataLoader(
                 self.dataset, 1, shuffle=False, drop_last=False,
-                num_workers=self.num_workers, device=self.device) as loader:
-            for i, batch in enumerate(loader):
-                if self.max_samples is not None and i >= self.max_samples:
-                    break
+                num_workers=self.num_workers, device=self.device,
+                indices=shard_indices(n, self.rank, self.world)) as loader:
+            for batch in loader:
                 results.extend(self.infer_fn(batch))
+        counts = cap.global_counters()
+        results = merge_sharded_results(collect_results(results), n)
+        if self.rank != 0:
+            return None
         metrics = self.dataset.evaluate(results)
         out = {k: float(v) for k, v in metrics.items()
                if hasattr(v, '__float__') or isinstance(v, (int, float))}
-        for site, count in cap.counters().items():
+        for site, count in counts.items():
             out[f'overflow/{site}'] = float(count)
         return out

@@ -10,7 +10,9 @@ and counted here.
   value)`` with an occupancy value. Inside a ``capture()`` scope both are
   kept as tensors, with no host sync; outside one they are not kept.
 - ``capture.counters()`` / ``capture.total()`` / ``capture.gauge_values()``
-  read the scope's values (one host sync).
+  read the scope's values (one host sync); ``capture.global_counters()``
+  sums the counters over the ranks of the process group, where a run
+  counts only if every rank dropped nothing (called by every rank).
 """
 from __future__ import annotations
 
@@ -44,6 +46,16 @@ class capture:
 
     def total(self) -> int:
         return sum(self.counters().values())
+
+    def global_counters(self) -> Dict[str, int]:
+        """``counters()`` summed per site over every rank of the process
+        group (this process's without one)."""
+        from ..parallel.distributed import collect_results
+        out: Dict[str, int] = {}
+        for _, counts in collect_results(self.counters()):
+            for name, c in counts.items():
+                out[name] = out.get(name, 0) + c
+        return out
 
     def gauge_values(self) -> Dict[str, List[int]]:
         """{site: [value, ...]}, one entry per gauge() call, in call order."""

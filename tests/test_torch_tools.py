@@ -8,7 +8,8 @@ test pipeline and an ``evaluation`` added). Eval with ``--out``, ``--eval``
 and ``--format-only``, its detections bit-equal to a direct model call on
 the same batch; three train steps with a checkpoint, the train and val
 records, a resume; and the refusals: no card without ``--device cpu``, a
-``--launcher`` other than ``none``, a JPEG without PIL.
+``--launcher`` other than ``none``, ``pytorch`` or ``manual``, ``pytorch``
+outside torchrun's environment, a JPEG without PIL.
 """
 import json
 import os
@@ -184,15 +185,20 @@ def test_train_cli(config, tmp_path):
 
 
 def test_refusals(synthetic_dataset, tmp_path, monkeypatch):  # noqa: F811
-    """No card and no --device cpu; a launcher other than none; a JPEG
-    view with no PIL. None of them runs on."""
+    """No card and no --device cpu; an unknown launcher; a launcher
+    without its environment; a JPEG view with no PIL. None of them runs
+    on."""
     _, path = synthetic_dataset
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for cli in (test_cli, train_cli):
         with pytest.raises(RuntimeError, match='torch.cuda.is_available'):
             cli.main([path, '--work-dir', str(tmp_path)] if cli is train_cli
                      else [path])
-        with pytest.raises(NotImplementedError, match='DDP over NCCL'):
+        with pytest.raises(ValueError, match='none, pytorch, manual'):
+            cli.main([path, '--launcher', 'slurm', *CPU])
+        for var in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK'):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(RuntimeError, match='RANK, WORLD_SIZE, LOCAL_RANK'):
             cli.main([path, '--launcher', 'pytorch', *CPU])
     from PIL import Image
     from msmdfusion_torch.datasets.pipelines.loading import \
