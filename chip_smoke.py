@@ -6,8 +6,10 @@ compute frames, its ablation and backend switches, its train step with
 the image branch trained, TransFusion-L's train step, the flagship's
 stage-2 step with its LiDAR encoders frozen and its bf16-compute train
 step, TransFusion-LC's inference and train step, the Waymo
-TransFusion-L and LC, the eval and train CLIs on files, and the
-flagship's step and CLIs over process groups.
+TransFusion-L and LC, the eval and train CLIs on files, the flagship's
+step and CLIs over process groups, TransFusion-L's stage-1 recipe (GT
+paste from a GT database the port's tool builds) and the Waymo configs
+from KITTI-format files.
 
     python3 chip_smoke.py
 
@@ -245,7 +247,44 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``ckpt_2``, written by rank 0 alone, equal to both ranks' tensors; a
    resume to step 3 (epoch 0 again from its first batch), ``ckpt_3`` equal
    to both ranks. A ``dist`` line sums up each part's worst deviation
-   against its limit, the collectives of a step and its seconds.
+   against its limit, the collectives of a step and its seconds;
+19. GT paste (``gt_paste``, on phase 17's files, before phase 18 (a, b)):
+   three other frames of the same generator (seeds 1-3) in the nuScenes
+   layout under the config's ``db_sampler.data_root`` of the working
+   directory, ``python -m msmdfusion_torch.tools.create_data nuscenes
+   --with-gt-database`` (in-process; without nuscenes-devkit, from the
+   info file already there) builds the database the config reads
+   (``nuscenes_dbinfos_train.pkl``); the train CLI on
+   ``configs/transfusion_nusc_voxel_L.py`` unchanged but for the encoder
+   capacities (``GT_PASTE``): its ``ObjectSample`` pipeline in the
+   loader's workers, the ``cyclic`` schedule, x3, 3 steps and a val frame:
+   the (objects, points) pasted in every sample of every step above 0
+   (the batches' ``gt_paste`` metas), launches of kernels 1, 2 and 4 a
+   step (phase 11's) plus the val frame's, finite losses, overflow 0 at
+   every site but the config's train-time voxel cap (its drop printed);
+   then the fade: the same train set with ``stop_epoch`` 1 through one
+   loader on 2 worker processes, epoch 0's first batch pasting in every
+   sample and epoch 1's in none;
+20. Waymo from files (``waymo_files``): phase 16's frame as a KITTI-format
+   Waymo set (``write_waymo``: 6-float velodyne ``.bin``, infos with
+   ``point_cloud.velodyne_path``, ``image.image_idx``, a calibration that
+   is not the identity, camera-frame annos with ``num_points_in_gt`` and
+   a DontCare entry) under the configs' ``data_root`` of the working
+   directory; the train CLI on ``configs/transfusion_waymo_voxel_L.py``
+   unchanged but for the encoder capacities (3x ``WAYMO``'s for the
+   batch of two augmented frames), ``load_interval`` keeping a batch a
+   step, 2 steps (phase 11's launches a step, overflow 0 at every site,
+   finite losses); the eval CLI ``--eval`` on a checkpoint of the seed's
+   weights with norms calibrated on val frame 0 (launches, overflow 0,
+   finite ``waymo`` metrics, sample 0's boxes bit-equal to a direct
+   forward on its pipeline output, the model's ms/frame), a timed pass
+   (the eval CLI over an info file listing the frame 40 times: its
+   steady frames/s from frame 2 x workers on, and the pipeline alone at
+   the config's workers), ``--format-only`` (the
+   ``.bin`` parses back to as many objects as were detected), and the
+   eval CLI on ``transfusion_waymo_voxel_LC.py`` (no views in its
+   pipeline: its detections bit-equal to TransFusion-L's on the same
+   weights).
 
 Each phase prints its seconds by the host clock.
 
@@ -490,9 +529,11 @@ LC_TRAIN_STEPS = 2          # timed, after the counted step
 # step keeps phase 11's per-call checks and launches but not its twin:
 # phase 11 holds the same code's twin on nuScenes, and on this 188 x 188
 # BEV one head gradient (the decoder's key position embedding, a sum over
-# its 35,344 cells) read 10.1 times the reordered spread in one of two runs
-# (2.2 in the other), the rule's single-order spread being too noisy an
-# estimate there
+# its 35,344 cells) reads 10.11 times the reversed-order spread in every
+# run (``waymo_twin_orders.py``: 5 runs over 2 calls, the same bits each),
+# while six other orders of the same sums spread 1.15-3.34 times as far as
+# the reversed one, the kernel path lying 3.0-8.8 times each: one order's
+# spread is too noisy a yardstick there
 WAYMO = dict(config=ROOT / 'configs' / 'transfusion_waymo_voxel_L.py',
              config_lc=ROOT / 'configs' / 'transfusion_waymo_voxel_LC.py',
              dataset='Waymo', n_points=180000, img_hw=(448, 800),
@@ -4037,12 +4078,12 @@ ENTRY = dict(samples=4, sweeps=9, img_hw=(900, 1600), num_virtual=200,
              steps=3, timed=100, timed_one_worker=20, train_caps=3)
 
 
-def flagship_frame(pcr, shape=FLAGSHIP['shape']):
-    """(points, objects) of ``realistic_batch(shape, b=1, seed=SEED)``'s
+def flagship_frame(pcr, shape=FLAGSHIP['shape'], seed=SEED):
+    """(points, objects) of ``realistic_batch(shape, b=1, seed=seed)``'s
     frame: its generator draws the images first, then the scene."""
     import numpy as np
     from msmdfusion_torch.utils.synth_scene import lidar_scene
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     rng.randn(1, shape['v'], *shape['img_hw'], 3)
     return lidar_scene(rng, shape['n'], pcr)
 
@@ -4201,9 +4242,10 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
     """Phase 17: the eval and train CLIs (``msmdfusion_torch.tools``) on
     the flagship config with ``caps`` through ``--cfg-options``, from
     ``write_nuscenes``' files (see the module docstring). ``then(files)``
-    runs last, on the same files (dict(config, checkpoint: the seed's
-    weights, out: the eval CLI's ``--out`` pickle, test_opts, train_opts,
-    card, dev))."""
+    runs last, on the same files, in the same working directory
+    (dict(config, checkpoint: the seed's weights, out: the eval CLI's
+    ``--out`` pickle, test_opts, train_opts, card, dev, root: the
+    dataset's directory, ann: its info file))."""
     import multiprocessing
     import tempfile
     import numpy as np
@@ -4412,7 +4454,8 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
         if then is not None:
             then(dict(config=config, checkpoint=str(Path(tmp) / 'ckpt_0'),
                       out=str(Path(tmp) / 'r.pkl'), test_opts=test_opts,
-                      train_opts=train_opts, card=card, dev=dev))
+                      train_opts=train_opts, card=card, dev=dev, root=root,
+                      ann=ann))
     check(not multiprocessing.active_children(),
           f'{label}: worker processes left')
     torch.cuda.empty_cache()
@@ -5016,6 +5059,513 @@ def dist_clis(files):
     return lines
 
 
+# phase 19: TransFusion-L's stage-1 recipe from files. Its GT database is
+# built by the port's create_data from the frames of ``db_seeds`` (the
+# generator of phase 17's frame, other seeds: a database built from the
+# frame it trains on offers only boxes that sit on that frame's own GT,
+# which the sampler's collision test rejects), written in the nuScenes
+# layout under the config's db_sampler.data_root in the working directory,
+# where the config reads it. The train CLI runs the config unchanged on
+# phase 17's files but for TransFusion-L's encoder capacities times
+# ``train_caps`` (the batch's two augmented frames and their pastes); the
+# config's own train-time voxel cap drops rows (printed, not held). The
+# fade: the CLI's train set with stop_epoch 1, epochs 0 and 1 through one
+# loader on ``fade_workers`` worker processes
+GT_PASTE = dict(db_seeds=(1, 2, 3), steps=3, train_caps=3, fade_workers=2)
+VOXEL_CAP_SITE = 'voxelize.mean_batch.voxel_cap'
+
+
+def write_db_frames(root, pcr, seeds, shape=FLAGSHIP['shape']):
+    """``flagship_frame``'s frames of ``seeds`` in the nuScenes layout under
+    ``root`` (samples/LIDAR_TOP, every point in the keyframe, no sweeps) and
+    their info file ``nuscenes_infos_train.pkl``; returns the number of GT
+    boxes written."""
+    import pickle
+    import numpy as np
+    from msmdfusion_torch.datasets.nuscenes import NuScenesDataset
+    from msmdfusion_torch.utils.synth_scene import scene_gt
+    root = Path(root).resolve()
+    lidar = root / 'samples' / 'LIDAR_TOP'
+    lidar.mkdir(parents=True, exist_ok=True)
+    infos = []
+    for seed in seeds:
+        pts, objects = flagship_frame(pcr, shape, seed)
+        boxes, labels, valid = scene_gt(objects)
+        path = lidar / f'db{seed}.bin'
+        pts.tofile(path)
+        infos.append(dict(
+            token=f'db{seed}', lidar_path=str(path), timestamp=seed,
+            sweeps=[], gt_boxes=boxes[valid, :7],
+            gt_names=np.array([NuScenesDataset.CLASSES[c]
+                               for c in labels[valid]]),
+            gt_velocity=boxes[valid, 7:9]))
+    with open(root / 'nuscenes_infos_train.pkl', 'wb') as f:
+        pickle.dump(dict(infos=infos,
+                         metadata=dict(version='v1.0-trainval')), f)
+    return sum(len(info['gt_boxes']) for info in infos)
+
+
+@contextlib.contextmanager
+def metas_recorded(module, into):
+    """A scope in which ``module.batch_model_inputs`` (a CLI's) appends
+    each batch's ``gt_paste`` metas to ``into`` before it runs."""
+    orig = module.batch_model_inputs
+
+    def recorded(model_type, batch, device):
+        into.append([m['gt_paste'].tolist() for m in batch['metas']
+                     if 'gt_paste' in m])
+        return orig(model_type, batch, device)
+    module.batch_model_inputs = recorded
+    try:
+        yield
+    finally:
+        module.batch_model_inputs = orig
+
+
+def first_batch_pastes(dataset, batch_size, workers, epochs):
+    """{epoch: [(objects, points) pasted per sample]} of each epoch's first
+    batch of ``dataset``, the epochs in turn through one loader on
+    ``workers`` persistent worker processes."""
+    from msmdfusion_torch.datasets.loader import DataLoader
+    seen = {}
+    with DataLoader(dataset, batch_size, seed=SEED,
+                    num_workers=workers) as loader:
+        for epoch in epochs:
+            loader.set_epoch(epoch)
+            for batch in loader:
+                seen[epoch] = [tuple(m['gt_paste'].tolist())
+                               for m in batch['metas']]
+                break
+    return seen
+
+
+def gt_paste(card, dev, root, ann, spec=GT_PASTE):
+    """Phase 19 (see the module docstring): the port's create_data builds
+    the GT database from other frames, the train CLI trains
+    TransFusion-L's stage-1 recipe from phase 17's files (``root``,
+    ``ann``) with it, and the fade pastes nothing past its epoch."""
+    import pickle
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.config import load_config, parse_cli_overrides
+    from msmdfusion_torch.registry import DATASETS
+    from msmdfusion_torch.tools import create_data
+    from msmdfusion_torch.tools import train as train_cli
+    from msmdfusion_torch.utils import overflow
+    label = 'GT paste'
+    config = str(TL['config'])
+    cfg = load_config(config)
+    sampler = cfg.db_sampler
+    t0 = time.perf_counter()
+    n_gt = write_db_frames(sampler.data_root, cfg.point_cloud_range,
+                           spec['db_seeds'])
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done = create_data.main(['nuscenes', '--root-path', sampler.data_root,
+                             '--with-gt-database'])
+    check(Path(done['gt_database']).resolve()
+          == Path(sampler.info_path).resolve(),
+          f'{label}: create_data wrote {done["gt_database"]}, the config '
+          f'reads {sampler.info_path}')
+    with open(done['gt_database'], 'rb') as f:
+        db = pickle.load(f)
+    minimum = sampler.prepare.filter_by_min_points
+    usable = {k: sum(e['num_points_in_gt'] >= minimum.get(k, 0) for e in v)
+              for k, v in db.items()}
+    check(sum(map(len, db.values())) == n_gt and all(usable.values()),
+          f'{label}: {n_gt} boxes, database {usable}')
+    print(f'{label}: {len(spec["db_seeds"])} frames of seeds '
+          f'{list(spec["db_seeds"])} written in {written:.1f} s, their '
+          f'{n_gt} GT boxes cropped by create_data --with-gt-database in '
+          f'{time.perf_counter() - t0:.1f} s into {done["gt_database"]}; '
+          f'clusters the sampler keeps by class {usable}', flush=True)
+
+    # the train CLI: 3 steps and a val frame, the pipeline in its workers
+    work = str(Path('work_gt_paste').resolve())
+    caps = ','.join(str(c * spec['train_caps']) for c in TL['enc_caps'])
+    opts = ([f'model.pts_middle_encoder.stage_capacities={caps}']
+            + data_options('train.dataset', root, ann)
+            + data_options('val', root, ann)
+            + ['evaluation.interval=1', 'evaluation.max_samples=1',
+               'log_config.interval=1'])
+    pastes = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with overflow.capture() as cap, metas_recorded(train_cli, pastes):
+        run = train_cli.main([config, '--work-dir', work, '--device',
+                              str(dev), '--max-steps', str(spec['steps']),
+                              '--cfg-options', *opts])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check_launches(f'{label}: train CLI', launches, {
+        k: spec['steps'] * v + TL['launches'].get(k, 0)
+        for k, v in TL_TRAIN['launches'].items()})
+    per_step = {k: (launches[k] - TL['launches'].get(k, 0)) // spec['steps']
+                for k in TL_TRAIN['launches']}
+    records = json_records(work)
+    train = [r for r in records if r['mode'] == 'train']
+    val = [r for r in records if r['mode'] == 'val']
+    check(len(train) == spec['steps']
+          and all(math.isfinite(r['total_loss']) for r in train)
+          and len(val) == 1 and 'NDS' in val[0],
+          f'{label}: train records {train}, val {val}')
+    dropped = {k: v for k, v in cap.counters().items() if v}
+    voxel_drop = dropped.pop(VOXEL_CAP_SITE, 0)
+    val_dropped = {k: v for k, v in val[0].items()
+                   if k.startswith('overflow/') and v}
+    check(not dropped and not val_dropped,
+          f'{label}: overflow at the port\'s own sites: steps {dropped}, '
+          f'val {val_dropped}')
+    check(len(pastes) == spec['steps'] and all(
+        len(step) == cfg.data.samples_per_gpu and all(
+            o > 0 and p > 0 for o, p in step) for step in pastes),
+          f'{label}: (objects, points) pasted per sample of each step '
+          f'{pastes}')
+    print(f'{label}: train CLI on {Path(config).name} (ObjectSample, the '
+          f'cyclic schedule, x3) from phase 17\'s files: {spec["steps"]} '
+          f'steps + checkpoint + 1 val frame in {seconds:.1f} s; (objects, '
+          f'points) pasted per sample of each step {pastes}; total_loss '
+          f'{[round(r["total_loss"], 4) for r in train]}, lr '
+          f'{[r["lr"] for r in train]}, samples/s '
+          f'{[r["samples_per_s"] for r in train]}; launches per step '
+          f'{per_step} (+ the val frame\'s {TL["launches"]}); overflow 0 '
+          f'at every site of the port\'s own ({spec["train_caps"]}x the '
+          f'encoder capacities) in the steps and the val frame; the '
+          f'config\'s train-time voxel cap {cfg.model.pts_voxel_layer.max_voxels[0]} '
+          f'a sample dropped {voxel_drop} voxels over the {spec["steps"]} '
+          f'steps [{card}]', flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    # the fade: stop_epoch 1, epochs 0 and 1 through the workers
+    t0 = time.perf_counter()
+    paste_at = next(i for i, t in enumerate(cfg.data.train.dataset.pipeline)
+                    if t['type'] == 'ObjectSample')
+    fade = load_config(config, parse_cli_overrides(
+        opts + [f'data.train.dataset.pipeline.{paste_at}.stop_epoch=1']))
+    seen = first_batch_pastes(DATASETS.build(dict(fade.data.train,
+                                                  seed=SEED)),
+                              fade.data.samples_per_gpu,
+                              spec['fade_workers'], (0, 1))
+    check(all(o > 0 for o, _ in seen[0]) and all(
+        o == 0 and p == 0 for o, p in seen[1]),
+          f'{label}: stop_epoch 1: (objects, points) pasted in the first '
+          f'batch of epochs 0 and 1 {seen}')
+    print(f'{label}: fade (stop_epoch 1): the first batch of epoch 0 '
+          f'pasted {seen[0]}, of epoch 1 {seen[1]} (objects, points per '
+          f'sample; one loader, {spec["fade_workers"]} worker processes, '
+          f'{time.perf_counter() - t0:.1f} s)', flush=True)
+
+
+# phase 20: Waymo from files. Phase 16's frame (its 180,000 points and
+# GT, seed SEED) as a KITTI-format Waymo set under the configs' data_root in
+# the working directory (``write_waymo``): the configs run unchanged but
+# for the encoder capacities, ``train_caps`` times WAYMO's for the train
+# CLI's batch of two augmented frames, WAYMO's for one eval frame. The
+# train infos list the frame so that ``load_interval`` keeps a batch a
+# step; ``val`` entries for the eval CLI. The timed pass reads a third
+# info file, ``waymo_infos_timed.pkl``, listing the frame ``timed`` times;
+# its first ``2 x workers`` frames (start-up and the prefetch) are left
+# out, as in phase 17
+WAYMO_FILES = dict(steps=2, train_caps=3, val=2, timed=40)
+
+
+def waymo_calib():
+    """A KITTI calibration that is not the identity: Tr_velo_to_cam the
+    LiDAR-to-camera axes after a 0.02 rad yaw and an offset, R0_rect a
+    0.01 rad roll, P2 a 700-pixel pinhole."""
+    import numpy as np
+    c, s = np.cos(0.02), np.sin(0.02)
+    tr = np.eye(4)
+    tr[:3, :3] = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]]) @ np.array(
+        [[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    tr[:3, 3] = [0.05, -0.3, 0.1]
+    c, s = np.cos(0.01), np.sin(0.01)
+    r0 = np.eye(4)
+    r0[1:3, 1:3] = [[c, -s], [s, c]]
+    p2 = np.array([[700.0, 0, 600, 0], [0, 700, 200, 0], [0, 0, 1, 0]])
+    return dict(R0_rect=r0.astype(np.float32),
+                Tr_velo_to_cam=tr.astype(np.float32),
+                P2=p2.astype(np.float32))
+
+
+def write_waymo(root, frames, counts, classes, image_shape=(1280, 1920)):
+    """A KITTI-format Waymo set under ``root``: each of ``frames`` (points
+    [N, 5], LiDAR boxes [G, 7], labels [G]) as a 6-float velodyne ``.bin``
+    (a zero column added), and for each split of ``counts`` ({split:
+    entries}) the info file ``waymo_infos_<split>.pkl``, whose k-th entry
+    is frame k mod len(frames): image (image_idx, image_shape),
+    point_cloud (velodyne_path, lidar_idx), ``waymo_calib()``, the GT as
+    camera-frame annos (location, dimensions (l, h, w), rotation_y, the
+    P2 box, alpha, num_points_in_gt) with a DontCare entry, context_name
+    and timestamp. Returns {split: info path}."""
+    import pickle
+    import numpy as np
+    from msmdfusion_torch.core import box_modes
+    from msmdfusion_torch.core.box_np_ops import (box_lidar_to_camera,
+                                                  points_in_rbbox_np)
+    root = Path(root)
+    (root / 'velodyne').mkdir(parents=True, exist_ok=True)
+    calib = waymo_calib()
+    annos = []
+    for i, (pts, boxes, labels) in enumerate(frames):
+        np.concatenate([pts[:, :5], np.zeros((len(pts), 1), pts.dtype)],
+                       1).astype(np.float32).tofile(
+            root / 'velodyne' / f'{i:06d}.bin')
+        cam = box_lidar_to_camera(boxes[:, :7].astype(np.float64),
+                                  calib['R0_rect'].astype(np.float64),
+                                  calib['Tr_velo_to_cam'].astype(np.float64))
+        corners = box_modes.cam_corners_3d(cam)
+        hom = np.concatenate([corners, np.ones(corners.shape[:2] + (1,))], -1)
+        proj = hom @ calib['P2'].astype(np.float64).T
+        pix = proj[..., :2] / np.maximum(proj[..., 2:3], 1e-6)
+        bbox = np.clip(np.concatenate([pix.min(1), pix.max(1)], 1), 0,
+                       [image_shape[1], image_shape[0]] * 2)
+        n = len(boxes)
+        dont_care = dict(name='DontCare', truncated=-1.0, occluded=-1,
+                         alpha=-10.0, bbox=[0.0, 0.0, 10.0, 10.0],
+                         dimensions=[-1.0, -1.0, -1.0],
+                         location=[-1000.0, -1000.0, -1000.0],
+                         rotation_y=-10.0, num_points_in_gt=-1)
+        annos.append(dict(
+            name=np.array([classes[int(k)] for k in labels]
+                          + [dont_care['name']]),
+            truncated=np.append(np.zeros(n), dont_care['truncated']),
+            occluded=np.append(np.zeros(n, np.int64),
+                               dont_care['occluded']),
+            alpha=np.append(-np.arctan2(-boxes[:, 1], boxes[:, 0])
+                            + cam[:, 6], dont_care['alpha']),
+            bbox=np.concatenate([bbox, [dont_care['bbox']]]),
+            dimensions=np.concatenate([cam[:, 3:6],
+                                       [dont_care['dimensions']]]),
+            location=np.concatenate([cam[:, :3], [dont_care['location']]]),
+            rotation_y=np.append(cam[:, 6], dont_care['rotation_y']),
+            num_points_in_gt=np.append(
+                points_in_rbbox_np(pts[:, :3], boxes).sum(0),
+                dont_care['num_points_in_gt']).astype(np.int64)))
+    paths = {}
+    for split, count in counts.items():
+        infos = []
+        for k in range(count):
+            i = k % len(frames)
+            infos.append(dict(
+                image=dict(image_idx=k, image_shape=np.array(image_shape)),
+                point_cloud=dict(num_features=6, lidar_idx=f'{i:07d}',
+                                 velodyne_path=f'velodyne/{i:06d}.bin'),
+                calib=dict(calib), annos=annos[i],
+                context_name=f'segment-{i}', timestamp=1_500_000_000 + k))
+        paths[split] = root / f'waymo_infos_{split}.pkl'
+        with open(paths[split], 'wb') as f:
+            pickle.dump(infos, f)
+    return paths
+
+
+def waymo_files(card, dev, spec=WAYMO_FILES):
+    """Phase 20 (see the module docstring): the train and eval CLIs on
+    ``write_waymo``'s files of phase 16's frame under
+    ``configs/transfusion_waymo_voxel_{L,LC}.py``."""
+    import tempfile
+    import numpy as np
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.inference import (batch_model_inputs,
+                                                 unpack_detections)
+    from msmdfusion_torch.config import load_config, parse_cli_overrides
+    from msmdfusion_torch.core.evaluation.waymo_serialize import \
+        parse_objects_bin
+    from msmdfusion_torch.datasets.loader import DataLoader
+    from msmdfusion_torch.models.builder import build_detector
+    from msmdfusion_torch.registry import DATASETS
+    from msmdfusion_torch.tools import test as test_cli
+    from msmdfusion_torch.tools import train as train_cli
+    from msmdfusion_torch.utils import overflow
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    from msmdfusion_torch.utils.checkpoint import save_checkpoint
+    from msmdfusion_torch.utils.synth_scene import LC_YAWS, lc_batch
+    label = 'Waymo files'
+    config, config_lc = str(WAYMO['config']), str(WAYMO['config_lc'])
+    cfg = load_config(config)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        batch = lc_batch(dict(n=WAYMO['n_points'], img_hw=(8, 8),
+                              yaws=LC_YAWS[WAYMO['dataset']],
+                              pcr=cfg.point_cloud_range), seed=SEED,
+                         return_gt=True, num_classes=len(cfg.class_names),
+                         box_dim=7)
+        gt = batch['gt']
+        valid = gt['gt_valid'][0]
+        frame = (batch['points'][0], gt['gt_bboxes'][0][valid],
+                 gt['gt_labels'][0][valid])
+        del batch
+        train_cfg = cfg.data.train
+        n_train = (spec['steps'] * cfg.data.samples_per_gpu
+                   * train_cfg.load_interval)
+        paths = write_waymo(cfg.data_root, [frame],
+                            dict(train=n_train, val=spec['val'],
+                                 timed=spec['timed']), cfg.class_names)
+        check(paths['train'] == Path(train_cfg.ann_file)
+              and paths['val'] == Path(cfg.data.test.ann_file),
+              f'{label}: wrote {paths}, the config reads '
+              f'{train_cfg.ann_file} and {cfg.data.test.ann_file}')
+        print(f'{label}: phase 16\'s {len(frame[0])}-point frame and its '
+              f'{len(frame[1])} boxes as a KITTI-format Waymo set under '
+              f'{cfg.data_root} ({n_train} train infos, load_interval '
+              f'{train_cfg.load_interval}; {spec["val"]} val infos; a '
+              f'calibration that is not the identity) in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+        # the train CLI, the config's recipe, its pipeline in the workers
+        caps = ','.join(str(c * spec['train_caps'])
+                        for c in WAYMO['enc_caps'])
+        work = str(Path('work_waymo').resolve())
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with overflow.capture() as cap:
+            run = train_cli.main([
+                config, '--work-dir', work, '--device', str(dev),
+                '--max-steps', str(spec['steps']), '--cfg-options',
+                f'model.pts_middle_encoder.stage_capacities={caps}',
+                'log_config.interval=1'])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_launches(f'{label}: train CLI', dict(kernels.launches),
+                       {k: spec['steps'] * v
+                        for k, v in TL_TRAIN['launches'].items()})
+        train = [r for r in json_records(work) if r['mode'] == 'train']
+        dropped = {k: v for k, v in cap.counters().items() if v}
+        check(len(train) == spec['steps'] and len(run['batches'])
+              == spec['steps'] and all(math.isfinite(r['total_loss'])
+                                       for r in train) and not dropped,
+              f'{label}: train CLI records {train}, overflow {dropped}')
+        print(f'{label}: train CLI on {Path(config).name} (no paste in its '
+              f'recipe): {spec["steps"]} steps + checkpoint in '
+              f'{seconds:.1f} s over the {n_train // train_cfg.load_interval}'
+              f' infos load_interval keeps; batches {run["batches"]} (image '
+              f'indices); total_loss '
+              f'{[round(r["total_loss"], 4) for r in train]}; launches '
+              f'{TL_TRAIN["launches"]} a step; overflow 0 at every site '
+              f'({spec["train_caps"]}x the encoder capacities, the '
+              f'config\'s voxel capacity) [{card}]', flush=True)
+        del run
+        torch.cuda.empty_cache()
+
+        # a checkpoint: the seed's weights, norms calibrated on val frame 0
+        test_opts = ['model.pts_middle_encoder.stage_capacities='
+                     + ','.join(map(str, WAYMO['enc_caps']))]
+        cfg_t = load_config(config, parse_cli_overrides(test_opts))
+        dataset = DATASETS.build(dict(cfg_t.data.test))
+        model = build_detector(cfg_t.model, device=dev, seed=SEED)
+        with DataLoader(dataset, 1, shuffle=False, drop_last=False,
+                        num_workers=0, device=dev) as loader:
+            inputs = batch_model_inputs(cfg_t.model.type, next(iter(loader)),
+                                        dev)
+        with torch.no_grad():
+            calibrate_norms(model, *inputs)
+        ckpt = save_checkpoint(str(Path('ckpt_l').resolve()), 0, model,
+                               meta=dict(config=config))
+        lc = build_detector(load_config(
+            config_lc, parse_cli_overrides(test_opts)).model, device=dev,
+            seed=SEED)
+        missing, unexpected = lc.load_state_dict(model.state_dict(),
+                                                 strict=False)
+        check(missing and not unexpected, f'{label}: the LC model lacks '
+              f'{unexpected[:4]} of TransFusion-L\'s keys')
+        ckpt_lc = save_checkpoint(str(Path('ckpt_lc').resolve()), 0, lc,
+                                  meta=dict(config=config_lc))
+        del model, lc
+
+        # the eval CLI, --eval: the dataset's waymo metrics
+        kernels.reset_launches()
+        run = test_cli.main([config, ckpt, '--eval', 'waymo', '--device',
+                             str(dev), '--cfg-options', *test_opts])
+        torch.cuda.synchronize()
+        n = len(run['results'])
+        check(n == spec['val'], f'{label}: {n} results')
+        check_launches(f'{label}: eval CLI', dict(kernels.launches),
+                       {k: v * n for k, v in TL['launches'].items()})
+        metrics = run['metrics']
+        numbers = {k: v for k, v in metrics.items() if k != 'protocol'}
+        check(sum(run['overflow'].values()) == 0
+              and 'Waymo/L2/mAP' in numbers and all(
+                  math.isfinite(v) for v in numbers.values()),
+              f'{label}: eval CLI overflow {run["overflow"]}, metrics '
+              f'{metrics}')
+        model = run['model']
+        with torch.no_grad():
+            direct = unpack_detections(model.get_bboxes(model(*inputs)))[0]
+        for key in ('bboxes', 'scores', 'labels'):
+            check(np.array_equal(run['results'][0][key], direct[key]),
+                  f'{label}: sample 0 {key} differ from the direct call')
+        for det in run['results']:
+            check(np.isfinite(det['bboxes']).all()
+                  and det['bboxes'].shape[1] == 7, f'{label}: boxes')
+        results = run['results']
+        print(f'{label}: eval CLI --eval: {n} frames; sample 0\'s '
+              f'{len(direct["scores"])} detections bit-equal to '
+              'model.get_bboxes(model(...)) on the same batch; launches '
+              f'{TL["launches"]} a frame; overflow 0; waymo metrics '
+              f'L1 mAP {numbers["Waymo/L1/mAP"]} mAPH '
+              f'{numbers["Waymo/L1/mAPH"]} L2 mAP {numbers["Waymo/L2/mAP"]}'
+              f' mAPH {numbers["Waymo/L2/mAPH"]} (seed weights: no '
+              f'meaning) [{card}]', flush=True)
+        with torch.no_grad():
+            frame_ms = cuda_ms(lambda: forward(model, inputs), 5)
+        del run, model, inputs
+
+        # the timed pass: the eval CLI over the frame listed spec['timed']
+        # times, and the pipeline alone on the same entries
+        workers = cfg_t.data.workers_per_gpu
+        run = test_cli.main([config, ckpt, '--device', str(dev),
+                             '--cfg-options', *test_opts,
+                             f'data.test.ann_file={paths["timed"]}'])
+        check(len(run['results']) == spec['timed']
+              and not sum(run['overflow'].values()),
+              f'{label}: timed pass {len(run["results"])} results, overflow '
+              f'{run["overflow"]}')
+        cli_ms = steady_ms(run['frame_s'], 2 * workers)
+        timed = run['dataset']
+        del run
+        many = pipeline_ms(timed, workers, spec['timed'])
+        print(f'{label}: timed pass, {spec["timed"]} frames: eval CLI '
+              f'{1e3 / cli_ms:.3f} frames/s ({cli_ms:.1f} ms/frame from '
+              f'frame {2 * workers} on, host clock); pipeline alone '
+              f'{many:.1f} ms/sample with {workers} workers (from sample '
+              f'{2 * workers}); model {frame_ms:.3f} ms/frame (CUDA events, '
+              f'5 frames of sample 0) [{card}]', flush=True)
+        del timed
+
+        run = test_cli.main([config, ckpt, '--format-only', '--device',
+                             str(dev), '--cfg-options', *test_opts])
+        with open(run['submission'], 'rb') as f:
+            objs = parse_objects_bin(f.read())
+        detected = sum(len(r['scores']) for r in run['results'])
+        check(len(objs) == detected and detected > 0 and {
+            o['context_name'] for o in objs} <= {'segment-0'},
+              f'{label}: {run["submission"]} parses to {len(objs)} objects '
+              f'of {detected} detections')
+        print(f'{label}: --format-only: {run["submission"]} parses back '
+              f'(parse_objects_bin) to {len(objs)} objects, the '
+              f'{detected} detections', flush=True)
+        del run
+
+        # TransFusion-LC from files: no views in its pipeline, so its
+        # detections are TransFusion-L's on the same weights
+        run = test_cli.main([config_lc, ckpt_lc, '--device', str(dev),
+                             '--cfg-options', *test_opts])
+        check(len(run['results']) == n and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(run['results'],
+                                                        results)
+            for k in ('bboxes', 'scores', 'labels')),
+              f'{label}: TransFusion-LC\'s detections differ from '
+              'TransFusion-L\'s')
+        print(f'{label}: eval CLI on {Path(config_lc).name} (its pipeline '
+              f'loads no views): {n} frames\' detections bit-equal to '
+              f'TransFusion-L\'s on the same weights [{card}]', flush=True)
+        del run
+    torch.cuda.empty_cache()
+
+
 def report(phases, card):
     """The rows kernels' sums lines and the ``kernels`` line of the
     flagship's phases (``flagship_phases``)."""
@@ -5161,11 +5711,15 @@ def main():
     def then(files):
         lap('17 (the eval and train CLIs on files)')
         dist.extend(dist_clis(files))
+        lap('18 (c, d: the CLIs over 2 ranks)')
+        gt_paste(card, dev, files['root'], files['ann'])
     entry_points(card, dev, then=then)
-    lap('18 (c, d: the CLIs over 2 ranks)')
+    lap('19 (GT paste: the database and the stage-1 train CLI from files)')
     dist += dist_steps(card, dev)
     lap('18 (a, b: the flagship step over a process group)')
     print('dist: ' + ' | '.join(dist), flush=True)
+    waymo_files(card, dev)
+    lap('20 (Waymo from files: the train and eval CLIs)')
 
     report(phases, card)
     print(json.dumps({'ok': True, 'device': {

@@ -90,6 +90,16 @@ def boxes_overlap_bev(boxes_a, boxes_b):
     return _convex_area(points, valid)
 
 
+def boxes_iou_bev(boxes_a, boxes_b):
+    """Pairwise rotated BEV IoU [N, M] of [N, 5], [M, 5] (cx, cy, w, l,
+    yaw) boxes (reference ops/iou3d/iou3d_utils.py:6-24)."""
+    overlap = boxes_overlap_bev(boxes_a, boxes_b)
+    area_a = boxes_a[:, 2] * boxes_a[:, 3]
+    area_b = boxes_b[:, 2] * boxes_b[:, 3]
+    union = area_a[:, None] + area_b[None, :] - overlap
+    return overlap / torch.clamp(union, min=_EPS)
+
+
 def boxes_iou_3d(boxes_a, boxes_b, mode: str = 'iou'):
     """Pairwise 3D IoU [N, M] of bottom-centre boxes [N, 7+], [M, 7+]: BEV
     polygon overlap times vertical overlap over the union of volumes

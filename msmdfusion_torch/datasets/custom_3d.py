@@ -60,6 +60,14 @@ class Custom3DDataset:
         return list(np.unique(ann['gt_labels_3d'][
             ann['gt_labels_3d'] >= 0]).astype(int))
 
+    def set_epoch(self, epoch: int):
+        """Forward the epoch to the pipeline's transforms that fade with
+        it (``ObjectSample``'s ``stop_epoch``)."""
+        if self.pipeline is not None:
+            for t in self.pipeline.transforms:
+                if hasattr(t, 'set_epoch'):
+                    t.set_epoch(epoch)
+
     def __len__(self):
         return len(self.data_infos)
 
@@ -124,6 +132,10 @@ class CBGSDataset:
             take = int(len(cls_indices) * ratio)
             indices += list(rng.choice(cls_indices, take).astype(int))
         return indices
+
+    def set_epoch(self, epoch: int):
+        if hasattr(self.dataset, 'set_epoch'):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self):
         return len(self.sample_indices)

@@ -10,7 +10,9 @@ Counterpart of the JAX package's ``datasets/loader.py`` (reference mmdet
   ``num_workers=0`` runs it in the calling process;
 - every sample draws from its own ``np.random.RandomState`` seeded from
   (seed, epoch, index), so the batches do not depend on the number of
-  workers;
+  workers; the dataset's ``set_epoch`` (the pipeline's fades) is called
+  with the sample's epoch where it runs, in the worker, whose copy of the
+  dataset the caller's ``set_epoch`` never reaches;
 - the batch order of an epoch is the JAX loader's: the indices shuffled by
   ``np.random.RandomState(seed + epoch)`` (``set_epoch``), so a resumed run
   sees the order a fresh one would;
@@ -74,7 +76,8 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
 
 class _Samples(torch.utils.data.Dataset):
     """``dataset.sample(index, rng)`` for keys (index, epoch), with the
-    generator seeded from (seed, epoch, index), and the overflow counts of
+    generator seeded from (seed, epoch, index) and the dataset at that
+    epoch (``set_epoch``, where it has one), and the overflow counts of
     the pipeline's capacity sites."""
 
     def __init__(self, dataset, seed: int):
@@ -86,6 +89,8 @@ class _Samples(torch.utils.data.Dataset):
 
     def __getitem__(self, key):
         index, epoch = key
+        if hasattr(self.dataset, 'set_epoch'):
+            self.dataset.set_epoch(epoch)
         rng = np.random.RandomState([self.seed, epoch, index])
         with overflow.capture() as cap:
             sample = self.dataset.sample(index, rng)
@@ -143,8 +148,8 @@ class DataLoader:
         self._loader = None
 
     def set_epoch(self, epoch: int):
-        """The epoch whose shuffle and per-sample seeds the next pass uses
-        (DistributedSampler.set_epoch semantics)."""
+        """The epoch whose shuffle, per-sample seeds and pipeline fades
+        the next pass uses (DistributedSampler.set_epoch semantics)."""
         self.epoch = epoch
 
     def __len__(self):

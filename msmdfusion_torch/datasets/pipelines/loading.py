@@ -390,7 +390,9 @@ class PadGroundTruth:
 @PIPELINES.register('FormatBundle3D')
 class FormatBundle3D:
     """Collect the fixed-shape arrays for batching (DefaultFormatBundle3D +
-    Collect3D equivalent, reference formating.py:262)."""
+    Collect3D equivalent, reference formating.py:262); the metas also keep
+    ``ObjectSample``'s ``gt_paste`` counts where it ran (the JAX package's
+    have no such key)."""
 
     KEYS = ('points', 'points_mask', 'gt_bboxes_3d', 'gt_labels_3d',
             'gt_valid', 'img', 'foreground')
@@ -405,7 +407,8 @@ class FormatBundle3D:
             k: results[k] for k in
             ('sample_idx', 'pts_filename', 'token', 'timestamp',
              'lidar2img', 'flip_state', 'aug_state', 'scale_factor',
-             'img_shape', 'ori_shape', 'pad_shape', 'img_norm_cfg')
+             'img_shape', 'ori_shape', 'pad_shape', 'img_norm_cfg',
+             'gt_paste')
             if k in results}
         return out
 

@@ -4,7 +4,9 @@ Counterpart of the flagship's transforms in the JAX package's
 ``datasets/pipelines/transforms_3d.py`` (reference
 mmdet3d/datasets/pipelines/transforms_3d.py): ``GlobalRotScaleTrans``
 (:291), ``RandomFlip3D`` (:14), ``PointsRangeFilter``,
-``ObjectRangeFilter``, ``ObjectNameFilter`` and ``PointShuffle`` (:440).
+``ObjectRangeFilter``, ``ObjectNameFilter`` and ``PointShuffle`` (:440);
+the GT paste of TransFusion-L's stage-1 recipe, ``ObjectSample`` (:122,
+with its ``stop_epoch`` fade), and the per-object jitter ``ObjectNoise``.
 The applied-augmentation record (``transformation_3d_flow``) is kept so
 the foreground pipeline can replay it (reference
 my_loading_multi_proj.py:350-411). The random ones draw from the ``rng``
@@ -17,7 +19,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from ...core.box_np_ops import points_in_rbbox_np
 from ...registry import PIPELINES
+from .aug_utils import noise_per_object_v3
+from .dbsampler import DataBaseSampler
 from .loading import require_rng
 
 
@@ -171,4 +176,91 @@ class PointShuffle:
         idx = require_rng(rng, type(self).__name__).permutation(
             len(results['points']))
         results['points'] = results['points'][idx]
+        return results
+
+
+@PIPELINES.register('ObjectSample')
+class ObjectSample:
+    """GT-paste augmentation from a pre-built GT database (``dbsampler``),
+    the pasted boxes' points put in place of the frame's points inside
+    them. Reference transforms_3d.py:122 + dbsampler.py:12-316.
+
+    ``stop_epoch``: the "fade", no paste from that epoch on (reference
+    configs/nuscenes.md:7: stage 1 trains its last epochs on the true data
+    distribution); the dataset's ``set_epoch`` sets the epoch, which the
+    loader does in each worker for every sample. ``results['gt_paste']``
+    records the pasted (objects, points), zeros where nothing was pasted
+    (``FormatBundle3D`` keeps it in the metas)."""
+    draws = True
+
+    def __init__(self, db_sampler, sample_2d=False, stop_epoch=None):
+        if isinstance(db_sampler, dict):
+            db_sampler = DataBaseSampler(**{k: v for k, v in
+                                            db_sampler.items()
+                                            if k != 'type'})
+        self.db_sampler = db_sampler
+        self.stop_epoch = stop_epoch
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __call__(self, results, rng=None):
+        results['gt_paste'] = np.zeros(2, np.int64)
+        if self.stop_epoch is not None and self.epoch >= self.stop_epoch:
+            return results
+        sampled = self.db_sampler.sample_all(
+            results['gt_bboxes_3d'], results['gt_labels_3d'],
+            require_rng(rng, type(self).__name__))
+        if sampled is None:
+            return results
+        results['gt_bboxes_3d'] = np.concatenate(
+            [results['gt_bboxes_3d'], sampled['gt_bboxes_3d']])
+        results['gt_labels_3d'] = np.concatenate(
+            [results['gt_labels_3d'], sampled['gt_labels_3d']])
+        # remove original points inside sampled boxes, then paste
+        pts = results['points']
+        inside = points_in_rbbox_np(pts[:, :3], sampled['gt_bboxes_3d'])
+        pts = pts[~inside.any(axis=1)]
+        sp = sampled['points']
+        if sp.shape[1] < pts.shape[1]:
+            sp = np.concatenate(
+                [sp, np.zeros((len(sp), pts.shape[1] - sp.shape[1]),
+                              sp.dtype)], axis=1)
+        results['points'] = np.concatenate([sp[:, :pts.shape[1]], pts])
+        results['gt_paste'] = np.array(
+            [len(sampled['gt_bboxes_3d']), len(sp)], np.int64)
+        return results
+
+
+@PIPELINES.register('ObjectNoise')
+class ObjectNoise:
+    """Collision-gated per-object jitter (reference ObjectNoise,
+    transforms_3d.py + noise_per_object_v3_ in data_augment_utils.py:328):
+    each box tries up to ``num_try`` (translation, rotation) noises and
+    keeps the first one whose jittered footprint collides with no other
+    current box footprint; points inside the box move with it."""
+    draws = True
+
+    def __init__(self, translation_std=(0.25, 0.25, 0.25),
+                 global_rot_range=(0.0, 0.0), rot_range=(-0.15707, 0.15707),
+                 num_try=100):
+        self.translation_std = translation_std
+        self.global_rot_range = global_rot_range
+        self.rot_range = rot_range
+        self.num_try = num_try
+
+    def __call__(self, results, rng=None):
+        rng = require_rng(rng, type(self).__name__)
+        boxes = results.get('gt_bboxes_3d')
+        if boxes is None or not len(boxes):
+            return results
+        pts = results['points']
+        noise_per_object_v3(
+            boxes, pts, rotation_perturb=list(self.rot_range),
+            center_noise_std=list(self.translation_std),
+            global_random_rot_range=list(self.global_rot_range),
+            num_try=self.num_try, rng=rng)
+        results['points'] = pts
+        results['gt_bboxes_3d'] = boxes
         return results

@@ -1,7 +1,8 @@
 """The port's command-line entry points (``python -m
 msmdfusion_torch.tools.test`` and ``python -m msmdfusion_torch.tools.train``;
-``dist_test.sh`` and ``dist_train.sh`` start them under torchrun) and what
-they share."""
+``dist_test.sh`` and ``dist_train.sh`` start them under torchrun; the data
+tools ``create_data`` and ``generate_virtual_points``) and what they
+share."""
 import torch
 
 from ..parallel.distributed import check_launcher  # noqa: F401

@@ -15,7 +15,9 @@ on none, all in front of both cameras; ``around``, two cameras at the
 origin, so that proposals behind a camera go through the projection's
 1e-5 depth clamp.
 
-- ``corners_3d`` against the JAX package's.
+- ``corners_3d`` against the JAX package's; on ``around`` the image
+  decoders' proposal positions, through the depth clamp, against the
+  JAX head's own.
 - Inference on each rig: every output key (``on_the_image`` included)
   and the decoded boxes to 1e-4 of the largest reference value (``TOL``).
 - Training on each rig (``freeze_img``: the image branch in eval mode,
@@ -39,6 +41,7 @@ import copy
 
 import numpy as np
 import pytest
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import torch
@@ -166,6 +169,28 @@ def test_corners_3d_matches_jax():
     np.testing.assert_array_equal(unit[0, 4:, 2].numpy(), [3, 9, 9, 3])
 
 
+def test_projection_clamps_depth_in_jax_order(lc):
+    """The image-fusion decoders' proposal positions on the ``around`` rig,
+    half of the proposals behind a camera: per view and proposal, the
+    port head's (its image decoder's third argument, ``fusion_pos``)
+    against the JAX head's own (``centers_feat``, the third argument of
+    its ``img_fusion_decoder``, ``models/heads/transfusion_head.py:
+    414-421,427``, recorded by ``nn.intercept_methods``), within ``TOL``
+    of each value's magnitude (measured: 9e-6 behind the cameras, 2e-5 in
+    front, from the heads' predicted heights). Behind a camera the depth
+    is clamped at 1e-5 and the position lands ~1e5 pixels out: a clamp
+    elsewhere moves those by orders of magnitude. The order of the
+    division and the scale changes only roundings, which this comparison
+    does not separate from the heads' own deviation."""
+    run = lc['around']
+    got = torch.stack(run['fusion_pos'], 1)[0].numpy()        # [V, P, 2]
+    want = np.asarray(run['jfusion_pos'])[:, 0]               # [V, P, 2]
+    assert got.shape == want.shape == (V, 10, 2)
+    far = np.abs(want).max(-1) > 1e4
+    assert 0.2 < far.mean() < 0.8
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=0)
+
+
 @pytest.fixture(scope='module')
 def lc():
     """Per rig, the JAX detector's inference, decode, targets, losses and
@@ -191,7 +216,16 @@ def lc():
         def jax_side(params, batch_stats, lidar2img):
             v = {'params': params, 'batch_stats': batch_stats}
             inputs = jax_inputs(lidar2img)
-            preds = jmodel.apply(v, *inputs)
+            fusion_pos = []
+
+            def record(call, args, kwargs, context):
+                # the image-fusion decoder's proposal positions, per view
+                if (context.module.name == 'img_fusion_decoder'
+                        and context.method_name == '__call__'):
+                    fusion_pos.append(args[2])
+                return call(*args, **kwargs)
+            with nn.intercept_methods(record):
+                preds = jmodel.apply(v, *inputs)
             boxes = jmodel.apply(v, preds, method=JaxTransFusion.get_bboxes)
             (total, (losses, _, tpreds)), grads = jax.value_and_grad(
                 jax_loss_fn(jmodel, batch_stats, inputs, jgt),
@@ -200,7 +234,8 @@ def lc():
                 v, tpreds, jgt['gt_bboxes'], jgt['gt_labels'],
                 jgt['gt_valid'],
                 method=lambda m, *a: m.bbox_head.get_targets(*a))
-            return preds, boxes, total, losses, grads, targets, tpreds
+            return (preds, boxes, total, losses, grads, targets, tpreds,
+                    jnp.stack(fusion_pos))
         jax_out = {name: jax_side(variables['params'],
                                   variables['batch_stats'], jnp.asarray(l2i))
                    for name, l2i in RIGS.items()}
@@ -235,7 +270,7 @@ def lc():
                            tgt['gt_valid'], targets=targets)
         sum(v for k, v in losses.items() if 'loss' in k).backward()
         keys = ('preds', 'boxes', 'jtotal', 'jlosses', 'jgrads', 'jtargets',
-                'jtpreds')
+                'jtpreds', 'jfusion_pos')
         out[name] = dict(zip(keys, jax_out[name]), port=port,
                          port_preds=preds, port_boxes=boxes,
                          fusion_pos=fusion_pos, tpreds=tpreds,
