@@ -8,8 +8,10 @@ stage-2 step with its LiDAR encoders frozen and its bf16-compute train
 step, TransFusion-LC's inference and train step, the Waymo
 TransFusion-L and LC, the eval and train CLIs on files, the flagship's
 step and CLIs over process groups, TransFusion-L's stage-1 recipe (GT
-paste from a GT database the port's tool builds) and the Waymo configs
-from KITTI-format files.
+paste from a GT database the port's tool builds), the Waymo configs
+from KITTI-format files and the offline tools (FLOP counts, conv-BN
+folding, the sparse-conv microbench, the speed CLI, the trace summary,
+checkpoint publishing, visualization and log analysis).
 
     python3 chip_smoke.py
 
@@ -284,7 +286,32 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``.bin`` parses back to as many objects as were detected), and the
    eval CLI on ``transfusion_waymo_voxel_LC.py`` (no views in its
    pipeline: its detections bit-equal to TransFusion-L's on the same
-   weights).
+   weights);
+21. the offline tools (``offline_tools``, after phase 20; (f) inside
+   phase 17's working directory, after phase 19): (a)
+   ``apis.flops_counter.count_flops`` on phase 4's calibrated flagship
+   frame and phase 3's TransFusion-L frame, on the kernels and on their
+   plain versions (``kernels.plain_kernels``): the same integers, op by
+   op; GFLOP a frame, the sparse convs' share, the TFLOP/s of the fp32
+   frame timed again (CUDA events, 5 frames); (b)
+   ``tools.misc.fuse_conv_bn`` on the flagship's calibrated weights saved
+   as a checkpoint: ``FUSED_PAIRS`` pairs folded (the CPU test's count),
+   a kernel-path frame of the fused model against the unfused one on the
+   exact product (``MSMD_CONV_GEMM=highest``, where the fold changes
+   roundings alone), the head input within 1e-4 of max and the proposals
+   by the plain-path rule (``check_proposals``); on the default x3
+   product the same distances printed, not held (the fold moves every
+   folded weight's bf16 hi/lo split); (c)
+   ``tools.analysis_tools.conv_microbench`` at full shapes, all eight
+   configs, every conv line's minimum at or above its bound; (d) the
+   speed CLI (``tools.analysis_tools.benchmark``) on
+   ``configs/transfusion_nusc_voxel_L.py`` at 200,000 points; (e) a
+   flagship frame traced by ``utils.profiling.trace`` and summarized by
+   ``tools.analysis_tools.trace_summary``: its device total within 10% of
+   ``profile_forward``'s busy ms of a frame, one ``extract_pts_feat``;
+   (f) ``publish_model`` on the train CLI's checkpoint (no optimizer,
+   loads, its tensors equal), ``visualize_results`` on the eval CLI's
+   ``--out`` pickle and ``analyze_logs`` on the train CLI's logs.
 
 Each phase prints its seconds by the host clock.
 
@@ -433,6 +460,9 @@ FLAGSHIP = dict(
               'merge_take': 3},
     widths={(16, 16), (32, 32), (64, 64), (128, 128), (80, 80), (96, 96),
             (192, 192), (80, 96), (96, 128), (128, 192)})
+# conv-BN pairs tools.misc.fuse_conv_bn folds in the flagship (the JAX
+# fuse_tree's pairs of the same layout: tests/test_torch_flops_fuse.py)
+FUSED_PAIRS = 49
 # the flagship train step: the reference's stage-2 recipe as the JAX
 # package's bench runs it (bench.py:258-285)
 TRAIN = dict(
@@ -4245,7 +4275,8 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
     runs last, on the same files, in the same working directory
     (dict(config, checkpoint: the seed's weights, out: the eval CLI's
     ``--out`` pickle, test_opts, train_opts, card, dev, root: the
-    dataset's directory, ann: its info file))."""
+    dataset's directory, ann: its info file, work: the train CLI's work
+    directory))."""
     import multiprocessing
     import tempfile
     import numpy as np
@@ -4455,7 +4486,7 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
             then(dict(config=config, checkpoint=str(Path(tmp) / 'ckpt_0'),
                       out=str(Path(tmp) / 'r.pkl'), test_opts=test_opts,
                       train_opts=train_opts, card=card, dev=dev, root=root,
-                      ann=ann))
+                      ann=ann, work=work))
     check(not multiprocessing.active_children(),
           f'{label}: worker processes left')
     torch.cuda.empty_cache()
@@ -5566,6 +5597,248 @@ def waymo_files(card, dev, spec=WAYMO_FILES):
     torch.cuda.empty_cache()
 
 
+# phase 21: how far the trace's device total may lie from
+# profile_forward's busy time of another frame
+TRACE_TOL = 0.10
+
+
+def kept(model, inputs):
+    """A model's weights on the host and its frame's inputs, for phase 21
+    (later phases train the model; phase 3's ``keep_tl`` keeps its weights
+    on the card)."""
+    return dict(state={k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()},
+                inputs=inputs)
+
+
+def flop_counts(label, model, inputs, card):
+    """Phase 21 (a): ``count_flops`` of one frame on the kernels and on
+    their plain versions (the same integers, op by op), the sparse convs'
+    share and the fp32 frame's TFLOP/s."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.flops_counter import count_flops
+    with torch.no_grad():
+        kernels.reset_launches()
+        got = count_flops(lambda: forward(model, inputs))
+        check(sum(kernels.launches.values()) > 0,
+              f'{label}: the counted frame launched no kernel')
+        with kernels.plain_kernels():
+            plain = count_flops(lambda: forward(model, inputs))
+        ms = cuda_ms(lambda: forward(model, inputs), 5)
+    check(got['flops'] == plain['flops'] and got['by_op'] == plain['by_op'],
+          f'{label}: count_flops on the kernels {got["by_op"]} differs from '
+          f'the plain versions\' {plain["by_op"]}')
+    convs = sum(v for k, v in got['by_op'].items()
+                if k in ('gather_gemm_conv', 'match_conv', 'conv_dw'))
+    top = sorted(got['by_op'].items(), key=lambda kv: -kv[1])[:6]
+    print(f'{label}: count_flops {int(got["flops"])} FLOP = '
+          f'{got["gflops"]:.3f} GFLOP/frame, the same integers on the '
+          f'kernels and on the plain versions; sparse convs '
+          f'{convs / got["flops"]:.4f} of it, all sparse ops '
+          f'{got["sparse_flops"] / got["flops"]:.4f}; by op '
+          f'{dict((k, round(v / 1e9, 3)) for k, v in top)} GFLOP; fp32 '
+          f'frame {ms:.3f} ms (CUDA events, 5 frames): '
+          f'{got["flops"] / ms / 1e9:.3f} TFLOP/s [{card}]', flush=True)
+
+
+def fused_frame(model, inputs, card, dev, work):
+    """Phase 21 (b): ``tools.misc.fuse_conv_bn`` on ``model``'s weights
+    saved as a checkpoint; a kernel-path frame of the fused model against
+    ``model``'s on the exact product (``MSMD_CONV_GEMM=highest``, set
+    around it), where the fold changes roundings alone: the head input
+    within TOL of max, the proposals the head's own choice on a heatmap
+    within TOL of the unfused one's (``check_proposals``). The same on the
+    default x3 product is printed, not held: the fold moves every folded
+    weight's bf16 hi/lo split."""
+    import torch
+    from msmdfusion_torch.tools.misc import fuse_conv_bn
+    from msmdfusion_torch.utils.checkpoint import save_checkpoint
+    ckpt = save_checkpoint(work, 0, model, meta=dict(config='flagship'))
+    out = str(Path(work) / 'fused.pth')
+    run = fuse_conv_bn.main([str(FLAGSHIP['config']), ckpt, out, '--device',
+                             str(dev), '--cfg-options',
+                             *capacity_options(FLAGSHIP)])
+    check(run['fused'] == FUSED_PAIRS,
+          f'fuse_conv_bn folded {run["fused"]} pairs, the CPU test '
+          f'{FUSED_PAIRS}')
+    fused = run['model']
+    frames = {}
+    for route, env in (('x3', {}), ('highest', HIGHEST['env'])):
+        with switches(env), torch.no_grad():
+            ref = pinned_forward(model, inputs, None)
+            index = proposal_index(forward(fused, inputs)[0])
+            got = pinned_forward(fused, inputs, index)
+        own = proposal_index(ref)
+        differ = int((~(index[:, :, None] == own[:, None, :])
+                      .any(-1)).sum())
+        head = rel_err(got['head_input'], ref['head_input'])
+        heat = rel_err(got['dense_heatmap'], ref['dense_heatmap'])[1]
+        frames[route] = (ref, index, got, head)
+        print(f'fuse_conv_bn: {run["fused"]} conv+bn pairs folded (the CPU '
+              f'test\'s {FUSED_PAIRS}); the fused kernel-path frame against '
+              f'the unfused one on {route}: head input {head[0]:.4g} '
+              f'({head[1]:.4g} of max), dense heatmap {heat:.4g} of max, '
+              f'{differ} of {index.numel()} proposals differ from the '
+              f'unfused frame\'s own [{card}]', flush=True)
+    ref, index, got, head = frames['highest']
+    check(head[1] <= TOL, f'fused frame on highest: head input '
+          f'{head[1]:.3g} of max from the unfused one, above {TOL}')
+    with switches(HIGHEST['env']):
+        dist, excess, suppressed, _ = check_proposals(
+            fused.pts_bbox_head, index, got, ref)
+    print(f'fuse_conv_bn on highest: the fused frame\'s proposals are the '
+          f'head\'s own choice on a heatmap {dist:.4g} of max from the '
+          f'unfused one (best unchosen beats the lowest chosen by '
+          f'{excess:.3g}, {suppressed} chosen cells suppressed there) '
+          f'[{card}]', flush=True)
+    del fused, run
+    torch.cuda.empty_cache()
+
+
+def microbench(card, dev):
+    """Phase 21 (c): ``conv_microbench`` at full shapes, every config;
+    each conv's minimum at or above its bound."""
+    from msmdfusion_torch.tools.analysis_tools import conv_microbench
+    reps = conv_microbench.REPS
+    out = conv_microbench.run(
+        {'rows', 'conv', 'onehot', 'coords', 'glue'}, device=dev)
+    check(len(out['convs']) == len(conv_microbench.CONFIGS),
+          f'conv_microbench: {len(out["convs"])} configs')
+    for rec in out['convs']:
+        for op in ('conv', 'onehot'):
+            check(rec[op][0] >= rec[f'{op}_bound'],
+                  f'conv_microbench {rec["name"]} {rec[f"{op}_kernel"]}: '
+                  f'{rec[op][0]:.4f} ms below its bound '
+                  f'{rec[f"{op}_bound"]:.4f}')
+    print(f'conv_microbench: {len(out["convs"])} configs, min/median of '
+          f'{reps} calls, every conv at or above its bound [{card}]',
+          flush=True)
+
+
+def speed_cli(card, dev, n=200000):
+    """Phase 21 (d): the speed CLI on TransFusion-L at ``n`` points."""
+    import numpy as np
+    from msmdfusion_torch.tools.analysis_tools import benchmark
+    run = benchmark.main([str(TL['config']), '--num-points', str(n),
+                          '--device', str(dev)])
+    arr = np.asarray(run['times'])
+    check(len(arr) == 50 and np.isfinite(arr).all(),
+          f'benchmark: {len(arr)} timed frames')
+    print(f'benchmark {TL["config"].name} at {n} uniform points: '
+          f'{1 / np.median(arr):.2f} frames/s median, latency median '
+          f'{np.median(arr) * 1e3:.1f} ms, overflow_total '
+          f'{sum(run["overflow"].values())} [{card}]', flush=True)
+
+
+def traced_frame(model, inputs, card, dev, work):
+    """Phase 21 (e): a flagship frame under ``utils.profiling.trace``,
+    summarized by ``trace_summary``; its device total within TRACE_TOL of
+    ``profile_forward``'s busy ms of a frame."""
+    import torch
+    from msmdfusion_torch.tools.analysis_tools import trace_summary
+    from msmdfusion_torch.utils import profiling
+    with torch.no_grad():
+        forward(model, inputs)
+        _, busy, _ = profile_forward(lambda: forward(model, inputs))
+        with profiling.trace(str(Path(work) / 'trace')):
+            forward(model, inputs)
+    out = trace_summary.main([str(Path(work) / 'trace'), '-n', '12',
+                              '--device', str(dev)])
+    off = abs(out['total_ms'] - busy) / busy
+    check(out['iters'] == 1 and off <= TRACE_TOL,
+          f'trace_summary: {out["iters"]} iters, device total '
+          f'{out["total_ms"]:.3f} ms against profile_forward\'s busy '
+          f'{busy:.3f} ms ({off:.3f} apart, limit {TRACE_TOL})')
+    print(f'trace_summary: device total {out["total_ms"]:.3f} ms a frame '
+          f'against profile_forward\'s busy {busy:.3f} ms ({off:.4f} apart);'
+          f' {len(out["ops"])} kernels by name; scopes '
+          f'{dict((k, round(v, 3)) for k, v in sorted(out["scopes"].items(), key=lambda kv: -kv[1])[:6])} ms'
+          f' [{card}]', flush=True)
+
+
+def offline_tools(card, dev, flag, tl):
+    """Phase 21 (a)-(e) on phase 4's flagship and phase 3's TransFusion-L
+    (``kept``)."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        tl_model = build_model(dev, max_voxels=TL['max_voxels'])
+        tl_model.load_state_dict(tl['state'])
+        flop_counts('TransFusion-L', tl_model, tl['inputs'], card)
+        del tl_model
+        model = build_flagship(dev)
+        model.load_state_dict(flag['state'])
+        flop_counts('MSMDFusion', model, flag['inputs'], card)
+        print(f'phase 21 (a): {time.perf_counter() - t0:.1f} s', flush=True)
+        fused_frame(model, flag['inputs'], card, dev, work)
+        traced_frame(model, flag['inputs'], card, dev, work)
+        del model
+        torch.cuda.empty_cache()
+        microbench(card, dev)
+        speed_cli(card, dev)
+    torch.cuda.empty_cache()
+
+
+def tool_files(card, dev, files):
+    """Phase 21 (f), on phase 17's files: ``publish_model`` on the train
+    CLI's last checkpoint (no optimizer; every tensor equal to the
+    checkpoint's), ``visualize_results`` on the eval CLI's ``--out``
+    pickle, ``analyze_logs`` on the train CLI's logs."""
+    import importlib.util
+    import io
+    import torch
+    from msmdfusion_torch.tools.analysis_tools import analyze_logs
+    from msmdfusion_torch.tools.misc import visualize_results
+    from msmdfusion_torch.tools.model_converters import publish_model
+    from msmdfusion_torch.utils.checkpoint import load_checkpoint
+    work = Path(files['work'])
+    ckpt = str(max(work.glob('ckpt_*'),
+                   key=lambda p: int(p.name.split('_')[1])))
+    source = load_checkpoint(ckpt)
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        path = publish_model.main([ckpt, str(work / 'published'), '--device',
+                                   str(dev)])
+    published = load_checkpoint(path)
+    check(text.getvalue().strip() == path and 'optimizer' in source
+          and 'optimizer' not in published
+          and set(published['state_dict']) == set(source['state_dict'])
+          and all(torch.equal(v, source['state_dict'][k])
+                  for k, v in published['state_dict'].items()),
+          f'publish_model: {path}')
+    print(f'publish_model: {Path(ckpt).name} -> {Path(path).name} '
+          f'({Path(path).stat().st_size} bytes, from '
+          f'{Path(ckpt).stat().st_size}): no optimizer, '
+          f'{len(published["state_dict"])} tensors equal [{card}]',
+          flush=True)
+    show = work / 'show'
+    written = visualize_results.main([
+        files['config'], '--result', files['out'], '--show-dir', str(show),
+        '--device', str(dev), '--cfg-options', *files['test_opts']])
+    kinds = sorted({Path(f).suffix for f in written})
+    # the BEV PNG needs matplotlib, which the card's machine may lack
+    drawn = importlib.util.find_spec('matplotlib') is not None
+    check(kinds == ['.html', '.obj'] + (['.png'] if drawn else [])
+          and all(Path(f).stat().st_size > 0 for f in written),
+          f'visualize_results wrote {written}')
+    print(f'visualize_results: {len(written)} files {kinds} '
+          f'({sum(Path(f).stat().st_size for f in written)} bytes'
+          + ('' if drawn else '; no PNG: matplotlib is not installed')
+          + f') [{card}]', flush=True)
+    logs = [str(work / 'train.log')] + sorted(
+        str(p) for p in work.glob('*.log.json'))
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        analyze_logs.main(logs + ['--keys', 'total_loss', 'grad_norm',
+                                  '--device', str(dev)])
+    summary = text.getvalue()
+    check(summary.count(' entries, mean throughput ') == len(logs)
+          and summary.count('total_loss: first') == len(logs),
+          f'analyze_logs: {summary}')
+    print(summary.rstrip(), flush=True)
+    print(f'analyze_logs: {len(logs)} logs summarized [{card}]', flush=True)
+
+
 def report(phases, card):
     """The rows kernels' sums lines and the ``kernels`` line of the
     flagship's phases (``flagship_phases``)."""
@@ -5680,6 +5953,7 @@ def main():
     model = build_flagship(dev)
     inputs, gt = make_scene(model, FLAGSHIP['shape'], dev)
     calibrate_norms(model, *inputs)
+    flag_kept = kept(model, inputs)
     print(f'MSMDFusion setup: model + realistic scene + norms in '
           f'{time.perf_counter() - t0:.1f} s; foreground points '
           f'{int(inputs[3]["fg_mask"].sum())}, real pixels '
@@ -5701,7 +5975,7 @@ def main():
     lc, lc_inputs, lc_gt = lc_inference(tl_kept, card)
     lap('14 (TransFusion-LC)')
     lc_train_step(lc, lc_inputs, lc_gt, card)
-    del lc, lc_inputs, lc_gt, tl_kept
+    del lc, lc_inputs, lc_gt
     torch.cuda.empty_cache()
     lap('15 (TransFusion-LC train, image branch frozen)')
     waymo_phases(card, dev)
@@ -5713,13 +5987,21 @@ def main():
         dist.extend(dist_clis(files))
         lap('18 (c, d: the CLIs over 2 ranks)')
         gt_paste(card, dev, files['root'], files['ann'])
+        lap('19 (GT paste: the database and the stage-1 train CLI from '
+            'files)')
+        tool_files(card, dev, files)
     entry_points(card, dev, then=then)
-    lap('19 (GT paste: the database and the stage-1 train CLI from files)')
+    lap('21 (f: publish_model, visualize_results and analyze_logs on '
+        'phase 17\'s files)')
     dist += dist_steps(card, dev)
     lap('18 (a, b: the flagship step over a process group)')
     print('dist: ' + ' | '.join(dist), flush=True)
     waymo_files(card, dev)
     lap('20 (Waymo from files: the train and eval CLIs)')
+    offline_tools(card, dev, flag_kept, tl_kept)
+    del flag_kept, tl_kept
+    lap('21 (a-e: FLOP counts, the fused frame, the microbench, the speed '
+        'CLI, the trace summary)')
 
     report(phases, card)
     print(json.dumps({'ok': True, 'device': {

@@ -22,6 +22,21 @@ def corners_bev_np(boxes):
     return np.stack([rx, ry], axis=-1)
 
 
+def corners_3d_np(boxes):
+    """[N, 7] bottom-center boxes -> [N, 8, 3] corners."""
+    dims = boxes[:, 3:6]
+    unit = np.array([[0, 0, 0], [0, 0, 1], [0, 1, 1], [0, 1, 0],
+                     [1, 1, 0], [1, 1, 1], [1, 0, 1], [1, 0, 0]],
+                    boxes.dtype) - [0.5, 0.5, 0.0]
+    corners = unit[None] * dims[:, None, :]
+    yaw = boxes[:, 6]
+    c, s = np.cos(yaw), np.sin(yaw)
+    x = corners[..., 0] * c[:, None] - corners[..., 1] * s[:, None]
+    y = corners[..., 0] * s[:, None] + corners[..., 1] * c[:, None]
+    out = np.stack([x, y, corners[..., 2]], axis=-1)
+    return out + boxes[:, None, :3]
+
+
 def points_in_rbbox_np(points, boxes):
     """points [P, 3], boxes [N, 7+] -> [P, N] bool."""
     if len(boxes) == 0:

@@ -60,6 +60,33 @@ class Custom3DDataset:
         return list(np.unique(ann['gt_labels_3d'][
             ann['gt_labels_3d'] >= 0]).astype(int))
 
+    def show(self, results, out_dir, show=True, load_dim=4):
+        """Per-sample visualization artifacts: BEV PNG + OBJ wireframes +
+        the interactive WebGL viewer (``core.visualizer.show_result``; in
+        place of the reference's open3d windows, kitti_dataset.py:673 /
+        nuscenes_dataset.py:479 / lyft_dataset.py:401 ``show``).
+        ``results[i]`` holds 'bboxes' (or reference-style 'boxes_3d')."""
+        import os
+
+        from ..core.visualizer import show_result
+        outputs = []
+        for i, result in enumerate(results):
+            info = self.get_data_info(i)
+            pts_file = info.get('pts_filename', '')
+            name = os.path.split(pts_file)[-1].split('.')[0] or f'sample{i}'
+            points = None
+            if pts_file and os.path.exists(pts_file):
+                points = np.fromfile(pts_file,
+                                     np.float32).reshape(-1, load_dim)
+            try:
+                gt = self.get_ann_info(i)['gt_bboxes_3d']
+            except (KeyError, NotImplementedError, IndexError):
+                gt = None
+            pred = np.asarray(result.get('bboxes',
+                                         result.get('boxes_3d', [])))
+            outputs += show_result(points, gt, pred, out_dir, name)
+        return outputs
+
     def set_epoch(self, epoch: int):
         """Forward the epoch to the pipeline's transforms that fade with
         it (``ObjectSample``'s ``stop_epoch``)."""

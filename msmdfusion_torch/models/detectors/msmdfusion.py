@@ -57,6 +57,7 @@ from ...ops.sparse.tensor import make_sparse_tensor, to_dense_bev
 from ...ops.voxelize import voxelize_mean_batch
 from ...registry import (BACKBONES, DETECTORS, HEADS, MIDDLE_ENCODERS,
                          NECKS)
+from ...utils.profiling import named_scope
 from ...utils.timing import section
 from ..layers import MLP, BatchNorm2d, Conv2d, cudnn_enabled
 from ..sparse_blocks import SparseConv3d
@@ -327,8 +328,9 @@ class MSMDFusionDetector(nn.Module):
         with section('img'), torch.set_grad_enabled(
                 torch.is_grad_enabled() and not self.freeze_img):
             img_feats = self.extract_img_feat(img)
-        feats = self.extract_pts_feat(points, points_mask, img_feats, fg,
-                                      input_hw)
+        with named_scope('extract_pts_feat'):
+            feats = self.extract_pts_feat(points, points_mask, img_feats, fg,
+                                          input_hw)
         with section('head'):
             return self.pts_bbox_head(feats[0], generator=generator)
 

@@ -40,6 +40,7 @@ from torch import nn
 from ...ops.voxelize import voxelize_mean_batch
 from ...registry import (BACKBONES, DETECTORS, HEADS, MIDDLE_ENCODERS,
                          NECKS)
+from ...utils.profiling import named_scope
 from ...utils.timing import section
 
 
@@ -120,7 +121,8 @@ class TransFusionDetector(nn.Module):
         img [B, V, H, W, 3] with metas dict(lidar2img [B, V, 4, 4])) ->
         head predictions. ``generator``: the ``torch.Generator`` the
         head's dropout draws from in training mode."""
-        feats, _ = self.extract_pts_feat(points, points_mask)
+        with named_scope('extract_pts_feat'):
+            feats, _ = self.extract_pts_feat(points, points_mask)
         img_inputs = None
         if img is not None and self.img_backbone is not None:
             with section('img'):

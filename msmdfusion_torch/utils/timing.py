@@ -8,7 +8,8 @@ an outer section's time includes its inner ones. ``record.host_ms()``
 gives the same sums by the host's clock: the time the host spent issuing
 each section's work, which the events do not show while the device runs
 behind the host (the stream then reaches a section's start event late and
-runs through its work at the device's pace).
+runs through its work at the device's pace). Under a profiler each section
+is also a ``record_function`` range of its name (``profiling.named_scope``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from .profiling import named_scope
 
 _ACTIVE: List['record'] = []
 
@@ -55,17 +58,18 @@ def _current() -> Optional[record]:
 @contextlib.contextmanager
 def section(name: str):
     rec = _current()
-    if rec is None or rec.device.type != 'cuda':
-        yield
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        end.record()
-        rec._events.append((name, start, end))
-        rec._host[name] = rec._host.get(name, 0.0) + \
-            (time.perf_counter() - t0) * 1e3
+    with named_scope(name):
+        if rec is None or rec.device.type != 'cuda':
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            end.record()
+            rec._events.append((name, start, end))
+            rec._host[name] = rec._host.get(name, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
