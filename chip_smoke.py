@@ -9,9 +9,11 @@ step, TransFusion-LC's inference and train step, the Waymo
 TransFusion-L and LC, the eval and train CLIs on files, the flagship's
 step and CLIs over process groups, TransFusion-L's stage-1 recipe (GT
 paste from a GT database the port's tool builds), the Waymo configs
-from KITTI-format files and the offline tools (FLOP counts, conv-BN
+from KITTI-format files, the offline tools (FLOP counts, conv-BN
 folding, the sparse-conv microbench, the speed CLI, the trace summary,
-checkpoint publishing, visualization and log analysis).
+checkpoint publishing, visualization and log analysis) and the
+single-stage LiDAR zoo (CenterPoint, PointPillars, SECOND, dynamic SECOND,
+FreeAnchor), from tensors and through the CLIs from files.
 
     python3 chip_smoke.py
 
@@ -27,7 +29,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``tests/test_torch_match_conv_card.py``,
    ``tests/test_torch_conv_dw_card.py``,
    ``tests/test_torch_nn_argmin_card.py``,
-   ``tests/test_torch_conv_ffma_card.py``: JAX-free, every test must
+   ``tests/test_torch_conv_ffma_card.py``,
+   ``tests/test_torch_zoo_card.py``: JAX-free, every test must
    pass) in a child process;
 3. TransFusion-L: ``configs/transfusion_nusc_voxel_L.py`` at full width
    (1440 x 1440 x 41 grid, 160k voxel capacity, the flagship's measured
@@ -311,7 +314,33 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``profile_forward``'s busy ms of a frame, one ``extract_pts_feat``;
    (f) ``publish_model`` on the train CLI's checkpoint (no optimizer,
    loads, its tensors equal), ``visualize_results`` on the eval CLI's
-   ``--out`` pickle and ``analyze_logs`` on the train CLI's logs.
+   ``--out`` pickle and ``analyze_logs`` on the train CLI's logs;
+22. the single-stage zoo (``zoo``, after phase 21; (f) inside phase 17's
+   working directory, after phase 21 (f)), each config at its own widths
+   and capacities with seed-0 weights and norms calibrated on its frame
+   (``ZOO``): (a) ``configs/centerpoint_nusc_voxel.py`` on phase 3's
+   250,000-point frame, (b) ``pointpillars_nusc.py`` on the same frame,
+   (c) ``second_kitti.py`` (``conv_module`` encoder) and (d)
+   ``dynamic_voxelnet_kitti.py`` on a 40,000-point KITTI-range frame, (e)
+   ``free_anchor_nusc.py`` on (b)'s frame. Each inference frame
+   (``zoo_frame``; (a)-(d)): launches (TransFusion-L's 8/21 for (a),
+   8/12 for (c) and (d), none for (b)), the rows each cap drops printed
+   per site, finite boxes, every NMS call run again on the CPU on the
+   same inputs (the same keep set and order; pairs within ``NMS_NEAR`` of
+   their threshold counted, not held), two forwards and decodes
+   bit-equal, 10 frames timed by CUDA events; on (a) and (c) the kernel
+   path against the all-plain twin (``zoo_twin``: the x3 product, its
+   rounding pinned, the kernel path's top K decoded on both): the head
+   input within 1e-4 of max, the head's outputs and the decoded
+   candidates within 10x the plain path's spread under reordered sums.
+   Each train step (``zoo_step``; (a), (b), (c), (e)): the config's
+   optimizer and schedule, one counted step (launches: TransFusion-L's
+   step's for (a), 8/4/23/12 for (c); the train-time caps' drops printed
+   per site), finite losses, 3 steps timed at their seams. (f)
+   CenterPoint through the eval CLI over phase 17's samples (its
+   frames/s) and 2 train-CLI steps; (g) SECOND through both CLIs on a
+   KITTI-format set of (c)'s frame (``write_waymo(..., prefix='kitti',
+   columns=4)``).
 
 Each phase prints its seconds by the host clock.
 
@@ -4275,8 +4304,8 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
     runs last, on the same files, in the same working directory
     (dict(config, checkpoint: the seed's weights, out: the eval CLI's
     ``--out`` pickle, test_opts, train_opts, card, dev, root: the
-    dataset's directory, ann: its info file, work: the train CLI's work
-    directory))."""
+    dataset's directory, ann: its info file, timed_ann: the info file of
+    the timed pass, work: the train CLI's work directory))."""
     import multiprocessing
     import tempfile
     import numpy as np
@@ -4486,7 +4515,7 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
             then(dict(config=config, checkpoint=str(Path(tmp) / 'ckpt_0'),
                       out=str(Path(tmp) / 'r.pkl'), test_opts=test_opts,
                       train_opts=train_opts, card=card, dev=dev, root=root,
-                      ann=ann, work=work))
+                      ann=ann, timed_ann=timed_ann, work=work))
     check(not multiprocessing.active_children(),
           f'{label}: worker processes left')
     torch.cuda.empty_cache()
@@ -5321,11 +5350,13 @@ def waymo_calib():
                 P2=p2.astype(np.float32))
 
 
-def write_waymo(root, frames, counts, classes, image_shape=(1280, 1920)):
+def write_waymo(root, frames, counts, classes, image_shape=(1280, 1920),
+                prefix='waymo', columns=6):
     """A KITTI-format Waymo set under ``root``: each of ``frames`` (points
     [N, 5], LiDAR boxes [G, 7], labels [G]) as a 6-float velodyne ``.bin``
-    (a zero column added), and for each split of ``counts`` ({split:
-    entries}) the info file ``waymo_infos_<split>.pkl``, whose k-th entry
+    (a zero column added; with ``columns=4`` a KITTI one, xyz and
+    intensity), and for each split of ``counts`` ({split: entries}) the
+    info file ``<prefix>_infos_<split>.pkl``, whose k-th entry
     is frame k mod len(frames): image (image_idx, image_shape),
     point_cloud (velodyne_path, lidar_idx), ``waymo_calib()``, the GT as
     camera-frame annos (location, dimensions (l, h, w), rotation_y, the
@@ -5341,9 +5372,9 @@ def write_waymo(root, frames, counts, classes, image_shape=(1280, 1920)):
     calib = waymo_calib()
     annos = []
     for i, (pts, boxes, labels) in enumerate(frames):
-        np.concatenate([pts[:, :5], np.zeros((len(pts), 1), pts.dtype)],
-                       1).astype(np.float32).tofile(
-            root / 'velodyne' / f'{i:06d}.bin')
+        cols = (pts[:, :4] if columns == 4 else np.concatenate(
+            [pts[:, :5], np.zeros((len(pts), 1), pts.dtype)], 1))
+        cols.astype(np.float32).tofile(root / 'velodyne' / f'{i:06d}.bin')
         cam = box_lidar_to_camera(boxes[:, :7].astype(np.float64),
                                   calib['R0_rect'].astype(np.float64),
                                   calib['Tr_velo_to_cam'].astype(np.float64))
@@ -5382,11 +5413,11 @@ def write_waymo(root, frames, counts, classes, image_shape=(1280, 1920)):
             i = k % len(frames)
             infos.append(dict(
                 image=dict(image_idx=k, image_shape=np.array(image_shape)),
-                point_cloud=dict(num_features=6, lidar_idx=f'{i:07d}',
+                point_cloud=dict(num_features=columns, lidar_idx=f'{i:07d}',
                                  velodyne_path=f'velodyne/{i:06d}.bin'),
                 calib=dict(calib), annos=annos[i],
                 context_name=f'segment-{i}', timestamp=1_500_000_000 + k))
-        paths[split] = root / f'waymo_infos_{split}.pkl'
+        paths[split] = root / f'{prefix}_infos_{split}.pkl'
         with open(paths[split], 'wb') as f:
             pickle.dump(infos, f)
     return paths
@@ -5839,6 +5870,622 @@ def tool_files(card, dev, files):
     print(f'analyze_logs: {len(logs)} logs summarized [{card}]', flush=True)
 
 
+# phase 22: the single-stage LiDAR zoo at its configs' own widths and
+# capacities (no stage capacity set: each downsample keeps its input's),
+# batch 1, seed-0 weights, norms calibrated on the frame. (a) CenterPoint
+# and (b) PointPillars on phase 3's 250,000-point frame, (c) SECOND and (d)
+# DynamicVoxelNet on a 40,000-point KITTI-range frame (second_kitti.py's
+# max_points_per_sample), (e) FreeAnchor on (b)'s frame. Launches: the
+# sparse encoder's plans and convs (CenterPoint's is TransFusion-L's;
+# SECOND's conv_module encoder: 4 submanifold and 4 strided plans, 12
+# convs; a step adds the 4 strided convs' dual plans, the input gradient
+# of every conv but conv_input and every conv's dw); the pillar and
+# anchor paths launch none
+ZOO = dict(
+    centerpoint=dict(config=ROOT / 'configs' / 'centerpoint_nusc_voxel.py',
+                     launches=TL['launches'],
+                     train=TL_TRAIN['launches']),
+    pointpillars=dict(config=ROOT / 'configs' / 'pointpillars_nusc.py',
+                      launches={}, train={}),
+    second=dict(config=ROOT / 'configs' / 'second_kitti.py',
+                launches={'rows_affine': 8, 'gather_gemm_conv_x3': 12},
+                train={'rows_affine': 8, 'rows_queries': 4,
+                       'gather_gemm_conv_x3': 23, 'conv_dw_x3': 12}),
+    dynamic=dict(config=ROOT / 'configs' / 'dynamic_voxelnet_kitti.py',
+                 launches={'rows_affine': 8, 'gather_gemm_conv_x3': 12}),
+    free_anchor=dict(config=ROOT / 'configs' / 'free_anchor_nusc.py',
+                     train={}),
+    n_points=TL['n_points'], kitti_points=40000, frames=10, steps=3,
+    steps_per_epoch=1000)
+# a pair of candidates whose IoU or squared centre distance lies this near
+# its NMS threshold (relative, at least 1) may flip between two devices'
+# rounding: such pairs are counted and printed, not held
+NMS_NEAR = 1e-6
+
+
+def zoo_model(config, dev):
+    """The detector of ``config`` at its own widths and capacities, seed-0
+    weights."""
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.models.builder import build_detector
+    import msmdfusion_torch.models  # noqa: F401
+    return build_detector(load_config(str(config)).model, device=dev,
+                          seed=SEED)
+
+
+def kitti_frame(model, n_points, device):
+    """A ``synth_scene.lidar_scene`` frame over the model's (KITTI) range:
+    points [1, N, 4] (xyz, intensity), mask, and the ground truth (7-wide
+    boxes, labels below the head's classes)."""
+    (points, mask), (boxes, labels, valid) = make_points(model, n_points,
+                                                         device)
+    classes = model.pts_bbox_head.num_classes
+    return ((points[..., :4].contiguous(), mask),
+            (boxes[..., :7].contiguous(), labels % classes, valid))
+
+
+class NmsCalls:
+    """Keep every NMS call of the zoo's heads made inside the scope: (the
+    function, its arguments, its result)."""
+    SITES = (('centerpoint_head', 'circle_nms'),
+             ('anchor3d_head', 'box3d_multiclass_nms'))
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._orig = [], []
+        for mod, name in self.SITES:
+            module = importlib.import_module(
+                f'msmdfusion_torch.models.heads.{mod}')
+            fn = getattr(module, name)
+            self._orig.append((module, name, fn))
+
+            def kept(*args, _fn=fn, **kwargs):
+                out = _fn(*args, **kwargs)
+                self.calls.append((_fn, args, kwargs, out))
+                return out
+            setattr(module, name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._orig:
+            setattr(module, name, fn)
+        return False
+
+
+def near_pairs(fn, args, kwargs):
+    """Pairs of candidates (both valid) whose squared centre distance or
+    BEV IoU lies within ``NMS_NEAR`` of the call's threshold."""
+    import torch
+    from msmdfusion_torch.core.iou3d import boxes_iou_bev
+    if fn.__name__ == 'circle_nms':
+        ctr, radius = args[0], args[2]
+        valid = kwargs.get('valid')
+        d = ctr[..., :, None, :] - ctr[..., None, :, :]
+        value, thr = (d * d).sum(-1), radius * radius
+        both = valid[..., :, None] & valid[..., None, :]
+    else:
+        bev, thr = args[1], args[4]
+        value = boxes_iou_bev(bev, bev)
+        both = torch.ones_like(value, dtype=torch.bool)
+    n = value.shape[-1]
+    upper = torch.ones(n, n, dtype=torch.bool, device=value.device).triu(1)
+    near = ((value - thr).abs() <= NMS_NEAR * max(1.0, abs(thr))) & both
+    return int((near & upper).sum())
+
+
+def nms_check(label, calls):
+    """Each NMS call of the card's path run again on the CPU on the same
+    inputs: the same keep set and order, unless a pair lies near its
+    threshold (counted and printed)."""
+    import torch
+    same, near_total = 0, 0
+    for fn, args, kwargs, out in calls:
+        def cpu(x):
+            return x.cpu() if torch.is_tensor(x) else x
+        want = fn(*map(cpu, args), **{k: cpu(v) for k, v in kwargs.items()})
+        got = out if isinstance(out, dict) else dict(enumerate(out))
+        want = want if isinstance(want, dict) else dict(enumerate(want))
+        equal = all(torch.equal(got[k].cpu(), want[k]) for k in want)
+        near = near_pairs(fn, args, kwargs)
+        near_total += near
+        check(equal or near > 0, f'{label}: {fn.__name__} on the card keeps '
+              'another set or order than on the CPU, no pair near its '
+              'threshold')
+        same += equal
+    print(f'{label}: NMS on the card against the CPU on the same inputs: '
+          f'{same} of {len(calls)} calls keep the same set and order; '
+          f'{near_total} pairs within {NMS_NEAR:g} of their threshold '
+          '(counted, not held)', flush=True)
+    return same, near_total
+
+
+class PinnedTopK:
+    """Inside the scope the zoo's top-K choices (``topk_lower_index`` in
+    the CenterPoint coder and the anchor heads' decode) keep, in call
+    order, the indices ``index`` gives (each call's own where ``index`` is
+    None; ``self.index`` then holds them): two paths then decode the same
+    cells or anchors."""
+
+    SITES = ('msmdfusion_torch.core.coders',
+             'msmdfusion_torch.models.heads.anchor3d_head')
+
+    def __init__(self, index=None):
+        self.replay = index is not None
+        self.index = list(index or ())
+        self.calls = 0
+
+    def __enter__(self):
+        import importlib
+        import torch
+        self._orig = []
+        for site in self.SITES:
+            module = importlib.import_module(site)
+            fn = module.topk_lower_index
+            self._orig.append((module, fn))
+
+            def pinned(x, k, _fn=fn):
+                if self.replay:
+                    idx = self.index[self.calls]
+                    self.calls += 1
+                    return torch.gather(x, -1, idx), idx
+                values, idx = _fn(x, k)
+                self.index.append(idx)
+                return values, idx
+            module.topk_lower_index = pinned
+        return self
+
+    def __exit__(self, *exc):
+        for module, fn in self._orig:
+            module.topk_lower_index = fn
+        return False
+
+
+def zoo_preds(preds):
+    """The head's outputs as one flat {name: tensor} dict."""
+    if isinstance(preds, list):
+        return {f'task{t}.{k}': v for t, p in enumerate(preds)
+                for k, v in p.items()}
+    return dict(preds)
+
+
+def zoo_outputs(model, inputs, index, *scopes):
+    """(head input, head outputs, the NMS calls' candidates) of one
+    forward and decode, its top K pinned to ``index`` (its own where
+    None), and the top K it took."""
+    import torch
+    with contextlib.ExitStack() as stack, torch.no_grad():
+        for scope in scopes:
+            stack.enter_context(scope)
+        top = stack.enter_context(PinnedTopK(index))
+        head_in = stack.enter_context(HeadInput(model.pts_bbox_head))
+        nms = stack.enter_context(NmsCalls())
+        preds = model(*inputs)
+        model.get_bboxes(preds)
+    out = dict(zoo_preds(preds), head_input=head_in.x)
+    for i, (fn, args, kwargs, _) in enumerate(nms.calls):
+        boxes = args[0]                 # centres, or the decoded boxes
+        scores = args[1] if fn.__name__ == 'circle_nms' else args[2]
+        out[f'nms{i}.boxes'] = boxes
+        out[f'nms{i}.scores'] = scores
+    return out, top.index
+
+
+def zoo_twin(label, model, inputs):
+    """The kernel path against the all-plain one (x3 product, rounding
+    pinned, the kernel path's top K): the head input within TOL of its
+    largest value, the head's outputs and the decoded candidates within
+    FLOOR_MARGIN times the plain path's own spread under reordered sums
+    (never below TOL); the yaw of the anchor heads' boxes (an angle from
+    a residual and a direction bin) printed, not held."""
+    from msmdfusion_torch import kernels
+    pins = PinnedRounding()
+    run, index = zoo_outputs(model, inputs, None, pins)
+    ref, _ = zoo_outputs(model, inputs, index, kernels.plain_kernels(),
+                         X3Plain(), pins.replay())
+    alt, _ = zoo_outputs(model, inputs, index, kernels.plain_kernels(),
+                         X3Plain(), ReorderedSums(), pins.replay())
+    check(run.keys() == ref.keys(), f'{label}: the twin decoded '
+          f'{sorted(ref)}, the kernel path {sorted(run)}')
+    worst = {}
+    for key in run:
+        got, want, other = run[key], ref[key], alt[key]
+        if key.startswith('nms') and key.endswith('.boxes') and \
+                got.shape[-1] > YAW:
+            worst[key + '.yaw'] = (rel_err(got[..., YAW], want[..., YAW])[1],
+                                   float('nan'))
+            got, want, other = (boxes_part(dict(bboxes=x), 'bboxes')
+                                for x in (got, want, other))
+        rel = rel_err(got, want)[1]
+        floor = rel_err(other, want)[1]
+        limit = TOL if key == 'head_input' else max(TOL,
+                                                    FLOOR_MARGIN * floor)
+        worst[key] = (rel, limit)
+        check(rel <= limit, f'{label}: {key}: kernel vs plain path {rel:.3g} '
+              f'of max |ref|, above {limit:.3g} (reordered plain path '
+              f'{floor:.3g})')
+    top = sorted(((k, v) for k, v in worst.items() if k != 'head_input'),
+                 key=lambda kv: -(kv[1][0] / kv[1][1])
+                 if kv[1][1] == kv[1][1] else 0)
+    print(f'{label}: kernel vs plain path (pinned x3 rounding, the kernel '
+          f'path\'s top K): head_input {worst["head_input"][0]:.3g} of max '
+          f'(limit {TOL:g}); ' + '; '.join(
+              f'{k} {r:.3g}' + (f' (limit {lim:.3g})' if lim == lim else
+                                ' (not held)')
+              for k, (r, lim) in top[:8]), flush=True)
+    return worst
+
+
+def zoo_same_bits(label, model, inputs):
+    """Two forwards and decodes: every output the same bits."""
+    import torch
+    outs = []
+    for _ in range(2):
+        with torch.no_grad():
+            preds = model(*inputs)
+            boxes = model.get_bboxes(preds)
+        outs.append(dict(zoo_preds(preds), **{f'det.{k}': v
+                                              for k, v in boxes.items()}))
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    check(not differ, f'{label}: two forwards differ in {differ}')
+    print(f'{label}: two forwards and decodes bit-equal ({len(outs[0])} '
+          'outputs)', flush=True)
+
+
+def zoo_frame(label, model, inputs, spec, card, twin=False):
+    """One counted inference frame (launches, overflow per site, the NMS
+    against the CPU, the boxes), the twin where ``twin``, two forwards
+    bit-equal, ``ZOO['frames']`` frames timed by CUDA events after a
+    warm-up, stage ms. Returns (ms/frame, overflow, launches)."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.utils import overflow, timing
+    model.eval()
+    with torch.no_grad():
+        kernels.reset_launches()
+        with overflow.capture() as cap, NmsCalls() as nms:
+            preds = model(*inputs)
+            boxes = model.get_bboxes(preds)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+    print(f'{label}: launches on the main path: {launches}', flush=True)
+    check_launches(label, launches, spec['launches'])
+    dropped = {k: v for k, v in cap.counters().items() if v}
+    occupancy = {k: v for k, v in cap.gauge_values().items()
+                 if k.startswith('occ.')}
+    print(f'{label}: overflow per site {dropped} (every other site 0); '
+          f'occupancy {occupancy}', flush=True)
+    key = 'bboxes' if 'bboxes' in boxes else 'boxes'
+    b, valid = boxes[key], boxes['valid']
+    check(bool(torch.isfinite(b).all()) and int(valid.sum()) > 0,
+          f'{label}: {int(valid.sum())} valid boxes, finite '
+          f'{bool(torch.isfinite(b).all())}')
+    print(f'{label}: {int(valid.sum())} of {valid.numel()} boxes kept, '
+          f'{tuple(b.shape)}', flush=True)
+    nms_check(label, nms.calls)
+    if twin:
+        zoo_twin(label, model, inputs)
+    zoo_same_bits(label, model, inputs)
+    with torch.no_grad():
+        frame_ms = cuda_ms(lambda: forward(model, inputs), ZOO['frames'])
+        with timing.record(inputs[0].device.type) as tr:
+            forward(model, inputs)
+    stage_ms = {k: round(v, 4) for k, v in tr.ms().items()}
+    print(f'{label}: e2e {frame_ms:.3f} ms/frame (CUDA events, '
+          f'{ZOO["frames"]} frames after a warm-up), {1e3 / frame_ms:.2f} '
+          f'frames/s; stage_ms of a frame after them {json.dumps(stage_ms)} '
+          f'[{card}]', flush=True)
+    return frame_ms, dropped, launches
+
+
+def zoo_step(label, model, inputs, gt, config, spec, card):
+    """One counted ``make_train_step`` step of the config's recipe
+    (launches, overflow per site, finite losses), then ``ZOO['steps']``
+    steps timed at their seams (``split_steps``). The weights are restored
+    after. Returns (ms/step, overflow, launches)."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.train import (build_lr_schedule,
+                                             build_optimizer,
+                                             make_train_step)
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.utils import overflow
+    cfg = load_config(str(config))
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    try:
+        schedule = build_lr_schedule(
+            dict(cfg.lr_config), cfg.optimizer['lr'],
+            cfg.total_epochs * ZOO['steps_per_epoch'],
+            ZOO['steps_per_epoch'])
+        opt = build_optimizer(model, dict(cfg.optimizer),
+                              dict(cfg.optimizer_config), schedule)
+        step = make_train_step(model, opt, seed=SEED)
+        batch = dict(inputs=inputs, gt_bboxes=gt[0], gt_labels=gt[1],
+                     gt_valid=gt[2])
+        kernels.reset_launches()
+        with overflow.capture() as cap:
+            metrics = step(batch, 0)
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+        losses = {k: round(float(v), 5) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in losses.values()),
+              f'{label}: losses {losses}')
+        print(f'{label}: launches of one step {launches}; losses {losses}',
+              flush=True)
+        check_launches(label, launches, spec['train'])
+        dropped = {k: v for k, v in cap.counters().items() if v}
+        print(f'{label}: overflow per site {dropped} (every other site 0; '
+              f'the train-time voxel capacity '
+              f'{model.pts_voxel_layer["max_voxels"][0]})', flush=True)
+        split = split_steps(label, step, model, opt, batch, ZOO['steps'],
+                            card)
+        step_ms = sum(sum(s) for s in split) / len(split)
+        return step_ms, dropped, launches
+    finally:
+        model.load_state_dict(start)
+        model.eval()
+        torch.cuda.empty_cache()
+
+
+def zoo(card, dev):
+    """Phase 22 (see ``ZOO``): (a)-(e). Returns {path: figures}."""
+    import torch
+    from msmdfusion_torch.ops.voxelize import voxelize_batch
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    out = {}
+
+    def setup(name, inputs):
+        t0 = time.perf_counter()
+        model = zoo_model(ZOO[name]['config'], dev)
+        with torch.no_grad():
+            calibrate_norms(model, *inputs)
+        print(f'zoo {name}: {ZOO[name]["config"].name} built, norms '
+              f'calibrated in {time.perf_counter() - t0:.1f} s', flush=True)
+        return model
+
+    # (a) CenterPoint on phase 3's frame
+    cp = zoo_model(ZOO['centerpoint']['config'], dev)
+    inputs, gt = make_points(cp, ZOO['n_points'], dev)
+    del cp
+    label = 'zoo (a) CenterPoint'
+    model = setup('centerpoint', inputs)
+    frame = zoo_frame(label, model, inputs, ZOO['centerpoint'], card,
+                      twin=True)
+    step = zoo_step(f'{label} train', model, inputs, gt,
+                    ZOO['centerpoint']['config'], ZOO['centerpoint'], card)
+    out['centerpoint'] = (frame, step)
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) PointPillars and (e) FreeAnchor on the same frame
+    label = 'zoo (b) PointPillars'
+    model = setup('pointpillars', inputs)
+    frame = zoo_frame(label, model, inputs, ZOO['pointpillars'], card)
+    vl = model.pts_voxel_layer
+    cap = vl['max_voxels']
+    with torch.no_grad():
+        pillars = int(voxelize_batch(*inputs, vl['voxel_size'],
+                                     vl['point_cloud_range'],
+                                     vl['max_num_points'], cap[1])[3].sum())
+    print(f'{label}: {pillars} pillars against the cap {cap[1]} (train '
+          f'{cap[0]}): dropped {frame[1].get("voxelize.hard.voxel_cap", 0)} '
+          f'pillars, {frame[1].get("voxelize.hard.point_truncation", 0)} '
+          f'points past {vl["max_num_points"]} a pillar', flush=True)
+    step = zoo_step(f'{label} train', model, inputs, gt,
+                    ZOO['pointpillars']['config'], ZOO['pointpillars'], card)
+    out['pointpillars'] = (frame, step)
+    del model
+    label = 'zoo (e) FreeAnchor'
+    model = setup('free_anchor', inputs)
+    out['free_anchor'] = (None, zoo_step(
+        f'{label} train', model, inputs, gt, ZOO['free_anchor']['config'],
+        ZOO['free_anchor'], card))
+    del model, inputs, gt
+    torch.cuda.empty_cache()
+
+    # (c) SECOND and (d) DynamicVoxelNet on a KITTI-range frame
+    second = zoo_model(ZOO['second']['config'], dev)
+    inputs, gt = kitti_frame(second, ZOO['kitti_points'], dev)
+    del second
+    label = 'zoo (c) SECOND'
+    model = setup('second', inputs)
+    frame = zoo_frame(label, model, inputs, ZOO['second'], card, twin=True)
+    step = zoo_step(f'{label} train', model, inputs, gt,
+                    ZOO['second']['config'], ZOO['second'], card)
+    out['second'] = (frame, step)
+    del model
+    label = 'zoo (d) DynamicVoxelNet'
+    model = setup('dynamic', inputs)
+    out['dynamic'] = (zoo_frame(label, model, inputs, ZOO['dynamic'], card),
+                      None)
+    del model, inputs, gt
+    torch.cuda.empty_cache()
+    summary = {k: dict(ms_frame=f and round(f[0], 3),
+                       ms_step=s and round(s[0], 3),
+                       overflow={**(f[1] if f else {}),
+                                 **{f'train {k2}': v for k2, v in
+                                    (s[1] if s else {}).items()}})
+               for k, (f, s) in out.items()}
+    print(f'zoo: {json.dumps(summary)} [{card}]', flush=True)
+    return out
+
+
+# phase 22 from files: CenterPoint on phase 17's samples (the eval CLI,
+# then ``steps`` train-CLI steps), SECOND on a KITTI-format set of (c)'s
+# frame (``write_waymo``'s layout, 4-float velodyne files) through both
+# CLIs: ``steps`` steps of six samples, then ``val`` frames evaluated
+ZOO_FILES = dict(steps=2, val=2)
+
+
+def zoo_checkpoint(config, opts, dev, name):
+    """A checkpoint of ``config``'s seed-0 weights with norms calibrated
+    on its test set's first sample, and that sample's inputs."""
+    import torch
+    from msmdfusion_torch.apis.inference import batch_model_inputs
+    from msmdfusion_torch.config import load_config, parse_cli_overrides
+    from msmdfusion_torch.datasets.loader import DataLoader
+    from msmdfusion_torch.models.builder import build_detector
+    from msmdfusion_torch.registry import DATASETS
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    from msmdfusion_torch.utils.checkpoint import save_checkpoint
+    cfg = load_config(config, parse_cli_overrides(opts))
+    dataset = DATASETS.build(dict(cfg.data.test))
+    model = build_detector(cfg.model, device=dev, seed=SEED)
+    with DataLoader(dataset, 1, shuffle=False, drop_last=False,
+                    num_workers=0, device=dev) as loader:
+        inputs = batch_model_inputs(cfg.model.type, next(iter(loader)), dev)
+    with torch.no_grad():
+        calibrate_norms(model, *inputs)
+    return save_checkpoint(str(Path(name).resolve()), 0, model,
+                           meta=dict(config=config)), inputs
+
+
+def zoo_eval_cli(label, config, ckpt, opts, metric, inputs, launches, card,
+                 dev, width):
+    """The eval CLI with ``--eval``: every frame's launches, the overflow
+    per site, finite metrics, sample 0's detections bit-equal to a direct
+    call; returns the CLI's frames/s."""
+    import numpy as np
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.apis.inference import unpack_detections
+    from msmdfusion_torch.tools import test as test_cli
+    kernels.reset_launches()
+    run = test_cli.main([config, ckpt, '--eval', metric, '--device',
+                         str(dev)] + (['--cfg-options', *opts] if opts
+                                      else []))
+    torch.cuda.synchronize()
+    n = len(run['results'])
+    check_launches(f'{label}: eval CLI', dict(kernels.launches),
+                   {k: v * n for k, v in launches.items()})
+    numbers = {k: v for k, v in run['metrics'].items()
+               if isinstance(v, (int, float))}
+    check(numbers and all(math.isfinite(v) for v in numbers.values()),
+          f'{label}: metrics {run["metrics"]}')
+    model = run['model']
+    with torch.no_grad():
+        direct = unpack_detections(model.get_bboxes(model(*inputs)))[0]
+    for key in ('bboxes', 'scores', 'labels'):
+        check(np.array_equal(run['results'][0][key], direct[key]),
+              f'{label}: sample 0 {key} differ from the direct call')
+    check(all(np.isfinite(d['bboxes']).all() and d['bboxes'].shape[1]
+              == width for d in run['results']), f'{label}: boxes')
+    shown = dict(list(numbers.items())[:4])
+    dropped = {k: v for k, v in run['overflow'].items() if v}
+    print(f'{label}: eval CLI --eval {metric}: {n} frames, '
+          f'{run["fps"]:.3f} frames/s whole run ({run["seconds"]:.2f} s, '
+          f'worker start-up in it); launches {launches} a frame; overflow '
+          f'per site {dropped} (every other site 0); sample 0\'s '
+          f'{len(direct["scores"])} '
+          f'detections bit-equal to the direct call; {shown} (seed weights:'
+          f' no meaning) [{card}]', flush=True)
+    fps = run['fps']
+    del run, model
+    torch.cuda.empty_cache()
+    return fps
+
+
+def zoo_train_cli(label, config, work, opts, steps, launches, card, dev):
+    """``steps`` steps of the train CLI: the launches, finite losses, the
+    overflow per site; returns its seconds."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.tools import train as train_cli
+    from msmdfusion_torch.utils import overflow
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with overflow.capture() as cap:
+        run = train_cli.main([config, '--work-dir', work, '--device',
+                              str(dev), '--max-steps', str(steps),
+                              '--no-validate', '--cfg-options', *opts,
+                              'log_config.interval=1'])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_launches(f'{label}: train CLI', dict(kernels.launches),
+                   {k: v * steps for k, v in launches.items()})
+    train = [r for r in json_records(work) if r['mode'] == 'train']
+    check(len(train) == steps and all(math.isfinite(r['total_loss'])
+                                      for r in train),
+          f'{label}: train records {train}')
+    print(f'{label}: train CLI {steps} steps in {seconds:.1f} s; total_loss '
+          f'{[round(r["total_loss"], 4) for r in train]}; launches '
+          f'{launches} a step; overflow per site '
+          f'{ {k: v for k, v in cap.counters().items() if v} } [{card}]',
+          flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def zoo_files(card, dev, files):
+    """Phase 22 (f), inside phase 17's working directory: CenterPoint
+    through the eval CLI over phase 17's nuScenes-layout samples (``--eval
+    bbox``, then its timed pass), then ``ZOO_FILES['steps']`` train-CLI
+    steps."""
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.tools import test as test_cli
+    label = 'zoo (f) CenterPoint from files'
+    config = str(ZOO['centerpoint']['config'])
+    test_opts = data_options('test', files['root'], files['ann'])
+    ckpt, inputs = zoo_checkpoint(config, test_opts, dev, 'ckpt_centerpoint')
+    zoo_eval_cli(label, config, ckpt, test_opts, 'bbox', inputs,
+                 ZOO['centerpoint']['launches'], card, dev, 9)
+    # the timed pass: phase 17's timed info file (its samples listed
+    # ENTRY['timed'] times); steady frames/s from frame 2 x workers on
+    cfg = load_config(config)
+    skip = 2 * cfg.data.workers_per_gpu
+    run = test_cli.main([config, ckpt, '--device', str(dev), '--cfg-options',
+                         *data_options('test', files['root'],
+                                       files['timed_ann'])])
+    n = len(run['results'])
+    check(n == ENTRY['timed'], f'{label}: timed pass {n} results')
+    cli_ms = steady_ms(run['frame_s'], skip)
+    print(f'{label}: timed pass, {n} frames: eval CLI {1e3 / cli_ms:.3f} '
+          f'frames/s ({cli_ms:.1f} ms/frame from frame {skip} on, host '
+          f'clock); overflow per site '
+          f'{ {k: v for k, v in run["overflow"].items() if v} } [{card}]',
+          flush=True)
+    del run
+    zoo_train_cli(label, config, str(Path('work_centerpoint').resolve()),
+                  data_options('train.dataset', files['root'], files['ann']),
+                  ZOO_FILES['steps'], ZOO['centerpoint']['train'], card, dev)
+    return 1e3 / cli_ms
+
+
+def second_files(card, dev, spec=ZOO_FILES):
+    """Phase 22 (g): SECOND through the train and eval CLIs on a
+    KITTI-format set of (c)'s frame."""
+    import tempfile
+    import numpy as np
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.utils.synth_scene import lidar_scene, scene_gt
+    label = 'zoo (g) SECOND from files'
+    config = str(ZOO['second']['config'])
+    cfg = load_config(config)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        pts, objects = lidar_scene(np.random.RandomState(SEED),
+                                   ZOO['kitti_points'], cfg.point_cloud_range)
+        boxes, labels, valid = scene_gt(objects)
+        frame = (pts, boxes[valid][:, :7],
+                 labels[valid] % len(cfg.class_names))
+        n_train = spec['steps'] * cfg.data.samples_per_gpu
+        paths = write_waymo(cfg.data_root, [frame],
+                            dict(train=n_train, val=spec['val']),
+                            cfg.class_names, prefix='kitti', columns=4)
+        check(paths['train'] == Path(cfg.data.train.ann_file)
+              and paths['val'] == Path(cfg.data.test.ann_file),
+              f'{label}: wrote {paths}, the config reads '
+              f'{cfg.data.train.ann_file} and {cfg.data.test.ann_file}')
+        print(f'{label}: (c)\'s {len(pts)}-point frame and its '
+              f'{len(frame[1])} boxes as a KITTI-format set under '
+              f'{cfg.data_root} ({n_train} train, {spec["val"]} val infos)',
+              flush=True)
+        zoo_train_cli(label, config, str(Path('work_second').resolve()), [],
+                      spec['steps'], ZOO['second']['train'], card, dev)
+        ckpt, inputs = zoo_checkpoint(config, [], dev, 'ckpt_second')
+        return zoo_eval_cli(label, config, ckpt, [], 'kitti', inputs,
+                            ZOO['second']['launches'], card, dev, 7)
+
+
 def report(phases, card):
     """The rows kernels' sums lines and the ``kernels`` line of the
     flagship's phases (``flagship_phases``)."""
@@ -5878,7 +6525,8 @@ CARD_TESTS = ('tests/test_torch_rows_card.py',
               'tests/test_torch_match_conv_card.py',
               'tests/test_torch_conv_dw_card.py',
               'tests/test_torch_nn_argmin_card.py',
-              'tests/test_torch_conv_ffma_card.py')
+              'tests/test_torch_conv_ffma_card.py',
+              'tests/test_torch_zoo_card.py')
 
 
 def card_tests():
@@ -5990,9 +6638,12 @@ def main():
         lap('19 (GT paste: the database and the stage-1 train CLI from '
             'files)')
         tool_files(card, dev, files)
+        lap('21 (f: publish_model, visualize_results and analyze_logs on '
+            'phase 17\'s files)')
+        zoo_files(card, dev, files)
     entry_points(card, dev, then=then)
-    lap('21 (f: publish_model, visualize_results and analyze_logs on '
-        'phase 17\'s files)')
+    lap('22 (f: CenterPoint through the eval and train CLIs on phase 17\'s '
+        'files)')
     dist += dist_steps(card, dev)
     lap('18 (a, b: the flagship step over a process group)')
     print('dist: ' + ' | '.join(dist), flush=True)
@@ -6002,6 +6653,10 @@ def main():
     del flag_kept, tl_kept
     lap('21 (a-e: FLOP counts, the fused frame, the microbench, the speed '
         'CLI, the trace summary)')
+    zoo(card, dev)
+    second_files(card, dev)
+    lap('22 (a-e, g: the single-stage zoo; SECOND through the CLIs on '
+        'KITTI-format files)')
 
     report(phases, card)
     print(json.dumps({'ok': True, 'device': {

@@ -25,9 +25,11 @@ _CAMERA_TRANSFORMS = (
 def unpack_detections(res: Dict[str, torch.Tensor]) -> List[Dict]:
     """Detection dict of batch tensors -> per-sample masked numpy dicts
     (``bboxes``, ``scores``, ``labels``): the reference returns
-    variable-length box lists, here the validity masks carry that."""
+    variable-length box lists, here the validity masks carry that. The
+    boxes are under ``bboxes`` (TransFusion, CenterPoint) or ``boxes``
+    (the anchor heads' multi-class NMS)."""
     res = {k: v.cpu().numpy() for k, v in res.items()}
-    boxes = res['bboxes']
+    boxes = res['bboxes'] if 'bboxes' in res else res['boxes']
     out = []
     for i in range(boxes.shape[0]):
         valid = res['valid'][i] if 'valid' in res else \

@@ -2,11 +2,14 @@
 
 Counterpart of the JAX package's ``core/boxes.py`` ``corners_3d``
 (reference ``LiDARInstance3DBoxes.corners``,
-mmdet3d/core/bbox/structures/lidar_box3d.py:46-86): boxes are plain
+mmdet3d/core/bbox/structures/lidar_box3d.py:46-86), ``limit_period`` and
+``xywhr2xyxyr`` (mmdet3d/core/bbox/structures/utils.py): boxes are plain
 ``[..., 7+]`` tensors ``(x, y, z, w, l, h, yaw[, vx, vy])`` with the
 origin at the bottom centre ``(0.5, 0.5, 0)``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,3 +30,18 @@ def corners_3d(boxes):
     x = corners[..., 0] * cos - corners[..., 1] * sin
     y = corners[..., 0] * sin + corners[..., 1] * cos
     return torch.stack([x, y, corners[..., 2]], -1) + boxes[..., None, :3]
+
+
+def limit_period(val, offset: float = 0.5, period: float = math.pi):
+    """``val`` moved into [-offset * period, (1 - offset) * period)."""
+    return val - torch.floor(val / period + offset) * period
+
+
+def xywhr2xyxyr(boxes_xywhr):
+    """[..., 5] (cx, cy, w, l, yaw) -> (x1, y1, x2, y2, yaw)."""
+    half_w = boxes_xywhr[..., 2:3] / 2
+    half_l = boxes_xywhr[..., 3:4] / 2
+    return torch.cat([
+        boxes_xywhr[..., 0:1] - half_w, boxes_xywhr[..., 1:2] - half_l,
+        boxes_xywhr[..., 0:1] + half_w, boxes_xywhr[..., 1:2] + half_l,
+        boxes_xywhr[..., 4:5]], -1)

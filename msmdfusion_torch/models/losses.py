@@ -1,7 +1,8 @@
 """Detection losses, elementwise.
 
 Counterpart of the JAX package's ``models/losses.py`` (mmdet's FocalLoss,
-GaussianFocalLoss and L1Loss, mmdet3d's ``clip_sigmoid``). The callers
+GaussianFocalLoss, L1Loss, SmoothL1Loss and CrossEntropyLoss, mmdet3d's
+``clip_sigmoid``). The callers
 reduce and average, as the reference's ``avg_factor``.
 """
 from __future__ import annotations
@@ -43,3 +44,21 @@ def gaussian_focal_loss(pred, gaussian_target, alpha: float = 2.0,
 
 def l1_loss(pred, target):
     return (pred - target).abs()
+
+
+def smooth_l1_loss(pred, target, beta: float = 1.0):
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+
+
+def binary_cross_entropy(logits, labels):
+    """Sigmoid cross entropy of ``logits`` against 0/1 ``labels``."""
+    return torch.clamp(logits, min=0) - logits * labels + \
+        torch.log1p(torch.exp(-logits.abs()))
+
+
+def cross_entropy(logits, labels, num_classes: int):
+    """logits [N, C], int labels [N] -> [N] softmax cross entropy."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.to(torch.int64)[:, None])[:, 0]

@@ -1,10 +1,13 @@
 """SECOND-style sparse voxel encoder.
 
 Counterpart of the JAX package's ``models/middle_encoders/sparse_encoder.py``
-(reference mmdet3d/models/middle_encoders/sparse_encoder.py:10-209) with
-``block_type='basicblock'``: four stages of submanifold basic blocks with
-strided downsamples between them, a (3,1,1)/(2,1,1) ``conv_out``,
-densified to a BEV map. The defaults are TransFusion-L's. Module names follow the reference
+(reference mmdet3d/models/middle_encoders/sparse_encoder.py:10-209):
+stages of submanifold blocks with strided downsamples between them, a
+(3,1,1)/(2,1,1) ``conv_out``, densified to a BEV map. With
+``block_type='basicblock'`` (the defaults, TransFusion-L's) a stage is
+basic blocks and ends on its downsample (but the last); with
+``'conv_module'`` (SECOND's) a stage is conv-norm-ReLU blocks and starts
+on its downsample (but the first). Module names follow the reference
 (``conv_input``, ``encoder_layers.encoder_layer{i}.{j}``, ``conv_out``).
 
 Every downsample writes into a fixed-capacity output (``stage_capacities``,
@@ -38,9 +41,8 @@ class SparseEncoder(nn.Module):
                  stage_capacities: Optional[Sequence[int]] = None,
                  norm_eps: float = 1e-3, norm_momentum: float = 0.01):
         super().__init__()
-        if block_type != 'basicblock':
-            raise NotImplementedError(
-                f'block_type {block_type!r}: only basicblock is ported')
+        if block_type not in ('basicblock', 'conv_module'):
+            raise ValueError(f'block_type {block_type!r}')
         self.sparse_shape = tuple(int(v) for v in sparse_shape)
         kw = dict(order=order, norm_eps=norm_eps, norm_momentum=norm_momentum)
         self.conv_input = SparseConvBlock(
@@ -53,12 +55,21 @@ class SparseEncoder(nn.Module):
         for i, blocks in enumerate(encoder_channels):
             stage = []
             for j, out_channels in enumerate(tuple(blocks)):
-                if j == len(blocks) - 1 and i != num_stages - 1:
+                padding = tuple(encoder_paddings[i])[j]
+                if block_type == 'conv_module':
+                    down = i != 0 and j == 0
+                else:
+                    down = j == len(blocks) - 1 and i != num_stages - 1
+                if down:
                     stage.append(SparseConvBlock(
-                        c, out_channels, 3, stride=2,
-                        padding=tuple(encoder_paddings[i])[j],
+                        c, out_channels, 3, stride=2, padding=padding,
                         conv_type='SparseConv3d', indice_key=f'spconv{i + 1}',
                         out_capacity=caps[i] if caps is not None else None,
+                        **kw))
+                elif block_type == 'conv_module':
+                    stage.append(SparseConvBlock(
+                        c, out_channels, 3, padding=padding,
+                        conv_type='SubMConv3d', indice_key=f'subm{i + 1}',
                         **kw))
                 else:
                     if out_channels != c:

@@ -60,6 +60,8 @@ BACKBONES = Registry('backbones')
 NECKS = Registry('necks')
 HEADS = Registry('heads')
 MIDDLE_ENCODERS = Registry('middle_encoders')
+VOXEL_ENCODERS = Registry('voxel_encoders')
+ANCHOR_GENERATORS = Registry('anchor_generators')
 BBOX_CODERS = Registry('bbox_coders')
 DATASETS = Registry('datasets')
 PIPELINES = Registry('pipelines')

@@ -7,7 +7,9 @@ private copy of that converter's TransFusion-L and MSMDFusion tables
 (``_pts_trunk_rules``, ``resnet_rules``, ``fpn_rules``, ``msmdfusion_rules``),
 adds TransFusion-LC's (``transfusion_lc_rules``: the head's image fusion
 under the reference TransFusion head's keys, which the JAX converter's
-view-order contract names) and the code-size-8 Waymo head's, and reads
+view-order contract names), the code-size-8 Waymo head's and the
+single-stage zoo's (``zoo_rules``: mmdet3d's module names; the JAX
+converter has none), and reads
 them backwards: a flax variable tree (as numpy arrays) becomes a state
 dict the port loads with ``load_state_dict``.
 
@@ -258,6 +260,139 @@ def msmdfusion_rules(depth: int = 50, layer_nums: Sequence[int] = (5, 5),
             f'{g_f}/downscale_{i}/MaskedBatchNorm_0', 'bn')
         add(f'{g_t}.dummy_embedding_{i}', f'{g_f}/dummy_embedding_{i}',
             'param')
+    return rules
+
+
+def sparse_encoder_rules(add, encoder_channels, block_type: str,
+                         t: str = 'pts_middle_encoder',
+                         f: str = 'middle_encoder') -> None:
+    """A ``SparseEncoder`` of any stage layout: the flax blocks are counted
+    in creation order by kind (``SparseConvBlock_{k}`` for conv_input, the
+    downsamples, the conv_module blocks and conv_out;
+    ``SparseBasicBlock_{k}``), as the port's walk creates its modules."""
+    conv, basic = 1, 0
+    add(f'{t}.conv_input.0', f'{f}/SparseConvBlock_0/SubMConv3d_0', 'spconv')
+    add(f'{t}.conv_input.1', f'{f}/SparseConvBlock_0/MaskedBatchNorm_0', 'bn')
+    num_stages = len(encoder_channels)
+    for i, blocks in enumerate(encoder_channels):
+        for j in range(len(blocks)):
+            tb = f'{t}.encoder_layers.encoder_layer{i + 1}.{j}'
+            if block_type == 'conv_module':
+                down = i != 0 and j == 0
+            else:
+                down = j == len(blocks) - 1 and i != num_stages - 1
+            if down or block_type == 'conv_module':
+                kind = 'SparseConv3d' if down else 'SubMConv3d'
+                fb = f'{f}/SparseConvBlock_{conv}'
+                add(f'{tb}.0', f'{fb}/{kind}_0', 'spconv')
+                add(f'{tb}.1', f'{fb}/MaskedBatchNorm_0', 'bn')
+                conv += 1
+            else:
+                fb = f'{f}/SparseBasicBlock_{basic}'
+                for c in (1, 2):
+                    add(f'{tb}.conv{c}', f'{fb}/SubMConv3d_{c - 1}', 'spconv')
+                    add(f'{tb}.bn{c}', f'{fb}/MaskedBatchNorm_{c - 1}', 'bn')
+                basic += 1
+    add(f'{t}.conv_out.0', f'{f}/SparseConvBlock_{conv}/SparseConv3d_0',
+        'spconv', (3, 1, 1))
+    add(f'{t}.conv_out.1', f'{f}/SparseConvBlock_{conv}/MaskedBatchNorm_0',
+        'bn')
+
+
+def second_rules(add, layer_nums, t: str = 'pts_backbone',
+                 f: str = 'backbone') -> None:
+    """SECOND: stage s's (1 + layer_nums[s]) ConvModules."""
+    cm = 0
+    for s, num in enumerate(layer_nums):
+        for li in range(num + 1):
+            add(f'{t}.blocks.{s}.{li * 3}', f'{f}/ConvModule_{cm}/Conv_0',
+                'conv2d')
+            add(f'{t}.blocks.{s}.{li * 3 + 1}',
+                f'{f}/ConvModule_{cm}/MaskedBatchNorm_0', 'bn')
+            cm += 1
+
+
+def second_fpn_rules(add, upsample_strides, use_conv_for_no_stride: bool,
+                     t: str = 'pts_neck', f: str = 'neck') -> None:
+    """SECONDFPN: each level's (transposed) conv and norm; flax counts
+    ``Conv_{k}`` and ``ConvTranspose_{k}`` apart."""
+    n_conv = n_deconv = 0
+    for i, stride in enumerate(upsample_strides):
+        if stride > 1 or (stride == 1 and not use_conv_for_no_stride):
+            add(f'{t}.deblocks.{i}.0', f'{f}/ConvTranspose_{n_deconv}',
+                'deconv2d')
+            n_deconv += 1
+        else:
+            add(f'{t}.deblocks.{i}.0', f'{f}/Conv_{n_conv}', 'conv2d')
+            n_conv += 1
+        add(f'{t}.deblocks.{i}.1', f'{f}/MaskedBatchNorm_{i}', 'bn')
+
+
+def voxel_encoder_rules(add, cfg, t: str = 'pts_voxel_encoder',
+                        f: str = 'voxel_encoder') -> None:
+    """``PillarFeatureNet`` (``pfn_layers.{i}.linear``/``.norm``),
+    ``HardVFE`` (``vfe_layers.{i}.linear``/``.norm``) or ``DynamicVFE``
+    (``vfe_layers.{i}.0``/``.1``); ``HardSimpleVFE`` has no parameters."""
+    n = len(cfg.get('feat_channels', (64,)))
+    for i in range(n):
+        if cfg['type'] == 'PillarFeatureNet':
+            add(f'{t}.pfn_layers.{i}.linear', f'{f}/PFNLayer_{i}/Dense_0',
+                'linear')
+            add(f'{t}.pfn_layers.{i}.norm',
+                f'{f}/PFNLayer_{i}/MaskedBatchNorm_0', 'bn')
+        elif cfg['type'] in ('HardVFE', 'DynamicVFE'):
+            lin, norm = (('linear', 'norm') if cfg['type'] == 'HardVFE'
+                         else ('0', '1'))
+            add(f'{t}.vfe_layers.{i}.{lin}', f'{f}/Dense_{i}', 'linear')
+            add(f'{t}.vfe_layers.{i}.{norm}', f'{f}/BatchNorm_{i}', 'bn')
+
+
+def center_head_rules(add, cfg, t: str = 'pts_bbox_head',
+                      f: str = 'bbox_head') -> None:
+    """CenterHead: ``shared_conv`` and ``task_heads.{t}.{name}.{i}``."""
+    add(f'{t}.shared_conv.conv', f'{f}/shared_conv/Conv_0', 'conv2d')
+    add(f'{t}.shared_conv.bn', f'{f}/shared_conv/MaskedBatchNorm_0', 'bn')
+    for ti, _ in enumerate(cfg['tasks']):
+        heads = dict(cfg['common_heads'])
+        heads['heatmap'] = (None, cfg.get('num_heatmap_convs', 2))
+        for name, (_, num_conv) in heads.items():
+            tb, fb = f'{t}.task_heads.{ti}.{name}', f'{f}/task_{ti}/{name}'
+            for i in range(num_conv - 1):
+                add(f'{tb}.{i}.conv', f'{fb}_{i}/Conv_0', 'conv2d')
+                add(f'{tb}.{i}.bn', f'{fb}_{i}/MaskedBatchNorm_0', 'bn')
+            add(f'{tb}.{num_conv - 1}', f'{fb}_out', 'conv2d')
+
+
+def zoo_rules(model_cfg) -> List[Rule]:
+    """The mapping of a single-stage detector of the zoo (``VoxelNet``,
+    ``CenterPoint``, ``DynamicVoxelNet``), read from its config's
+    ``model``: the voxel encoder (none for ``DynamicVoxelNet``, whose JAX
+    detector calls none), ``SparseEncoder`` (either block type) or no
+    parameters (``PointPillarsScatter``), SECOND, SECONDFPN and the
+    ``CenterHead``, ``Anchor3DHead`` or ``FreeAnchor3DHead``."""
+    rules, add = new_rules()
+    if model_cfg['type'] != 'DynamicVoxelNet':
+        voxel_encoder_rules(add, model_cfg['pts_voxel_encoder'])
+    me = model_cfg['pts_middle_encoder']
+    if me['type'] == 'SparseEncoder':
+        sparse_encoder_rules(
+            add, me.get('encoder_channels', ((16, 16, 32), (32, 32, 64),
+                                             (64, 64, 128), (128, 128))),
+            me.get('block_type', 'basicblock'))
+    second_rules(add, model_cfg['pts_backbone']['layer_nums'])
+    neck = model_cfg.get('pts_neck')
+    if neck:
+        second_fpn_rules(add, neck.get('upsample_strides', (1, 2, 4)),
+                         neck.get('use_conv_for_no_stride', False))
+    head = model_cfg['pts_bbox_head']
+    if head['type'] == 'CenterHead':
+        center_head_rules(add, head)
+    else:
+        add('pts_bbox_head.conv_cls', 'bbox_head/conv_cls', 'conv2d')
+        add('pts_bbox_head.conv_reg', 'bbox_head/conv_reg', 'conv2d')
+        if head.get('use_direction_classifier', True):
+            add('pts_bbox_head.conv_dir_cls', 'bbox_head/conv_dir_cls',
+                'conv2d')
     return rules
 
 

@@ -36,6 +36,7 @@ from msmdfusion_torch.utils.convert import (from_jax_variables,
                                             msmdfusion_rules)
 from tests.test_torch_msmdfusion import (build_pair, jax_inputs, make_batch,
                                          port_inputs, tiny_config)
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 2.0 ** -7
 LISTS = ('fps_num_list', 'radius_list', 'max_cluster_samples_list',

@@ -76,21 +76,14 @@ from tests.test_torch_train_ops import BWD_TOL, jax_plan, port_plan, strided
 from tests.test_torch_train_step import (TOL, make_gt,
                                          train_config)
 from tests.test_torch_transfusion_l import randomize
+# the port's CPU ops on one thread (bf16 kernels on many threads stall when
+# the suite's other workers hold the cores); imported by other modules too
+from tests.torch_threads import one_thread  # noqa: F401
 
 ENGINES = {'x3': {}, 'packed': {'MSMD_CONV_DTYPE': 'bfloat16'},
            'onehot': {'MSMD_CONV_ALGO': 'onehot'}}
 SWITCHES = ('MSMD_CONV_ALGO', 'MSMD_CONV_DTYPE', 'MSMD_CONV_GEMM')
 BF16 = jnp.bfloat16
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """The port's CPU ops on one thread: bf16 kernels on many threads stall
-    when the suite's other workers hold the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(params=sorted(ENGINES))

@@ -14,6 +14,7 @@ from torch import nn
 from msmdfusion_torch.models.builder import build_detector
 from msmdfusion_torch.utils.calibrate import _folded_pairs, calibrate_norms
 from tests.test_torch_msmdfusion import make_batch, port_inputs, tiny_config
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope='module')

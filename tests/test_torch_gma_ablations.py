@@ -26,6 +26,7 @@ from msmdfusion_torch.models.middle_encoders import gma_encoder as tgma
 from msmdfusion_torch.utils.prng import uniform
 from tests.test_torch_gma import (assert_stages_close, gma_outputs,
                                   stages)  # noqa: F401  (a fixture)
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize('thresh', [13.3, 1.6])

@@ -24,6 +24,7 @@ from msmdfusion_torch.utils.convert import (from_jax_variables,
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import golden_flagship as gf  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402,F401
 
 
 def test_port_decodes_the_golden_boxes():

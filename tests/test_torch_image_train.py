@@ -33,6 +33,7 @@ from tests.test_torch_msmdfusion import (build_pair, jax_inputs, make_batch,
 from tests.test_torch_train_step import (CLIP_CFG, GRAD_TOL, LR_CFG, NOISE,
                                          OPT_CFG, as_port, jax_loss_fn,
                                          make_gt, train_config)
+from tests.torch_threads import one_thread  # noqa: F401
 
 IMAGE = ('img_backbone.', 'img_neck.')
 

@@ -33,6 +33,7 @@ from msmdfusion_torch.utils.convert import (from_jax_variables,
                                             msmdfusion_rules)
 from msmdfusion_torch.utils.synth_scene import realistic_batch
 from tests.test_torch_transfusion_l import flatten, randomize
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 PCR = [-2.4, -2.4, -5.0, 2.4, 2.4, 3.0]

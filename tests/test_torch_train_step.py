@@ -42,6 +42,7 @@ from msmdfusion_torch.utils.synth_scene import realistic_batch
 from tests.test_torch_msmdfusion import (PCR, VOX, build_pair, jax_inputs,
                                          make_batch, port_inputs,
                                          tiny_config)
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 # the port's own gradients move by up to 3.2e-4 of a tensor's largest

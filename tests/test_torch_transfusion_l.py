@@ -30,6 +30,7 @@ from msmdfusion_torch.models.builder import build_detector as port_build
 from msmdfusion_torch.ops.voxelize import voxelize_mean_batch
 from msmdfusion_torch.utils import overflow
 from msmdfusion_torch.utils.convert import from_jax_variables
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 PCR = [-2.4, -2.4, -5.0, 2.4, 2.4, 3.0]
