@@ -13,7 +13,8 @@ from KITTI-format files, the offline tools (FLOP counts, conv-BN
 folding, the sparse-conv microbench, the speed CLI, the trace summary,
 checkpoint publishing, visualization and log analysis) and the
 single-stage LiDAR zoo (CenterPoint, PointPillars, SECOND, dynamic SECOND,
-FreeAnchor), from tensors and through the CLIs from files.
+FreeAnchor), from tensors and through the CLIs from files, then Part-A2,
+MVXNet and test-time augmentation.
 
     python3 chip_smoke.py
 
@@ -210,7 +211,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
    bbox``: launches 16/37/8/3 a frame, overflow 0, the metrics' keys,
    sample 0's detections bit-equal to ``model.get_bboxes(model(...))`` on
    the same batch; the pipeline's ms per sample alone (1 worker and the
-   config's ``workers_per_gpu``), the model's ms/frame, the CLI's frames/s;
+   config's ``workers_per_gpu``), the model's ms/frame, the CLI's frames/s
+   (``ENTRY``: a pass over an info file listing the 4 samples 40 times;
+   the pipeline alone on 8 of them with 1 worker);
    ``--format-only`` and the submission's schema; the train CLI
    (``tools.train``) on the config's stage-2 recipe under CBGS, its two
    samples a batch at twice the capacities, 3 steps, one val frame
@@ -243,14 +246,14 @@ Phases (any failure raises and ends the run with a non-zero exit):
    near Adam's eps) plus 4 ulp of the parameter; phase 5's launches and
    overflow 0 on every rank; every rank ends with the same bits; the
    collectives of a step counted; ``grad_norm``'s largest parts printed;
-   3 steps timed on each side. (c) The eval CLI on phase 17's files under
+   2 steps timed on each side. (c) The eval CLI on phase 17's files under
    ``msmdfusion_torch/tools/dist_test.sh``
    (torchrun, ``--launcher pytorch``, 2 ranks on the card over gloo): the
    merged detections in dataset order, each bit-equal to phase 17's
    single-process output, overflow 0. (d) The train CLI over 2 ranks
-   (``--launcher manual``, gloo, one sample a rank): 2 steps and
-   ``ckpt_2``, written by rank 0 alone, equal to both ranks' tensors; a
-   resume to step 3 (epoch 0 again from its first batch), ``ckpt_3`` equal
+   (``--launcher manual``, gloo, one sample a rank): 1 step and
+   ``ckpt_1``, written by rank 0 alone, equal to both ranks' tensors; a
+   resume to step 2 (epoch 0 again from its first batch), ``ckpt_2`` equal
    to both ranks. A ``dist`` line sums up each part's worst deviation
    against its limit, the collectives of a step and its seconds;
 19. GT paste (``gt_paste``, on phase 17's files, before phase 18 (a, b)):
@@ -341,6 +344,37 @@ Phases (any failure raises and ends the run with a non-zero exit):
    frames/s) and 2 train-CLI steps; (g) SECOND through both CLIs on a
    KITTI-format set of (c)'s frame (``write_waymo(..., prefix='kitti',
    columns=4)``).
+23. the two-stage and fusion zoo (``two_stage``, after phase 22;
+   ``TWO_STAGE``) on (c)'s 40,000-point KITTI frame at the configs'
+   widths and capacities: (a) Part-A2 (``configs/parta2_kitti.py``: the
+   U-Net, RoI-aware pooling, the RoI head's dense 3-D convs on cuDNN)
+   with outputs ``rois`` [1, 100, 7] and RPN maps 200 x 176; the U-Net
+   decoder's four convs (inputs 128/96/48/32 wide) and their plans' rows
+   held to their plain versions and timed; ``zoo_frame`` (launches
+   12/16, rows dropped per site, NMS against the CPU, the twin on the
+   kernel path's top K and RoIs: the RPN's input and the U-Net's
+   full-resolution features within 1e-4 of max, the RPN's maps and
+   candidates, the semantic branch and the RoI head's outputs within 10x
+   the reordered spread; two forwards bit-equal, 10 frames by CUDA events,
+   stages ``voxelize``/``plans``/``convs``/``unet_decoder``/``bev``/
+   ``rpn``/``roi_pool``/``roi_head``/``decode``); one frame each under
+   ``MSMD_CONV_DTYPE=bfloat16`` (12/16 on ``gather_gemm_conv_bf16``,
+   twin at phase 6's limit) and ``MSMD_CONV_ALGO=onehot`` (16
+   ``match_conv_x3``, twin at phase 7's); (b) its train step
+   (``zoo_step``: 12/4/31/16, 3 steps split at their seams, each from
+   the calibrated weights: after one update of the recipe on the seed's
+   weights the next step's RoIs overflow the corner loss); (c) MVXNet
+   (``configs/mvxnet_kitti.py``) with one seeded 384 x 1248 view whose
+   lidar2img is KITTI's published P2 after the velodyne-to-camera axis
+   swap: the first sparse conv's taps (27, 128, 16), the share of voxel
+   centres on the image, conv_input (128 -> 16) and its plan held and
+   timed, ``zoo_frame`` (8/12, stages with ``img`` and ``fusion``); (d)
+   its step (8/4/24/12); (e) ``aug_test_detector`` over phase 3's
+   TransFusion-L and frame on ``MultiScaleFlipAug3D``'s 4 views
+   (horizontal x vertical flip, scale 1): 4 frames' launches, boxes
+   before and after the circle-NMS merge, two runs bit-equal, ms per
+   merged frame. Each path's launches go into the ``kernels`` line's
+   ``path_launches``.
 
 Each phase prints its seconds by the host clock.
 
@@ -400,7 +434,8 @@ Before it, the rows kernels' sums on the packed engine's frame and step
 last is ``{"kernels": [...]}``: per kernel its
 launches, its largest error against the plain version, its time, the
 plain version's, its bound and a library call's, each time the sum over
-the path's calls; each kernel from the first phase that launched it on
+the path's calls, and ``path_launches`` (its launches on phase 23's
+frames and steps); each kernel from the first phase that launched it on
 its main path: the flagship's inference path for ``rows_affine`` (with
 masks, which the x3 kernels' row order needs), ``gather_gemm_conv_x3``,
 ``masked_nn`` and ``merge_take`` (ms per frame), its train step for
@@ -3379,12 +3414,14 @@ def tl_train_step(model, inputs, gt, card):
         model.eval()
 
 
-def split_steps(label, step, model, opt, batch, steps, card):
+def split_steps(label, step, model, opt, batch, steps, card, restore=None):
     """``steps`` calls of a ``make_train_step`` step, each split by CUDA
     events at its seams (phase 5's split, on the main path itself): the
     model's forward (its hooks), the loss with the assignment (``model.loss``
     wrapped), the backward (to the optimizer's step) and the optimizer
-    (``opt.step`` wrapped); finite losses; the mean split printed."""
+    (``opt.step`` wrapped); finite losses; the mean split printed.
+    ``restore``: a state dict loaded before each step, outside its
+    seams."""
     import torch
     marks = {}
 
@@ -3409,6 +3446,8 @@ def split_steps(label, step, model, opt, batch, steps, card):
     split = []
     try:
         for i in range(1, steps + 1):
+            if restore is not None:
+                model.load_state_dict(restore)
             metrics = step(batch, i)
             torch.cuda.synchronize()
             names = ('start', 'forward', 'loss', 'backward', 'optimizer')
@@ -4134,7 +4173,7 @@ def engines_interleaved(model, inputs, card, engines, rounds=6):
 # capacities: at twice them (one frame's each) its steps dropped up to
 # 15% of a stage's rows (PERF.md section 6, PR 14)
 ENTRY = dict(samples=4, sweeps=9, img_hw=(900, 1600), num_virtual=200,
-             steps=3, timed=100, timed_one_worker=20, train_caps=3)
+             steps=3, timed=40, timed_one_worker=8, train_caps=3)
 
 
 def flagship_frame(pcr, shape=FLAGSHIP['shape'], seed=SEED):
@@ -4527,8 +4566,9 @@ def entry_points(card, dev, spec=ENTRY, caps=FLAGSHIP, then=None):
 # capacities hold a batch: twice phase 17's 3x a frame would be 6; the
 # second frame of the batch needs less, and every step is checked to drop
 # nothing), ``timed`` steps timed on each side; the CLIs on phase 17's
-# files, each rank's pipeline on ``cli_workers`` workers
-DIST = dict(caps=4, timed=3, cli_workers=2, timeout=600)
+# files, each rank's pipeline on ``cli_workers`` workers, the train CLI
+# one step, then resumed from that checkpoint to two
+DIST = dict(caps=4, timed=2, cli_workers=2, timeout=600)
 ADAM_EPS = 1e-8                 # apis.train.ClippedAdamW's default
 
 
@@ -5082,7 +5122,7 @@ def dist_clis(files):
     argv = [files['config'], '--work-dir', str(work), '--cfg-options',
             *files['train_opts'], 'data.samples_per_gpu=1', workers]
     recs = []
-    for steps, extra in ((2, []), (3, ['--no-validate'])):
+    for steps, extra in ((1, []), (2, ['--no-validate'])):
         run_children(train_cli_child, 2,
                      (argv + ['--max-steps', str(steps)] + extra,
                       str(work.parent)), f'{label} (d)')
@@ -5100,18 +5140,18 @@ def dist_clis(files):
     names = sorted(p.name for p in work.iterdir())
     logs = [n for n in names if n.endswith('.log.json')]
     check([n for n in names if n not in logs] == [
-        'ckpt_2', 'ckpt_3', 'tf_logs', 'train.log'] and len(logs) in (1, 2),
+        'ckpt_1', 'ckpt_2', 'tf_logs', 'train.log'] and len(logs) in (1, 2),
           f'{label} (d): the work dir holds {names}')
     fresh, resumed = recs
-    check(all(r['start_step'] == 2 and r['batches'] == f['batches'][:1]
+    check(all(r['start_step'] == 1 and r['batches'] == f['batches'][:1]
               for f, r in zip(fresh, resumed)),
           f'{label} (d): resumed at {resumed[0]["start_step"]} with batches '
           f'{[r["batches"] for r in resumed]}, the fresh run\'s '
           f'{[r["batches"] for r in fresh]}')
-    lines.append(f'(d) train CLI over 2 ranks on one card (gloo): 2 steps, '
-                 f'ckpt_2 written once (by rank 0), both ranks\' '
-                 f'{len(want)} tensors equal to it; resumed at step 2 and '
-                 'stepped to 3, ckpt_3 equal to both ranks; batches '
+    lines.append(f'(d) train CLI over 2 ranks on one card (gloo): 1 step, '
+                 f'ckpt_1 written once (by rank 0), both ranks\' '
+                 f'{len(want)} tensors equal to it; resumed at step 1 and '
+                 'stepped to 2, ckpt_2 equal to both ranks; batches '
                  f'{[r["batches"] for r in fresh]} then '
                  f'{[r["batches"] for r in resumed]} '
                  f'({time.perf_counter() - t0:.1f} s)')
@@ -5913,13 +5953,20 @@ def zoo_model(config, dev):
                           seed=SEED)
 
 
+def detection_head(model):
+    """The head that decodes a model's boxes from the BEV map: its
+    ``pts_bbox_head``, or a two-stage model's RPN."""
+    head = getattr(model, 'pts_bbox_head', None)
+    return head if head is not None else model.rpn_head
+
+
 def kitti_frame(model, n_points, device):
     """A ``synth_scene.lidar_scene`` frame over the model's (KITTI) range:
     points [1, N, 4] (xyz, intensity), mask, and the ground truth (7-wide
     boxes, labels below the head's classes)."""
     (points, mask), (boxes, labels, valid) = make_points(model, n_points,
                                                          device)
-    classes = model.pts_bbox_head.num_classes
+    classes = detection_head(model).num_classes
     return ((points[..., :4].contiguous(), mask),
             (boxes[..., :7].contiguous(), labels % classes, valid))
 
@@ -6007,7 +6054,8 @@ class PinnedTopK:
     cells or anchors."""
 
     SITES = ('msmdfusion_torch.core.coders',
-             'msmdfusion_torch.models.heads.anchor3d_head')
+             'msmdfusion_torch.models.heads.anchor3d_head',
+             'msmdfusion_torch.models.detectors.parta2')
 
     def __init__(self, index=None):
         self.replay = index is not None
@@ -6040,55 +6088,98 @@ class PinnedTopK:
         return False
 
 
-def zoo_preds(preds):
-    """The head's outputs as one flat {name: tensor} dict."""
+def zoo_preds(preds, prefix=''):
+    """The head's outputs as one flat {name: tensor} dict (a list of task
+    dicts, or Part-A2's nested 'rpn'/'roi'/'semantic' dicts)."""
     if isinstance(preds, list):
-        return {f'task{t}.{k}': v for t, p in enumerate(preds)
+        return {f'{prefix}task{t}.{k}': v for t, p in enumerate(preds)
                 for k, v in p.items()}
-    return dict(preds)
+    out = {}
+    for k, v in preds.items():
+        if isinstance(v, dict):
+            out.update(zoo_preds(v, f'{prefix}{k}.'))
+        else:
+            out[prefix + k] = v
+    return out
 
 
-def zoo_outputs(model, inputs, index, *scopes):
+def zoo_outputs(model, inputs, index, *scopes, rois=None):
     """(head input, head outputs, the NMS calls' candidates) of one
     forward and decode, its top K pinned to ``index`` (its own where
-    None), and the top K it took."""
+    None), the top K it took, and the RoIs Part-A2's RoI head took
+    (``rois``, a list of each call's, where given: the RoI-aware pooling
+    puts each voxel centre in a cell of its RoI, and a RoI moved by the
+    rounding moves the centres on a cell's face to the next cell)."""
     import torch
+    kept = [] if rois is None else list(rois)
     with contextlib.ExitStack() as stack, torch.no_grad():
         for scope in scopes:
             stack.enter_context(scope)
         top = stack.enter_context(PinnedTopK(index))
-        head_in = stack.enter_context(HeadInput(model.pts_bbox_head))
+        head_in = stack.enter_context(HeadInput(detection_head(model)))
         nms = stack.enter_context(NmsCalls())
+        unet = {}
+        if hasattr(model, 'middle_encoder'):          # Part-A2's U-Net
+            stack.callback(model.middle_encoder.register_forward_hook(
+                lambda m, a, out: unet.update(x=out[1].features.clone())
+            ).remove)
+            calls = [0]
+
+            def pin(module, args, kwargs):
+                if rois is None:
+                    kept.append(args[3].clone())
+                    return None
+                args = args[:3] + (kept[calls[0]],) + args[4:]
+                calls[0] += 1
+                return args, kwargs
+            stack.callback(model.roi_head.register_forward_pre_hook(
+                pin, with_kwargs=True).remove)
         preds = model(*inputs)
         model.get_bboxes(preds)
     out = dict(zoo_preds(preds), head_input=head_in.x)
+    if unet:
+        out['unet_features'] = unet['x']
     for i, (fn, args, kwargs, _) in enumerate(nms.calls):
         boxes = args[0]                 # centres, or the decoded boxes
         scores = args[1] if fn.__name__ == 'circle_nms' else args[2]
         out[f'nms{i}.boxes'] = boxes
         out[f'nms{i}.scores'] = scores
-    return out, top.index
+    return out, top.index, kept
 
 
-def zoo_twin(label, model, inputs):
+# outputs a twin holds to TOL: the sparse convs' (the head's input, Part-A2's
+# full-resolution U-Net features)
+AT_TOL = ('head_input', 'unet_features')
+
+
+def zoo_twin(label, model, inputs, at_tol=AT_TOL):
     """The kernel path against the all-plain one (x3 product, rounding
-    pinned, the kernel path's top K): the head input within TOL of its
-    largest value, the head's outputs and the decoded candidates within
-    FLOOR_MARGIN times the plain path's own spread under reordered sums
-    (never below TOL); the yaw of the anchor heads' boxes (an angle from
-    a residual and a direction bin) printed, not held."""
+    pinned, the kernel path's top K and, for Part-A2, its RoIs):
+    ``at_tol`` (the head input, the U-Net's features) within TOL of its
+    largest value, the head's outputs, the decoded candidates and the RoI
+    stage's outputs within FLOOR_MARGIN times the plain path's own spread
+    under reordered sums (never below TOL); the yaw of the anchor heads'
+    boxes (an angle from a residual and a direction bin) printed, not
+    held; integer and mask outputs equal. The packed engine's twin holds
+    everything to the spread (phase 6's limit: ``at_tol=()``)."""
+    import torch
     from msmdfusion_torch import kernels
     pins = PinnedRounding()
-    run, index = zoo_outputs(model, inputs, None, pins)
-    ref, _ = zoo_outputs(model, inputs, index, kernels.plain_kernels(),
-                         X3Plain(), pins.replay())
-    alt, _ = zoo_outputs(model, inputs, index, kernels.plain_kernels(),
-                         X3Plain(), ReorderedSums(), pins.replay())
+    run, index, rois = zoo_outputs(model, inputs, None, pins)
+    ref, _, _ = zoo_outputs(model, inputs, index, kernels.plain_kernels(),
+                            X3Plain(), pins.replay(), rois=rois)
+    alt, _, _ = zoo_outputs(model, inputs, index, kernels.plain_kernels(),
+                            X3Plain(), ReorderedSums(), pins.replay(),
+                            rois=rois)
     check(run.keys() == ref.keys(), f'{label}: the twin decoded '
           f'{sorted(ref)}, the kernel path {sorted(run)}')
     worst = {}
     for key in run:
         got, want, other = run[key], ref[key], alt[key]
+        if not got.is_floating_point():
+            check(torch.equal(got, want), f'{label}: {key} differs between '
+                  'the kernel and plain paths')
+            continue
         if key.startswith('nms') and key.endswith('.boxes') and \
                 got.shape[-1] > YAW:
             worst[key + '.yaw'] = (rel_err(got[..., YAW], want[..., YAW])[1],
@@ -6097,8 +6188,7 @@ def zoo_twin(label, model, inputs):
                                 for x in (got, want, other))
         rel = rel_err(got, want)[1]
         floor = rel_err(other, want)[1]
-        limit = TOL if key == 'head_input' else max(TOL,
-                                                    FLOOR_MARGIN * floor)
+        limit = TOL if key in at_tol else max(TOL, FLOOR_MARGIN * floor)
         worst[key] = (rel, limit)
         check(rel <= limit, f'{label}: {key}: kernel vs plain path {rel:.3g} '
               f'of max |ref|, above {limit:.3g} (reordered plain path '
@@ -6106,12 +6196,12 @@ def zoo_twin(label, model, inputs):
     top = sorted(((k, v) for k, v in worst.items() if k != 'head_input'),
                  key=lambda kv: -(kv[1][0] / kv[1][1])
                  if kv[1][1] == kv[1][1] else 0)
-    print(f'{label}: kernel vs plain path (pinned x3 rounding, the kernel '
+    print(f'{label}: kernel vs plain path (pinned rounding, the kernel '
           f'path\'s top K): head_input {worst["head_input"][0]:.3g} of max '
-          f'(limit {TOL:g}); ' + '; '.join(
+          f'(limit {worst["head_input"][1]:.3g}); ' + '; '.join(
               f'{k} {r:.3g}' + (f' (limit {lim:.3g})' if lim == lim else
                                 ' (not held)')
-              for k, (r, lim) in top[:8]), flush=True)
+              for k, (r, lim) in top[:12]), flush=True)
     return worst
 
 
@@ -6177,11 +6267,12 @@ def zoo_frame(label, model, inputs, spec, card, twin=False):
     return frame_ms, dropped, launches
 
 
-def zoo_step(label, model, inputs, gt, config, spec, card):
+def zoo_step(label, model, inputs, gt, config, spec, card, restart=False):
     """One counted ``make_train_step`` step of the config's recipe
     (launches, overflow per site, finite losses), then ``ZOO['steps']``
-    steps timed at their seams (``split_steps``). The weights are restored
-    after. Returns (ms/step, overflow, launches)."""
+    steps timed at their seams (``split_steps``; with ``restart`` each
+    from the weights the counted step started from). The weights are
+    restored after. Returns (ms/step, overflow, launches)."""
     import torch
     from msmdfusion_torch import kernels
     from msmdfusion_torch.apis.train import (build_lr_schedule,
@@ -6217,7 +6308,7 @@ def zoo_step(label, model, inputs, gt, config, spec, card):
               f'the train-time voxel capacity '
               f'{model.pts_voxel_layer["max_voxels"][0]})', flush=True)
         split = split_steps(label, step, model, opt, batch, ZOO['steps'],
-                            card)
+                            card, restore=start if restart else None)
         step_ms = sum(sum(s) for s in split) / len(split)
         return step_ms, dropped, launches
     finally:
@@ -6486,9 +6577,270 @@ def second_files(card, dev, spec=ZOO_FILES):
                             ZOO['second']['launches'], card, dev, 7)
 
 
-def report(phases, card):
+# phase 23: the two-stage and fusion zoo at their configs' widths and
+# capacities on (c)'s 40,000-point KITTI frame: Part-A2 (the U-Net's
+# decoder adds 4 fresh submanifold plans and convs to SECOND's 8 and 12,
+# inputs 128/96/48/32 wide: 12/16 a frame; a step adds the 4 strided
+# convs' duals, d_feats for every conv but conv_input and dw for all 16)
+# and MVXNet with one 384 x 1248 view (SECOND's 8/12, conv_input 128
+# wide: PointFusion's mid_channels; in a step its input takes a
+# gradient: d_feats for all 12); then test-time augmentation over phase
+# 3's TransFusion-L, 4 views (horizontal x vertical flip, scale 1)
+TWO_STAGE = dict(
+    parta2=dict(config=ROOT / 'configs' / 'parta2_kitti.py',
+                launches={'rows_affine': 12, 'gather_gemm_conv_x3': 16},
+                train={'rows_affine': 12, 'rows_queries': 4,
+                       'gather_gemm_conv_x3': 31, 'conv_dw_x3': 16},
+                packed={'rows_affine': 12, 'gather_gemm_conv_bf16': 16},
+                onehot={'match_conv_x3': 16},
+                widths={(128, 64), (96, 32), (48, 16), (32, 16)}),
+    mvxnet=dict(config=ROOT / 'configs' / 'mvxnet_kitti.py',
+                launches={'rows_affine': 8, 'gather_gemm_conv_x3': 12},
+                train={'rows_affine': 8, 'rows_queries': 4,
+                       'gather_gemm_conv_x3': 24, 'conv_dw_x3': 12},
+                widths={(128, 16)}),
+    img_hw=(384, 1248), tta_views=4, tta_rounds=3)
+# KITTI's published camera-2 projection (the object benchmark's
+# training/calib/000000.txt P2), and the velodyne-to-camera axis swap
+# (camera x = -y, y = -z, z = x of the LiDAR)
+KITTI_P2 = ((721.5377, 0.0, 609.5593, 44.85728),
+            (0.0, 721.5377, 172.854, 0.2163791),
+            (0.0, 0.0, 1.0, 0.002745884))
+VELO_TO_CAM = ((0.0, -1.0, 0.0, 0.0), (0.0, 0.0, -1.0, 0.0),
+               (1.0, 0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0))
+
+
+def kitti_view(img_hw, dev):
+    """One seeded view [1, 1, H, W, 3] (normalised pixel scale) and its
+    metas, lidar2img [1, 1, 4, 4]: P2 after the axis swap."""
+    import torch
+    p2 = torch.eye(4, dtype=torch.float64)
+    p2[:3] = torch.tensor(KITTI_P2, dtype=torch.float64)
+    l2i = (p2 @ torch.tensor(VELO_TO_CAM, dtype=torch.float64)).float()
+    gen = torch.Generator().manual_seed(SEED)
+    img = torch.randn(1, 1, *img_hw, 3, generator=gen)
+    return img.to(dev), dict(lidar2img=l2i[None, None].to(dev))
+
+
+def centre_share(model, inputs):
+    """The share of the frame's voxel centres (test-time voxels) that
+    project onto the view."""
+    import torch
+    from msmdfusion_torch.models.fusion_layers import project_points_to_image
+    from msmdfusion_torch.ops.voxelize import voxelize_batch
+    vl = model.pts_voxel_layer
+    points, mask, img, metas = inputs
+    with torch.no_grad():
+        _, _, coors, valid = voxelize_batch(
+            points, mask, vl['voxel_size'], vl['point_cloud_range'],
+            vl['max_num_points'], model.max_voxels())
+        size = points.new_tensor(vl['voxel_size'])
+        origin = points.new_tensor(vl['point_cloud_range'][:3])
+        centers = (coors[:, 1:].flip(-1).float() + 0.5) * size + origin
+        _, ok = project_points_to_image(centers, metas['lidar2img'][0, 0],
+                                        tuple(img.shape[2:4]))
+    return int((ok & valid).sum()), int(valid.sum())
+
+
+def new_width_calls(label, model, inputs, widths, plans, card):
+    """The conv calls of one forward whose (Cin, Cout) is in ``widths``
+    (the path's new widths) and the rows calls of their plans (the slice
+    ``plans`` of the forward's rows calls), each against its plain version
+    (``conv_calls``, ``rows_calls``), timed."""
+    import torch
+    with torch.no_grad(), Recorder() as rec:
+        forward(model, inputs)
+    torch.cuda.synchronize()
+    convs = [c for c in rec.calls['gather_gemm_conv']
+             if tuple(c[0][2].shape[1:]) in widths]
+    recs = {'gather_gemm_conv_x3': conv_calls(
+        convs, widths, 4, card, plain_reps=1, label=f'{label} new widths'),
+        'rows_affine': rows_calls('rows_affine', rec.calls['rows_affine'][
+            plans], 4, card)}
+    del rec
+    sums_lines(f'{label}: %s over the new widths\' calls', recs, card)
+    return recs
+
+
+def roi_engines(model, card, rois=100, reps=3):
+    """The RoI head's largest dense 3-D conv (``merge_conv_0`` over
+    ``rois`` RoIs' grids) forward and forward + backward, on and off
+    cuDNN (``engine_lines``)."""
+    import torch
+    head = model.roi_head
+    conv = head.merge_conv_0
+    g = head.roi_grid
+    x = torch.randn(rois, conv.in_channels, *g, device=conv.weight.device,
+                    requires_grad=True)
+
+    def both():
+        conv(x).sum().backward()
+    with torch.no_grad():
+        engine_lines([(f'RoI head merge_conv_0 {rois}x{conv.in_channels}x'
+                       f'{"x".join(map(str, g))} -> {conv.out_channels}',
+                       lambda: conv(x))], card, reps)
+    engine_lines([('the same, forward + backward', both)], card, reps)
+    model.zero_grad(set_to_none=True)
+
+
+def engine_frames(label, model, inputs, spec, card):
+    """Part-A2 under the packed bf16 and the one-hot engines: one frame
+    each, launches counted, the twin at the RPN input (the packed one
+    held to FLOOR_MARGIN x the plain path's spread throughout, phase 6's
+    limit; the one-hot one to TOL up to the head, phase 7's). Returns
+    {engine: launches}."""
+    import torch
+    from msmdfusion_torch import kernels
+    out = {}
+    for name, env, expected, at_tol in (
+            ('packed bf16', PACKED['env'], spec['packed'], ()),
+            ('one-hot', ONEHOT['env'], spec['onehot'], AT_TOL)):
+        with switches(env), torch.no_grad():
+            kernels.reset_launches()
+            forward(model, inputs)
+            launches = dict(kernels.launches)
+            torch.cuda.synchronize()
+            print(f'{label} {name}: launches of a frame {launches}',
+                  flush=True)
+            check_launches(f'{label} {name}', launches, expected)
+            zoo_twin(f'{label} {name}', model, inputs, at_tol=at_tol)
+        out[name] = launches
+    return out
+
+
+def tta(card, dev, tl_kept):
+    """(e): ``aug_test_detector`` over phase 3's TransFusion-L and frame, 4
+    views from ``MultiScaleFlipAug3D``: launches (4 frames'), boxes before
+    and after the merge, two runs bit-equal, ms per merged frame."""
+    import numpy as np
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.datasets.pipelines.test_time_aug import \
+        MultiScaleFlipAug3D
+    from msmdfusion_torch.models.detectors.mvx_two_stage import \
+        aug_test_detector
+    label = 'two-stage (e) TTA TransFusion-L'
+    model = build_model(dev, max_voxels=TL['max_voxels'])
+    model.load_state_dict(tl_kept['state'])
+    model.eval()
+    points, mask = tl_kept['inputs']
+    views = MultiScaleFlipAug3D(
+        [], flip=True, pcd_horizontal_flip=True, pcd_vertical_flip=True)(
+        dict(points=points[0].cpu().numpy()))['aug_samples']
+    check(len(views) == TWO_STAGE['tta_views'], f'{label}: {len(views)} '
+          'views')
+    aug = [dict(points=torch.from_numpy(v['points'])[None].to(dev),
+                points_mask=mask, aug=v['aug_state']) for v in views]
+    with torch.no_grad():
+        before = sum(int(model.simple_test(v['points'], mask)['valid'].sum())
+                     for v in aug)
+    kernels.reset_launches()
+    merged = aug_test_detector(model, aug)
+    launches = dict(kernels.launches)
+    check_launches(label, launches, {k: v * len(aug) for k, v in
+                                     TL['launches'].items()})
+    again = aug_test_detector(model, aug)
+    check(all(np.array_equal(merged[k], again[k]) for k in merged),
+          f'{label}: two runs differ')
+    n = len(merged['scores'])
+    check(0 < n <= before and np.isfinite(merged['bboxes']).all(),
+          f'{label}: {n} merged boxes of {before}')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TWO_STAGE['tta_rounds']):
+        aug_test_detector(model, aug)
+    ms = (time.perf_counter() - t0) / TWO_STAGE['tta_rounds'] * 1e3
+    print(f'{label}: {len(aug)} views {[v["aug_state"] for v in views]}; '
+          f'launches {launches}; {before} boxes before the merge, {n} after '
+          f'(circle NMS, 0.3 m); two runs bit-equal; {ms:.3f} ms per merged '
+          f'frame (host clock, {TWO_STAGE["tta_rounds"]} rounds, the '
+          f'merge on the host) [{card}]', flush=True)
+    return ms, launches
+
+
+def two_stage(card, dev, tl_kept):
+    """Phase 23 (see ``TWO_STAGE``): (a)-(e). Returns {path: launches}
+    for the kernels line."""
+    import torch
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    paths = {}
+
+    def setup(name, frame):
+        t0 = time.perf_counter()
+        model = zoo_model(TWO_STAGE[name]['config'], dev)
+        inputs, gt = frame(model)
+        with torch.no_grad():
+            calibrate_norms(model, *inputs)
+        print(f'two-stage {name}: {TWO_STAGE[name]["config"].name} built, '
+              f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M '
+              f'parameters, norms calibrated in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        return model, inputs, gt
+
+    # (a), (b) Part-A2
+    spec = TWO_STAGE['parta2']
+    label = 'two-stage (a) Part-A2'
+    model, inputs, gt = setup('parta2', lambda m: kitti_frame(
+        m, ZOO['kitti_points'], dev))
+    with torch.no_grad():
+        shapes = {k: tuple(v.shape) for k, v in zoo_preds(
+            model(*inputs)).items() if k.startswith(('rpn.', 'roi.rois'))}
+    check(shapes['roi.rois'] == (1, 100, 7) and shapes['rpn.cls_score']
+          == (1, 18, 200, 176), f'{label}: output shapes {shapes}')
+    print(f'{label}: outputs {shapes}', flush=True)
+    # the U-Net decoder's four convs and their plans, the forward's last
+    new_width_calls(label, model, inputs, spec['widths'], slice(-4, None),
+                    card)
+    frame = zoo_frame(label, model, inputs, spec, card, twin=True)
+    roi_engines(model, card)
+    engines = engine_frames(label, model, inputs, spec, card)
+    # each timed step from the calibrated weights: on the seed's weights,
+    # after one update of the config's recipe the next step's RoIs span
+    # sizes of 1e-15 to 1e12 m and the corner loss's square overflows
+    # fp32, a NaN gradient on the kernels and on the plain versions alike
+    step = zoo_step('two-stage (b) Part-A2 train', model, inputs, gt,
+                    spec['config'], spec, card, restart=True)
+    paths['parta2'] = (frame[2], step[2])
+    paths.update({f'parta2 {k}': (v, {}) for k, v in engines.items()})
+    lidar = inputs
+    del model, inputs
+    torch.cuda.empty_cache()
+
+    # (c), (d) MVXNet with one view
+    spec = TWO_STAGE['mvxnet']
+    label = 'two-stage (c) MVXNet'
+    model, inputs, gt = setup('mvxnet', lambda m: (
+        lidar + kitti_view(TWO_STAGE['img_hw'], dev), gt))
+    conv = model.pts_middle_encoder.conv_input[0].taps()
+    check(tuple(conv.shape) == (27, 128, 16), f'{label}: the first sparse '
+          f'conv\'s taps {tuple(conv.shape)}')
+    on, total = centre_share(model, inputs)
+    print(f'{label}: first sparse conv taps {tuple(conv.shape)}; {on} of '
+          f'{total} voxel centres ({on / max(total, 1):.3f}) on the '
+          f'{TWO_STAGE["img_hw"]} view (KITTI P2, the axis swap)',
+          flush=True)
+    # conv_input (PointFusion's 128 channels) and its plan, the first
+    new_width_calls(label, model, inputs, spec['widths'], slice(0, 1), card)
+    frame = zoo_frame(label, model, inputs, spec, card, twin=True)
+    step = zoo_step('two-stage (d) MVXNet train', model, inputs, gt,
+                    spec['config'], spec, card)
+    paths['mvxnet'] = (frame[2], step[2])
+    del model, inputs, gt, lidar
+    torch.cuda.empty_cache()
+
+    # (e) test-time augmentation
+    paths['tta'] = (tta(card, dev, tl_kept)[1], {})
+    summary = {k: dict(frame=f, step=s) for k, (f, s) in paths.items()}
+    print(f'two-stage: launches {json.dumps(summary)} [{card}]', flush=True)
+    return {f'{k} {part}': launches for k, (f, s) in paths.items()
+            for part, launches in (('frame', f), ('step', s)) if launches}
+
+
+def report(phases, card, paths=None):
     """The rows kernels' sums lines and the ``kernels`` line of the
-    flagship's phases (``flagship_phases``)."""
+    flagship's phases (``flagship_phases``); each entry also carries
+    ``path_launches``, its launches on the paths of ``paths`` ({path:
+    {kernel: launches}}, phase 23's) that launched it."""
     # the rows kernels' sums where the kernels line does not hold them: the
     # packed engine's calls, which also write the tap-hit masks, and the
     # one-hot step's backward
@@ -6516,6 +6868,10 @@ def report(phases, card):
     check(set(picked) == set(names),
           f'kernels never checked: {sorted(set(names) - set(picked))}')
     summary = [kernel_summary(name, *picked[name]) for name in names]
+    for entry in summary:
+        entry['path_launches'] = {p: n[entry['name']] for p, n in
+                                  (paths or {}).items()
+                                  if n.get(entry['name'])}
     print(json.dumps({'kernels': summary}), flush=True)
 
 
@@ -6650,15 +7006,18 @@ def main():
     waymo_files(card, dev)
     lap('20 (Waymo from files: the train and eval CLIs)')
     offline_tools(card, dev, flag_kept, tl_kept)
-    del flag_kept, tl_kept
+    del flag_kept
     lap('21 (a-e: FLOP counts, the fused frame, the microbench, the speed '
         'CLI, the trace summary)')
     zoo(card, dev)
     second_files(card, dev)
     lap('22 (a-e, g: the single-stage zoo; SECOND through the CLIs on '
         'KITTI-format files)')
+    paths = two_stage(card, dev, tl_kept)
+    del tl_kept
+    lap('23 (Part-A2, MVXNet, test-time augmentation)')
 
-    report(phases, card)
+    report(phases, card, paths)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

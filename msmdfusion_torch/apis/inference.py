@@ -39,10 +39,32 @@ def unpack_detections(res: Dict[str, torch.Tensor]) -> List[Dict]:
     return out
 
 
+def refuse_cli_model(model_type: str, model=None) -> None:
+    """Raise for a model the CLIs cannot run, gaps the JAX package's tools
+    share: ``PartA2``, whose decode gives no labels, and an
+    ``MVXFasterRCNN`` with a fusion layer, whose middle encoder reads the
+    image fusion's channels while the CLIs pass points alone (as the JAX
+    tools do for every model but the flagship)."""
+    if model_type == 'PartA2':
+        raise NotImplementedError(
+            'PartA2 through the CLIs: its get_bboxes returns bboxes, scores '
+            'and valid and no labels (as the JAX detector\'s), which '
+            'unpack_detections reads; the JAX eval CLI cannot run it either')
+    if model_type == 'MVXFasterRCNN' and \
+            getattr(model, 'pts_fusion_layer', None) is not None:
+        raise NotImplementedError(
+            'MVXFasterRCNN with a fusion layer through the CLIs: they pass '
+            'points alone, and its weights read the image fusion\'s '
+            'channels (the JAX tools cannot run it from files either)')
+
+
 def batch_model_inputs(model_type: str, batch, device) -> tuple:
     """The model's positional inputs from a collated batch, on ``device``:
     (points, points_mask, img, foreground) for the flagship, (points,
-    points_mask) for every other model (as the JAX tools pass them)."""
+    points_mask) for every other model (as the JAX tools pass them);
+    ``PartA2`` raises (``refuse_cli_model``)."""
+    refuse_cli_model(model_type)
+
     def on(x):
         return x.to(device, non_blocking=True)
     inputs = (on(batch['points']), on(batch['points_mask']))
@@ -54,7 +76,9 @@ def batch_model_inputs(model_type: str, batch, device) -> tuple:
 
 def make_batch_infer(model: torch.nn.Module, model_type: str):
     """batch -> per-sample detections: the model in eval mode under
-    ``torch.inference_mode``, its ``get_bboxes``, ``unpack_detections``."""
+    ``torch.inference_mode``, its ``get_bboxes``, ``unpack_detections``
+    (``refuse_cli_model``'s models raise here)."""
+    refuse_cli_model(model_type, model)
     device = next(model.parameters()).device
 
     def infer(batch) -> List[Dict]:

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``core/boxes.py`` ``corners_3d``
 (reference ``LiDARInstance3DBoxes.corners``,
-mmdet3d/core/bbox/structures/lidar_box3d.py:46-86), ``limit_period`` and
+mmdet3d/core/bbox/structures/lidar_box3d.py:46-86), ``points_in_rbbox``
+on ``box_frame`` (reference points_in_boxes_cuda.cu:51), ``limit_period`` and
 ``xywhr2xyxyr`` (mmdet3d/core/bbox/structures/utils.py): boxes are plain
 ``[..., 7+]`` tensors ``(x, y, z, w, l, h, yaw[, vx, vy])`` with the
 origin at the bottom centre ``(0.5, 0.5, 0)``.
@@ -30,6 +31,27 @@ def corners_3d(boxes):
     x = corners[..., 0] * cos - corners[..., 1] * sin
     y = corners[..., 0] * sin + corners[..., 1] * cos
     return torch.stack([x, y, corners[..., 2]], -1) + boxes[..., None, :3]
+
+
+def box_frame(points, boxes):
+    """points [P, 3+], boxes [N, 7] -> ((lx, ly, lz), inside), each [P, N]:
+    each point moved into each box's frame (translated to the bottom
+    centre, rotated by -yaw), and whether it lies within the half width
+    and length and within [0, h] above the bottom centre."""
+    local = points[:, None, :3] - boxes[None, :, :3]          # [P, N, 3]
+    yaw = boxes[:, 6]
+    cos, sin = torch.cos(-yaw), torch.sin(-yaw)
+    lx = local[..., 0] * cos - local[..., 1] * sin
+    ly = local[..., 0] * sin + local[..., 1] * cos
+    lz = local[..., 2]
+    inside = ((lx.abs() <= boxes[:, 3] * 0.5) & (ly.abs() <= boxes[:, 4] * 0.5)
+              & (lz >= 0) & (lz <= boxes[:, 5]))
+    return (lx, ly, lz), inside
+
+
+def points_in_rbbox(points, boxes):
+    """points [P, 3+], boxes [N, 7] -> [P, N] bool (``box_frame``)."""
+    return box_frame(points, boxes)[1]
 
 
 def limit_period(val, offset: float = 0.5, period: float = math.pi):

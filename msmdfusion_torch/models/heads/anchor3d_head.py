@@ -75,8 +75,99 @@ def assign(anc_bev, gt_bev, valid, pos_thr, neg_thr, min_pos_iou):
     return assigned, pos, neg & ~pos
 
 
+class AnchorHeadMixin:
+    """The assignment, losses and decode over a flat anchor set, shared by
+    ``Anchor3DHead`` and ``ShapeAwareHead`` (reference
+    AnchorTrainMixin). Reads ``num_classes``, ``coder``, ``loss_cls``,
+    ``loss_bbox``, ``loss_dir``, ``diff_rad_by_sin``, ``dir_offset``,
+    ``dir_limit_offset``, ``train_cfg`` and ``test_cfg``."""
+
+    def _sin_diff(self, pred, tgt):
+        """The yaw column of both made sin(a - b)'s two terms."""
+        ra, rt = pred[..., 6:7], tgt[..., 6:7]
+        return (torch.cat([pred[..., :6], torch.sin(ra) * torch.cos(rt),
+                           pred[..., 7:]], -1),
+                torch.cat([tgt[..., :6], torch.cos(ra) * torch.sin(rt),
+                           tgt[..., 7:]], -1))
+
+    def dir_target(self, rot_gt):
+        return (limit_period(rot_gt - self.dir_offset, 0, 2 * math.pi)
+                >= math.pi).to(torch.int64)
+
+    def anchor_losses(self, anchors, cls, reg, dir_cls, gt_bboxes,
+                      gt_labels, gt_valid):
+        """Max-IoU assignment + focal, smooth-L1 and direction losses over
+        flat anchors [M, 7+], cls [B, M, K], reg [B, M, code], dir_cls
+        [B, M, 2] or None."""
+        tc = self.train_cfg
+        b, m, _ = cls.shape
+        d = anchors.shape[-1]
+        anc_bev = bev_of(anchors)
+        assigned, pos, neg = (torch.stack(x) for x in zip(*[
+            assign(anc_bev, bev_of(gt_bboxes[i]), gt_valid[i],
+                   tc['pos_iou_thr'], tc['neg_iou_thr'],
+                   tc.get('min_pos_iou', 0.0)) for i in range(b)]))
+        gt_for = torch.gather(gt_bboxes, 1, assigned[..., None].expand(
+            -1, -1, gt_bboxes.shape[-1]))
+        labels = torch.gather(gt_labels.to(torch.int64), 1, assigned)
+        labels = torch.where(pos, labels, self.num_classes)
+        weights = (pos | neg).to(cls.dtype)
+        num_pos = torch.clamp(pos.sum(), min=1)
+
+        loss_cls = sigmoid_focal_loss(
+            cls.reshape(-1, self.num_classes), labels.reshape(-1),
+            self.num_classes, gamma=self.loss_cls.get('gamma', 2.0),
+            alpha=self.loss_cls.get('alpha', 0.25))
+        loss_cls = (loss_cls * weights.reshape(-1)).sum() / num_pos
+
+        anc_b = anchors[None].expand(b, m, d)
+        tgt = self.coder.encode(anc_b, gt_for[..., :d])
+        pred_box = reg
+        if self.diff_rad_by_sin:
+            pred_box, tgt = self._sin_diff(pred_box, tgt)
+        l1 = smooth_l1_loss(pred_box, tgt,
+                            beta=self.loss_bbox.get('beta', 1.0 / 9.0))
+        l1 = torch.where(pos[..., None], l1, 0.0)
+        losses = {
+            'loss_cls': loss_cls * self.loss_cls.get('loss_weight', 1.0),
+            'loss_bbox': l1.sum() / num_pos *
+            self.loss_bbox.get('loss_weight', 1.0)}
+        if dir_cls is not None:
+            dir_tgt = self.dir_target(gt_for[..., 6] - anc_b[..., 6])
+            dce = cross_entropy(dir_cls.reshape(-1, 2), dir_tgt.reshape(-1), 2)
+            dce = torch.where(pos.reshape(-1), dce, 0.0)
+            losses['loss_dir'] = dce.sum() / num_pos * \
+                self.loss_dir.get('loss_weight', 1.0)
+        return losses
+
+    def anchor_decode(self, anchors, cls, reg, dir_cls):
+        """Per sample: the ``nms_pre`` anchors of highest class score
+        (ties by the lower index), decoded, the direction applied, then
+        multi-class rotated NMS -> dict 'boxes' [B, max_num, 7+],
+        'scores', 'labels', 'valid' [B, max_num]."""
+        tcfg = self.test_cfg
+        m = anchors.shape[0]
+        scores = torch.sigmoid(cls)
+        outs = []
+        for i in range(scores.shape[0]):
+            k = min(tcfg.get('nms_pre', 1000), m)
+            _, idx = topk_lower_index(scores[i].amax(-1), k)
+            boxes = self.coder.decode(anchors[idx], reg[i][idx])
+            if dir_cls is not None:
+                dir_label = dir_cls[i][idx].argmax(-1)
+                yaw = limit_period(boxes[..., 6] - self.dir_offset,
+                                   self.dir_limit_offset, math.pi)
+                boxes = torch.cat([boxes[..., :6], (
+                    yaw + self.dir_offset + math.pi * dir_label)[..., None],
+                    boxes[..., 7:]], -1)
+            outs.append(box3d_multiclass_nms(
+                boxes, bev_of(boxes), scores[i][idx], tcfg['score_thr'],
+                tcfg['nms_thr'], tcfg['max_num']))
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 @HEADS.register('Anchor3DHead')
-class Anchor3DHead(nn.Module):
+class Anchor3DHead(AnchorHeadMixin, nn.Module):
 
     def __init__(self, num_classes: int = 3, in_channels: int = 384,
                  feat_channels: int = 384,
@@ -144,84 +235,9 @@ class Anchor3DHead(nn.Module):
                 flat(preds['bbox_pred'], self.coder.code_size),
                 None if dir_cls is None else flat(dir_cls, 2))
 
-    def _sin_diff(self, pred, tgt):
-        """The yaw column of both made sin(a - b)'s two terms."""
-        ra, rt = pred[..., 6:7], tgt[..., 6:7]
-        return (torch.cat([pred[..., :6], torch.sin(ra) * torch.cos(rt),
-                           pred[..., 7:]], -1),
-                torch.cat([tgt[..., :6], torch.cos(ra) * torch.sin(rt),
-                           tgt[..., 7:]], -1))
-
-    def dir_target(self, rot_gt):
-        return (limit_period(rot_gt - self.dir_offset, 0, 2 * math.pi)
-                >= math.pi).to(torch.int64)
-
     def loss(self, preds, gt_bboxes, gt_labels, gt_valid):
-        """Max-IoU assignment + focal, smooth-L1 and direction losses."""
-        tc = self.train_cfg
-        anchors, cls, reg, dir_cls = self._flat_preds(preds)
-        b, m, _ = cls.shape
-        d = anchors.shape[-1]
-        anc_bev = bev_of(anchors)
-        assigned, pos, neg = (torch.stack(x) for x in zip(*[
-            assign(anc_bev, bev_of(gt_bboxes[i]), gt_valid[i],
-                   tc['pos_iou_thr'], tc['neg_iou_thr'],
-                   tc.get('min_pos_iou', 0.0)) for i in range(b)]))
-        gt_for = torch.gather(gt_bboxes, 1, assigned[..., None].expand(
-            -1, -1, gt_bboxes.shape[-1]))
-        labels = torch.gather(gt_labels.to(torch.int64), 1, assigned)
-        labels = torch.where(pos, labels, self.num_classes)
-        weights = (pos | neg).to(cls.dtype)
-        num_pos = torch.clamp(pos.sum(), min=1)
-
-        loss_cls = sigmoid_focal_loss(
-            cls.reshape(-1, self.num_classes), labels.reshape(-1),
-            self.num_classes, gamma=self.loss_cls.get('gamma', 2.0),
-            alpha=self.loss_cls.get('alpha', 0.25))
-        loss_cls = (loss_cls * weights.reshape(-1)).sum() / num_pos
-
-        anc_b = anchors[None].expand(b, m, d)
-        tgt = self.coder.encode(anc_b, gt_for[..., :d])
-        pred_box = reg
-        if self.diff_rad_by_sin:
-            pred_box, tgt = self._sin_diff(pred_box, tgt)
-        l1 = smooth_l1_loss(pred_box, tgt,
-                            beta=self.loss_bbox.get('beta', 1.0 / 9.0))
-        l1 = torch.where(pos[..., None], l1, 0.0)
-        losses = {
-            'loss_cls': loss_cls * self.loss_cls.get('loss_weight', 1.0),
-            'loss_bbox': l1.sum() / num_pos *
-            self.loss_bbox.get('loss_weight', 1.0)}
-        if dir_cls is not None:
-            dir_tgt = self.dir_target(gt_for[..., 6] - anc_b[..., 6])
-            dce = cross_entropy(dir_cls.reshape(-1, 2), dir_tgt.reshape(-1), 2)
-            dce = torch.where(pos.reshape(-1), dce, 0.0)
-            losses['loss_dir'] = dce.sum() / num_pos * \
-                self.loss_dir.get('loss_weight', 1.0)
-        return losses
+        return self.anchor_losses(*self._flat_preds(preds), gt_bboxes,
+                                  gt_labels, gt_valid)
 
     def get_bboxes(self, preds):
-        """Per sample: the ``nms_pre`` anchors of highest class score
-        (ties by the lower index), decoded, the direction applied, then
-        multi-class rotated NMS -> dict 'boxes' [B, max_num, 7+],
-        'scores', 'labels', 'valid' [B, max_num]."""
-        tcfg = self.test_cfg
-        anchors, cls, reg, dir_cls = self._flat_preds(preds)
-        m = anchors.shape[0]
-        scores = torch.sigmoid(cls)
-        outs = []
-        for i in range(scores.shape[0]):
-            k = min(tcfg.get('nms_pre', 1000), m)
-            _, idx = topk_lower_index(scores[i].amax(-1), k)
-            boxes = self.coder.decode(anchors[idx], reg[i][idx])
-            if dir_cls is not None:
-                dir_label = dir_cls[i][idx].argmax(-1)
-                yaw = limit_period(boxes[..., 6] - self.dir_offset,
-                                   self.dir_limit_offset, math.pi)
-                boxes = torch.cat([boxes[..., :6], (
-                    yaw + self.dir_offset + math.pi * dir_label)[..., None],
-                    boxes[..., 7:]], -1)
-            outs.append(box3d_multiclass_nms(
-                boxes, bev_of(boxes), scores[i][idx], tcfg['score_thr'],
-                tcfg['nms_thr'], tcfg['max_num']))
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return self.anchor_decode(*self._flat_preds(preds))

@@ -211,6 +211,10 @@ class BatchNorm2d(_Fp32Norm, nn.BatchNorm2d):
     pass
 
 
+class BatchNorm3d(_Fp32Norm, nn.BatchNorm3d):
+    pass
+
+
 def cast_params(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Cast every fp32 parameter of ``model`` to ``dtype`` in place (the
     JAX bench's ``MSMD_BF16`` cast of its params tree): buffers, the

@@ -61,6 +61,7 @@ NECKS = Registry('necks')
 HEADS = Registry('heads')
 MIDDLE_ENCODERS = Registry('middle_encoders')
 VOXEL_ENCODERS = Registry('voxel_encoders')
+FUSION_LAYERS = Registry('fusion_layers')
 ANCHOR_GENERATORS = Registry('anchor_generators')
 BBOX_CODERS = Registry('bbox_coders')
 DATASETS = Registry('datasets')

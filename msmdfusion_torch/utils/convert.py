@@ -8,7 +8,8 @@ private copy of that converter's TransFusion-L and MSMDFusion tables
 adds TransFusion-LC's (``transfusion_lc_rules``: the head's image fusion
 under the reference TransFusion head's keys, which the JAX converter's
 view-order contract names), the code-size-8 Waymo head's and the
-single-stage zoo's (``zoo_rules``: mmdet3d's module names; the JAX
+zoo's (``zoo_rules``: the single-stage detectors, PartA2 and MVXNet,
+with mmdet3d's module names where the reference has the module; the JAX
 converter has none), and reads
 them backwards: a flax variable tree (as numpy arrays) becomes a state
 dict the port loads with ``load_state_dict``.
@@ -17,6 +18,7 @@ dict the port loads with ``load_state_dict``.
 |------------------------------------|-------------------------------------|
 | kernel [T, I, O] (sparse conv)     | spconv weight [O, kz, ky, kx, I]    |
 | Conv kernel [kh, kw, I, O]         | Conv2d weight [O, I, kh, kw]        |
+| Conv kernel [kx, ky, kz, I, O]     | Conv3d weight [O, I, kx, ky, kz]    |
 | ConvTranspose [kh, kw, I, O]       | ConvTranspose2d [I, O, kh, kw], taps flipped |
 | Dense kernel [I, O]                | Conv1d [O, I, 1] or Linear [O, I]   |
 | scale/bias + batch_stats mean/var  | BN weight/bias/running_mean/var     |
@@ -363,14 +365,162 @@ def center_head_rules(add, cfg, t: str = 'pts_bbox_head',
             add(f'{tb}.{num_conv - 1}', f'{fb}_out', 'conv2d')
 
 
-def zoo_rules(model_cfg) -> List[Rule]:
-    """The mapping of a single-stage detector of the zoo (``VoxelNet``,
-    ``CenterPoint``, ``DynamicVoxelNet``), read from its config's
-    ``model``: the voxel encoder (none for ``DynamicVoxelNet``, whose JAX
-    detector calls none), ``SparseEncoder`` (either block type) or no
-    parameters (``PointPillarsScatter``), SECOND, SECONDFPN and the
-    ``CenterHead``, ``Anchor3DHead`` or ``FreeAnchor3DHead``."""
+def anchor_head_rules(add, head, t: str = 'pts_bbox_head',
+                      f: str = 'bbox_head') -> None:
+    """``Anchor3DHead`` (and its subclasses): the three 1 x 1 branches."""
+    for name in ('conv_cls', 'conv_reg') + (
+            ('conv_dir_cls',) if head.get('use_direction_classifier', True)
+            else ()):
+        add(f'{t}.{name}', f'{f}/{name}', 'conv2d')
+
+
+def shape_aware_head_rules(add, head, t: str = 'pts_bbox_head',
+                           f: str = 'bbox_head') -> None:
+    """``ShapeAwareHead``: per task ``heads.{i}`` (flax ``heads_{i}``) its
+    shared convs and norms (flax ``Conv_{j}``/``BatchNorm_{j}``) and
+    branches."""
+    for i, task in enumerate(head['tasks']):
+        tb, fb = f'{t}.heads.{i}', f'{f}/heads_{i}'
+        for j in range(len(task['shared_conv_channels'])):
+            add(f'{tb}.shared_conv.{j}.conv', f'{fb}/Conv_{j}', 'conv2d')
+            add(f'{tb}.shared_conv.{j}.bn', f'{fb}/BatchNorm_{j}', 'bn')
+        anchor_head_rules(add, head, tb, fb)
+
+
+def fpnc_rules(add, cfg, t: str = 'neck', f: str = 'neck') -> None:
+    """``FPNC``: its FPN (flax ``fpn``), the ``adp`` 1 x 1 convs and norms
+    where ``use_adp`` (flax ``Conv_{i}``/``BatchNorm_{i}``) and
+    ``reduc_conv`` (the next ``Conv``/``BatchNorm``)."""
+    n_in = len(cfg.get('in_channels', (256, 512, 1024, 2048)))
+    fpn_rules(add, t, f'{f}/fpn', n_in)
+    k = 0
+    if cfg.get('use_adp', False):
+        for k in range(cfg.get('num_outs', 5)):
+            add(f'{t}.adp.{k}.conv', f'{f}/Conv_{k}', 'conv2d')
+            add(f'{t}.adp.{k}.bn', f'{f}/BatchNorm_{k}', 'bn')
+        k += 1
+    add(f'{t}.reduc_conv.conv', f'{f}/Conv_{k}', 'conv2d')
+    add(f'{t}.reduc_conv.bn', f'{f}/BatchNorm_{k}', 'bn')
+
+
+def scconv_rules(add, cfg, t: str = 'neck', f: str = 'neck') -> None:
+    """``SCConv``: per segment its downsample (flax ``_ConvBN_{i}``), its
+    blocks (``SCBlock_{k}``, counted over the segments, each block's seven
+    ``_ConvBN_{j}`` in ``SCBlock.PARTS`` order) and its up-projection
+    (``ConvTranspose_{j}`` or ``Conv_{j}``, counted apart, then
+    ``BatchNorm_{i}``)."""
+    chn = cfg.get('chn_per_segment', (256, 256, 256))
+    blocks = cfg.get('blocks_per_segment', (3, 3, 3))
+    us = cfg.get('us_rates', (1, 2, 4))
+    parts = ('l0', 'l1', 'h0', 'h1', 'ds', 'h2', 'fuse')
+    block = n_conv = n_deconv = 0
+
+    def conv_bn(tt, ff):
+        add(f'{tt}.conv', f'{ff}/Conv_0', 'conv2d')
+        add(f'{tt}.bn', f'{ff}/BatchNorm_0', 'bn')
+    for i in range(len(chn)):
+        conv_bn(f'{t}.downs.{i}', f'{f}/_ConvBN_{i}')
+        for j in range(blocks[i]):
+            for k, part in enumerate(parts):
+                conv_bn(f'{t}.blocks.{i}.{j}.conv_{part}',
+                        f'{f}/SCBlock_{block}/_ConvBN_{k}')
+            block += 1
+        if us[i] > 1 or i == len(chn) - 1:
+            add(f'{t}.ups.{i}.0', f'{f}/ConvTranspose_{n_deconv}',
+                'deconv2d')
+            n_deconv += 1
+        else:
+            add(f'{t}.ups.{i}.0', f'{f}/Conv_{n_conv}', 'conv2d')
+            n_conv += 1
+        add(f'{t}.ups.{i}.1', f'{f}/BatchNorm_{i}', 'bn')
+
+
+def sparse_unet_rules(add, cfg, t: str = 'middle_encoder',
+                      f: str = 'middle_encoder') -> None:
+    """``SparseUNet``: the ``conv_module`` encoder, then per decoder step
+    its inverse conv block (``up_{i}``, where the step changes the
+    coordinate set) and submanifold block (``dec_block_{i}``)."""
+    enc = cfg.get('encoder_channels', ((16,), (32, 32, 32), (64, 64, 64),
+                                       (64, 64, 64)))
+    dec = cfg.get('decoder_channels', ((64, 64, 64), (64, 64, 32),
+                                       (32, 32, 16), (16, 16, 16)))
+    sparse_encoder_rules(add, enc, 'conv_module', t, f)
+    for i in range(len(dec)):
+        if len(enc) - 1 - i != 0:
+            add(f'{t}.up_{i}.0', f'{f}/up_{i}', 'spconv')
+            add(f'{t}.up_{i}.1', f'{f}/up_{i}/MaskedBatchNorm_0', 'bn')
+        add(f'{t}.dec_block_{i}.0', f'{f}/dec_block_{i}/SubMConv3d_0',
+            'spconv')
+        add(f'{t}.dec_block_{i}.1', f'{f}/dec_block_{i}/MaskedBatchNorm_0',
+            'bn')
+
+
+def parta2_roi_rules(add, cfg, t: str = 'roi_head', f: str = 'roi') -> None:
+    """``PartAggregationROIHead``: the JAX head's own names, the dense 3-D
+    convs and norms of its four stacks and its fully connected layers."""
+    defaults = dict(part_conv_channels=(64, 64), seg_conv_channels=(64, 64),
+                    merge_conv_channels=(128, 128),
+                    down_conv_channels=(128, 256),
+                    shared_fc_channels=(256, 512), cls_channels=(256, 256),
+                    reg_channels=(256, 256))
+    width = {k: len(cfg.get(k, v)) for k, v in defaults.items()}
+    for stack in ('part_conv', 'seg_conv', 'merge_conv', 'down_conv'):
+        for i in range(width[f'{stack}_channels']):
+            add(f'{t}.{stack}_{i}', f'{f}/{stack}_{i}', 'conv3d')
+            add(f'{t}.{stack}_bn_{i}', f'{f}/{stack}_bn_{i}', 'bn')
+    for fc, key in (('shared_fc', 'shared_fc_channels'),
+                    ('cls_fc', 'cls_channels'), ('reg_fc', 'reg_channels')):
+        for i in range(width[key]):
+            add(f'{t}.{fc}_{i}', f'{f}/{fc}_{i}', 'linear')
+    add(f'{t}.cls_out', f'{f}/cls_out', 'linear')
+    add(f'{t}.reg_out', f'{f}/reg_out', 'linear')
+
+
+def parta2_rules(model_cfg) -> List[Rule]:
+    """``PartA2``: the U-Net, SECOND, SECONDFPN, the RPN (flax ``rpn``),
+    the semantic branch and the RoI head (flax ``roi``)."""
     rules, add = new_rules()
+    voxel_encoder_rules(add, model_cfg['pts_voxel_encoder'], 'voxel_encoder')
+    sparse_unet_rules(add, model_cfg['pts_middle_encoder'])
+    second_rules(add, model_cfg['pts_backbone']['layer_nums'], 'backbone')
+    neck = model_cfg.get('pts_neck')
+    if neck:
+        second_fpn_rules(add, neck.get('upsample_strides', (1, 2, 4)),
+                         neck.get('use_conv_for_no_stride', False), 'neck')
+    anchor_head_rules(add, model_cfg['rpn_head'], 'rpn_head', 'rpn')
+    for name in ('semantic_fc', 'semantic_seg', 'semantic_part'):
+        add(name, name, 'linear')
+    parta2_roi_rules(add, model_cfg['roi_head'])
+    return rules
+
+
+def mvx_rules(model_cfg) -> List[Rule]:
+    """``MVXFasterRCNN``: the LiDAR stack as the single-stage zoo's, the
+    ResNet and FPN image branch (flax ``backbone_img``/``neck_img``) and
+    ``PointFusion`` (flax ``fusion``: ``Dense_0`` the image map, ``Dense_1``
+    the points', ``Dense_2`` the ``fuse_out`` one)."""
+    rules, add = new_rules()
+    _voxel_trunk_rules(add, model_cfg)
+    if model_cfg.get('img_backbone'):
+        resnet_rules(add, 'img_backbone', 'backbone_img',
+                     model_cfg['img_backbone'].get('depth', 50))
+    if model_cfg.get('img_neck'):
+        fpn_rules(add, 'img_neck', 'neck_img',
+                  len(model_cfg['img_neck']['in_channels']))
+    fusion = model_cfg.get('fusion_layer')
+    if fusion:
+        t = 'pts_fusion_layer'
+        add(f'{t}.img_transform.0', 'fusion/Dense_0', 'linear')
+        add(f'{t}.pts_transform.0', 'fusion/Dense_1', 'linear')
+        if fusion.get('fuse_out', False):
+            add(f'{t}.fuse_conv.0', 'fusion/Dense_2', 'linear')
+    return rules
+
+
+def _voxel_trunk_rules(add, model_cfg) -> None:
+    """The voxel encoder, ``SparseEncoder`` (either block type) or no
+    parameters (``PointPillarsScatter``), SECOND, SECONDFPN and the head
+    (``CenterHead``, ``ShapeAwareHead`` or an anchor head)."""
     if model_cfg['type'] != 'DynamicVoxelNet':
         voxel_encoder_rules(add, model_cfg['pts_voxel_encoder'])
     me = model_cfg['pts_middle_encoder']
@@ -387,12 +537,25 @@ def zoo_rules(model_cfg) -> List[Rule]:
     head = model_cfg['pts_bbox_head']
     if head['type'] == 'CenterHead':
         center_head_rules(add, head)
+    elif head['type'] == 'ShapeAwareHead':
+        shape_aware_head_rules(add, head)
     else:
-        add('pts_bbox_head.conv_cls', 'bbox_head/conv_cls', 'conv2d')
-        add('pts_bbox_head.conv_reg', 'bbox_head/conv_reg', 'conv2d')
-        if head.get('use_direction_classifier', True):
-            add('pts_bbox_head.conv_dir_cls', 'bbox_head/conv_dir_cls',
-                'conv2d')
+        anchor_head_rules(add, head)
+
+
+def zoo_rules(model_cfg) -> List[Rule]:
+    """The mapping of a zoo detector, read from its config's ``model``:
+    ``PartA2`` (``parta2_rules``), ``MVXFasterRCNN`` (``mvx_rules``; its
+    JAX variables initialised with images) or a single-stage detector
+    (``VoxelNet``, ``CenterPoint``, ``DynamicVoxelNet``: the voxel encoder,
+    none for ``DynamicVoxelNet``, whose JAX detector calls none, the
+    middle encoder, SECOND, SECONDFPN and the head)."""
+    if model_cfg['type'] == 'PartA2':
+        return parta2_rules(model_cfg)
+    if model_cfg['type'] == 'MVXFasterRCNN':
+        return mvx_rules(model_cfg)
+    rules, add = new_rules()
+    _voxel_trunk_rules(add, model_cfg)
     return rules
 
 
@@ -454,6 +617,8 @@ def from_jax_variables(variables, rules: Optional[List[Rule]] = None
             put(t + '.weight', p(f + '/kernel').transpose(3, 2, 0, 1))
             if f + '/bias' in params:
                 put(t + '.bias', p(f + '/bias'))
+        elif kind == 'conv3d':
+            put(t + '.weight', p(f + '/kernel').transpose(4, 3, 0, 1, 2))
         elif kind == 'deconv2d':
             put(t + '.weight',
                 p(f + '/kernel')[::-1, ::-1].transpose(2, 3, 0, 1))

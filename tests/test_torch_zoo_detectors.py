@@ -290,11 +290,16 @@ def to_flax(sd, rules):
                 sd[t + '.weight'].numpy().transpose(2, 3, 1, 0))
             if t + '.bias' in sd:
                 put(params, f + '/bias', sd[t + '.bias'].numpy())
+        elif kind == 'conv3d':
+            put(params, f + '/kernel',
+                sd[t + '.weight'].numpy().transpose(2, 3, 4, 1, 0))
         elif kind == 'deconv2d':
             put(params, f + '/kernel', sd[t + '.weight'].numpy().transpose(
                 2, 3, 0, 1)[::-1, ::-1])
         elif kind == 'linear':
             put(params, f + '/kernel', sd[t + '.weight'].numpy().T)
+            if t + '.bias' in sd:
+                put(params, f + '/bias', sd[t + '.bias'].numpy())
         elif kind == 'bn':
             put(params, f + '/scale', sd[t + '.weight'].numpy())
             put(params, f + '/bias', sd[t + '.bias'].numpy())
