@@ -14,7 +14,8 @@ folding, the sparse-conv microbench, the speed CLI, the trace summary,
 checkpoint publishing, visualization and log analysis) and the
 single-stage LiDAR zoo (CenterPoint, PointPillars, SECOND, dynamic SECOND,
 FreeAnchor), from tensors and through the CLIs from files, then Part-A2,
-MVXNet and test-time augmentation.
+MVXNet and test-time augmentation, then the point-based zoo (VoteNet,
+H3DNet, SSD3DNet, ImVoteNet; VoteNet also through the CLIs from files).
 
     python3 chip_smoke.py
 
@@ -31,8 +32,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``tests/test_torch_conv_dw_card.py``,
    ``tests/test_torch_nn_argmin_card.py``,
    ``tests/test_torch_conv_ffma_card.py``,
-   ``tests/test_torch_zoo_card.py``: JAX-free, every test must
-   pass) in a child process;
+   ``tests/test_torch_zoo_card.py``, ``tests/test_torch_indoor_card.py``:
+   JAX-free, every test must pass) in a child process;
 3. TransFusion-L: ``configs/transfusion_nusc_voxel_L.py`` at full width
    (1440 x 1440 x 41 grid, 160k voxel capacity, the flagship's measured
    encoder stage capacities), weights drawn from a seed, one 250k-point
@@ -375,6 +376,36 @@ Phases (any failure raises and ends the run with a non-zero exit):
    before and after the circle-NMS merge, two runs bit-equal, ms per
    merged frame. Each path's launches go into the ``kernels`` line's
    ``path_launches``.
+24. the point-based zoo (``point_zoo``, after phase 23; ``POINT_ZOO``) at
+   the configs' widths: (a) VoteNet (``configs/votenet_scannet.py``) on a
+   seeded ScanNet-like room (``synth_scene.indoor_room``: a floor, walls,
+   12 pieces of furniture of the 18 classes) through the config's test
+   pipeline (40,000 points with the height channel); (b) H3DNet
+   (``configs/h3dnet_scannet.py``) on the same room; (c) SSD3DNet
+   (``configs/ssd3d_kitti.py``) on phase 22's KITTI frame sampled to
+   16,384 points; (d) ImVoteNet (``configs/imvotenet_sunrgbd.py``) on a
+   SUN RGB-D-like room (20,000 points) in front of a seeded pinhole
+   (``pinhole``: K and a pitched Rt) with a seeded 530 x 730 image and 8
+   2-D boxes (6 projected from the objects, 2 padded invalid): the cue
+   path, then the ResNet-50 + FPN path (one frame). Each frame
+   (``point_frame``): no launch of the six kernels, ``overflow_total``
+   0, finite boxes, the host's synchronisations a frame, two forwards
+   and decodes bit-equal, the port's own CPU run on the same weights and
+   inputs (``point_twin``: how many of the CPU's FPS, ball-query, kNN and
+   VoteFusion top-k choices differ from the card's, with the ball
+   query's differing slots' distance from the radius; then with the
+   card's pinned into it, ``PinnedPoints``, every output within 1e-4 of
+   max), 10 frames by CUDA events and the stages ``sa``/``fp``/``vote``/
+   ``aggregation``/``head``/``decode`` (``fps`` and ``ball_query``
+   inside them; ``primitives``/``refine`` for H3DNet, ``img`` for
+   ImVoteNet) with the FPS loop's ms by CUDA events and by the host
+   clock; each step (``point_step``, batch 2, the config's AdamW and
+   clip): no launch, overflow 0, finite losses, 3 steps split at their
+   seams. (e) VoteNet through the train CLI (2 steps of 8 samples) and
+   the eval CLI (2 samples, the indoor mAP and mAR at 0.25 and 0.5) on a
+   ScanNet-layout set of two rooms (``write_scannet``: 6-float points,
+   instance and semantic masks, infos), and a SUN RGB-D-layout info file
+   (``write_sunrgbd``) read through ``SUNRGBDDataset``.
 
 Each phase prints its seconds by the host clock.
 
@@ -6304,9 +6335,12 @@ def zoo_step(label, model, inputs, gt, config, spec, card, restart=False):
               flush=True)
         check_launches(label, launches, spec['train'])
         dropped = {k: v for k, v in cap.counters().items() if v}
-        print(f'{label}: overflow per site {dropped} (every other site 0; '
-              f'the train-time voxel capacity '
-              f'{model.pts_voxel_layer["max_voxels"][0]})', flush=True)
+        voxels = getattr(model, 'pts_voxel_layer', None)
+        print(f'{label}: batch {inputs[0].shape[0]}, overflow per site '
+              f'{dropped} (every other site 0' + (
+                  f'; the train-time voxel capacity '
+                  f'{voxels["max_voxels"][0]}' if voxels else '') + ')',
+              flush=True)
         split = split_steps(label, step, model, opt, batch, ZOO['steps'],
                             card, restore=start if restart else None)
         step_ms = sum(sum(s) for s in split) / len(split)
@@ -6431,10 +6465,11 @@ def zoo_checkpoint(config, opts, dev, name):
 
 
 def zoo_eval_cli(label, config, ckpt, opts, metric, inputs, launches, card,
-                 dev, width):
+                 dev, width, keys=None):
     """The eval CLI with ``--eval``: every frame's launches, the overflow
-    per site, finite metrics, sample 0's detections bit-equal to a direct
-    call; returns the CLI's frames/s."""
+    per site, finite metrics (``keys`` printed, else the first four),
+    sample 0's detections bit-equal to a direct call; returns the CLI's
+    frames/s."""
     import numpy as np
     import torch
     from msmdfusion_torch import kernels
@@ -6460,7 +6495,8 @@ def zoo_eval_cli(label, config, ckpt, opts, metric, inputs, launches, card,
               f'{label}: sample 0 {key} differ from the direct call')
     check(all(np.isfinite(d['bboxes']).all() and d['bboxes'].shape[1]
               == width for d in run['results']), f'{label}: boxes')
-    shown = dict(list(numbers.items())[:4])
+    shown = ({k: numbers[k] for k in keys} if keys
+             else dict(list(numbers.items())[:4]))
     dropped = {k: v for k, v in run['overflow'].items() if v}
     print(f'{label}: eval CLI --eval {metric}: {n} frames, '
           f'{run["fps"]:.3f} frames/s whole run ({run["seconds"]:.2f} s, '
@@ -6836,6 +6872,637 @@ def two_stage(card, dev, tl_kept):
             for part, launches in (('frame', f), ('step', s)) if launches}
 
 
+# phase 24: the point-based zoo at its configs' widths: (a) VoteNet on a
+# ScanNet-like room (``synth_scene.indoor_room``: a floor, walls and 12
+# pieces of furniture of the config's 18 classes, 50,000 points) through
+# the config's test pipeline (40,000 points with the height channel),
+# (b) H3DNet on the same room, (c) SSD3DNet on phase 22's KITTI frame
+# sampled to 16,384 points, (d) ImVoteNet on a SUN RGB-D-like room
+# (turned boxes, 20,000 points) in front of a seeded pinhole, one seeded
+# 530 x 730 image and 8 2-D boxes (6 from the objects, 2 padded invalid),
+# both image paths; (e) VoteNet through the train and eval CLIs on a
+# ScanNet-layout set of (a)'s room and a second one, and a SUN RGB-D-layout
+# info file read through SUNRGBDDataset. None of the six kernels runs on
+# these paths: the point ops and the FPS loop are PyTorch's.
+POINT_ZOO = dict(
+    votenet=dict(config=ROOT / 'configs' / 'votenet_scannet.py'),
+    h3dnet=dict(config=ROOT / 'configs' / 'h3dnet_scannet.py'),
+    ssd3d=dict(config=ROOT / 'configs' / 'ssd3d_kitti.py'),
+    imvotenet=dict(config=ROOT / 'configs' / 'imvotenet_sunrgbd.py'),
+    room_points=50000, img_hw=(530, 730), focal=250.0, boxes_2d=8,
+    frames=10, other_frames=3, files_steps=2, files_val=2)
+
+
+def room_frame(config, seed, yawed=False, shift=(0.0, 0.0, 0.0)):
+    """A seeded room (``indoor_room``) of the config's classes and mean
+    sizes, moved by ``shift``, through the config's test pipeline: points
+    [N, 4] (xyz and the height over the 0.99th percentile of z), the
+    room itself and its boxes bottom-centre [K, 7]."""
+    import tempfile
+    import numpy as np
+    import msmdfusion_torch.datasets  # noqa: F401
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.datasets.pipelines import Compose
+    from msmdfusion_torch.utils.synth_scene import indoor_room
+    cfg = load_config(str(config))
+    mapping = [t for t in cfg.train_pipeline
+               if t['type'] == 'PointSegClassMapping']
+    cat_ids = (mapping[0]['valid_cat_ids'] if mapping
+               else tuple(range(len(cfg.class_names))))
+    room = indoor_room(np.random.RandomState(seed), POINT_ZOO['room_points'],
+                       cfg.model.bbox_head['mean_sizes'], cat_ids,
+                       yawed=yawed)
+    room['points'][:, :3] += np.asarray(shift, np.float32)
+    room['boxes'][:, :3] += np.asarray(shift, np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / 'room.bin')
+        room['points'].tofile(path)
+        out = Compose(cfg.test_pipeline)(
+            dict(pts_filename=path, sweeps=[], timestamp=0),
+            np.random.RandomState(seed))
+    boxes = room['boxes'].copy()
+    boxes[:, 2] -= boxes[:, 5] / 2
+    return out['points'], room, boxes
+
+
+def batch_of(frames, dev):
+    """[(points [N, F], boxes [K, 7], labels [K])] -> ((points, mask),
+    (boxes, labels int32, valid)) on ``dev``."""
+    import numpy as np
+    import torch
+    k = max(len(f[1]) for f in frames)
+    boxes = np.zeros((len(frames), k, 7), np.float32)
+    labels = np.zeros((len(frames), k), np.int32)
+    valid = np.zeros((len(frames), k), bool)
+    for i, (_, b, lab) in enumerate(frames):
+        boxes[i, :len(b)], labels[i, :len(b)], valid[i, :len(b)] = b, lab, 1
+    pts = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    return (pts, mask), tuple(torch.from_numpy(x).to(dev)
+                              for x in (boxes, labels, valid))
+
+
+def pinhole(rt_pitch=0.15):
+    """SUN RGB-D-style calibration: K [4, 4] (focal ``POINT_ZOO['focal']``,
+    the principal point at the image centre) and Rt [3, 3] (a pitch of
+    ``rt_pitch`` rad about x), and the lidar2img [4, 4] that takes DEPTH
+    points to pixels through them (``box_modes``' DEPTH -> CAM with Rt)."""
+    import numpy as np
+    from msmdfusion_torch.core import box_modes
+    h, w = POINT_ZOO['img_hw']
+    f = POINT_ZOO['focal']
+    k = np.eye(4, dtype=np.float32)
+    k[:3, :3] = [[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]
+    c, s = np.cos(rt_pitch), np.sin(rt_pitch)
+    rt = np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+    to_cam = np.eye(4, dtype=np.float32)
+    to_cam[:3, :3] = box_modes._DEFAULT_RT[(box_modes.DEPTH, box_modes.CAM)] \
+        @ rt.T
+    return k, rt, k @ to_cam
+
+
+def boxes_2d(boxes, labels, l2i, n, rng):
+    """Up to ``n`` 2-D detections [n, 6] (l, t, r, b, conf, cls): the
+    projected corners' extent of the first objects in front of the
+    camera, seeded confidences, the last two rows padded and invalid."""
+    import numpy as np
+    import torch
+    from msmdfusion_torch.core.boxes import corners_3d
+    h, w = POINT_ZOO['img_hw']
+    out = np.zeros((n, 6), np.float32)
+    valid = np.zeros(n, bool)
+    corners = corners_3d(torch.from_numpy(boxes)).numpy()        # [K, 8, 3]
+    hom = np.concatenate([corners, np.ones(corners.shape[:2] + (1,))], -1)
+    proj = hom @ l2i.T
+    k = 0
+    for j in range(len(boxes)):
+        if k == n - 2:
+            break
+        if (proj[j, :, 2] <= 0.1).any():
+            continue
+        uv = proj[j, :, :2] / proj[j, :, 2:3]
+        lo = np.clip(uv.min(0), 0, [w - 1, h - 1])
+        hi = np.clip(uv.max(0), 0, [w - 1, h - 1])
+        if (hi - lo).min() < 4:
+            continue
+        out[k] = [*lo, *hi, rng.uniform(0.4, 0.95), labels[j]]
+        valid[k] = True
+        k += 1
+    return out, valid
+
+
+def imvote_frame(config, seeds, dev):
+    """(d)'s batch: rooms in front of ``pinhole()`` (the camera at the
+    origin looking along y, 1.2 m above the floor), one seeded image each,
+    their 2-D boxes; returns (points, mask, img [B, H, W, 3] 0-255, metas
+    with bboxes_2d, bbox_valid, depth2img dict(K, Rt)), the image path's
+    (img [B, 1, H, W, 3] normalised, metas lidar2img [B, 1, 4, 4]) and
+    the ground truth."""
+    import numpy as np
+    import torch
+    h, w = POINT_ZOO['img_hw']
+    k_mat, rt, l2i = pinhole()
+    frames, imgs, b2d, bval = [], [], [], []
+    for seed in seeds:
+        rng = np.random.RandomState(seed)
+        pts, room, boxes = room_frame(config, seed, yawed=True,
+                                      shift=(-3.25, 0.8, -1.2))
+        frames.append((pts, boxes, room['labels']))
+        imgs.append(rng.randint(0, 256, (h, w, 3)).astype(np.float32))
+        bb, bv = boxes_2d(boxes, room['labels'], l2i,
+                          POINT_ZOO['boxes_2d'], rng)
+        b2d.append(bb)
+        bval.append(bv)
+    (pts, mask), gt = batch_of(frames, dev)
+    n = len(seeds)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    img = on(np.stack(imgs))
+    metas = dict(bboxes_2d=on(np.stack(b2d)), bbox_valid=on(np.stack(bval)),
+                 depth2img=dict(K=on(np.tile(k_mat, (n, 1, 1))),
+                                Rt=on(np.tile(rt, (n, 1, 1)))))
+    views = ((img[:, None] - 128.0) / 64.0,
+             dict(lidar2img=on(np.tile(l2i, (n, 1, 1, 1)))))
+    return (pts, mask, img, metas), (pts, mask) + views, gt
+
+
+class PinnedPoints:
+    """Inside the scope the point ops' choices (FPS, F-FPS, ball query,
+    kNN / three-NN with its distances, VoteFusion's top-k) are kept in call
+    order (``self.calls``) or, given ``calls``, replayed: each call also
+    computes its own and records how many indices differ from the
+    replayed ones (``self.differ``) and, for a ball query, how far the
+    differing slots' points lie from the radius and from each other (the
+    k-th nearest's near-ties: the quadratic expansion's rounding,
+    ~1e-6 m^2 at room scale, differs between the devices), for kNN the
+    largest distance difference."""
+    SITES = (('msmdfusion_torch.ops.sampling', 'furthest_point_sample'),
+             ('msmdfusion_torch.ops.sampling', 'combined_fps'),
+             ('msmdfusion_torch.ops.sampling', 'ball_query'),
+             ('msmdfusion_torch.ops.sampling', 'knn'),
+             ('msmdfusion_torch.models.fusion_layers', 'topk_lower_index'))
+
+    def __init__(self, calls=None):
+        self.replay = calls is not None
+        self.calls = list(calls or ())
+        self.differ = []
+        self.count = 0
+
+    def __enter__(self):
+        import importlib
+        self._orig = []
+        for mod, name in self.SITES:
+            module = importlib.import_module(mod)
+            fn = getattr(module, name)
+            self._orig.append((module, name, fn))
+            setattr(module, name, self._pinned(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._orig:
+            setattr(module, name, fn)
+        return False
+
+    def _pinned(self, name, fn):
+        import torch
+        from msmdfusion_torch.ops import sampling
+
+        def call(*args, **kwargs):
+            own = fn(*args, **kwargs)
+            if not self.replay:
+                self.calls.append((name, own))
+                return own
+            kept_name, kept = self.calls[self.count]
+            self.count += 1
+            if kept_name != name:
+                raise RuntimeError(f'replayed {kept_name}, called {name}')
+            kept = moved(kept, own[0].device if isinstance(own, tuple)
+                         else own.device)
+            idx, keep = ((own[1], kept[1]) if isinstance(own, tuple)
+                         else (own, kept))
+            diff = keep != idx
+            gaps = {}
+            if name == 'ball_query' and bool(diff.any()):
+                radius, _, xyz, centers = args[:4]
+                d = sampling.square_distance(centers, xyz).sqrt()
+                got = [torch.gather(d, -1, i.clamp(min=0))[diff]
+                       for i in (idx, keep)]
+                gaps = dict(radius=max(float((g - radius).abs().min())
+                                       for g in got),
+                            ties=float((got[0] - got[1]).abs().max()))
+            if name == 'knn':
+                gaps = dict(dist=float((own[0] - kept[0]).abs().max()))
+            self.differ.append((name, int(diff.sum()), idx.numel(), gaps))
+            if name == 'topk_lower_index':
+                return torch.gather(args[0], -1, keep), keep
+            return kept
+        return call
+
+    def summary(self):
+        by = {}
+        for name, n, total, gaps in self.differ:
+            c = by.setdefault(name, dict(calls=0, differ=0, of=0))
+            c['calls'] += 1
+            c['differ'] += n
+            c['of'] += total
+            for k, v in gaps.items():
+                key = {'radius': 'nearest_to_radius_m',
+                       'ties': 'max_distance_apart_m',
+                       'dist': 'max_dist2_m2'}[k]
+                c[key] = (min if k == 'radius' else max)(
+                    c.get(key, v), v)
+        return by
+
+
+def point_outputs(model, inputs):
+    """The forward's and the decode's outputs, one flat dict."""
+    import torch
+    with torch.no_grad():
+        preds = model(*inputs)
+        det = model.get_bboxes(preds)
+    return dict(zoo_preds(preds), **{f'det.{k}': v for k, v in det.items()})
+
+
+class PinnedOutput:
+    """A module's output kept (``self.out``) or, given ``out``, replaced
+    by it (moved to the module's device)."""
+
+    def __init__(self, module, out=None):
+        self.module, self.out = module, out
+
+    def __enter__(self):
+        replay = self.out is not None
+
+        def hook(module, args, output):
+            if not replay:
+                self.out = output
+                return None
+            first = output[0] if isinstance(output, (tuple, list)) \
+                else output
+            return moved(self.out, first.device)
+        self.handle = self.module.register_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+        return False
+
+
+def point_twin(label, model, inputs, pin=None):
+    """The card's forward against the port's own CPU run (same weights and
+    inputs): before pinning, the CPU's choices that differ from the card's
+    (``PinnedPoints``); after pinning the card's into the CPU run (and the
+    output of the submodule ``pin`` names, whose own difference is
+    printed), every float output within TOL of its largest value, every
+    integer and mask output equal."""
+    import copy
+    import torch
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        rec = stack.enter_context(PinnedPoints())
+        held = pin and stack.enter_context(
+            PinnedOutput(model.get_submodule(pin)))
+        run = point_outputs(model, inputs)
+    cpu = copy.deepcopy(model).cpu()
+    pinned = ''
+    if pin:
+        with PinnedOutput(cpu.get_submodule(pin)) as own:
+            point_outputs(cpu, moved(inputs, 'cpu'))
+        errs = [rel_err(g.cpu(), w)[1] for g, w in zip(held.out, own.out)]
+        pinned = (f'; {pin}\'s outputs (pinned) card vs CPU '
+                  f'{max(errs):.3g} of max')
+    with contextlib.ExitStack() as stack:
+        rep = stack.enter_context(PinnedPoints(rec.calls))
+        if pin:
+            stack.enter_context(PinnedOutput(cpu.get_submodule(pin),
+                                             held.out))
+        ref = point_outputs(cpu, moved(inputs, 'cpu'))
+    del cpu
+    worst = {}
+    for key, want in ref.items():
+        got = run[key].cpu()
+        if not want.is_floating_point():
+            check(torch.equal(got, want), f'{label}: {key} differs between '
+                  'the card and the CPU after pinning')
+            continue
+        worst[key] = rel_err(got, want)[1]
+        check(worst[key] <= TOL, f'{label}: {key}: card vs CPU '
+              f'{worst[key]:.3g} of max |ref|, above {TOL:g}')
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    print(f'{label}: the CPU\'s choices against the card\'s before '
+          f'pinning: {json.dumps(rep.summary())}{pinned}; after pinning '
+          f'every output within {TOL:g} of max ({len(ref)} outputs; largest '
+          + ', '.join(f'{k} {v:.3g}' for k, v in top)
+          + f'); {time.perf_counter() - t0:.1f} s', flush=True)
+
+
+def sync_count(model, inputs):
+    """The host's synchronisations with the device in one forward and
+    decode (PyTorch's sync debug mode), and their sites."""
+    import collections
+    import warnings
+    import torch
+    with torch.no_grad(), warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            model.get_bboxes(model(*inputs))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(
+        f'{w.filename.rsplit("/", 2)[-1]}:{w.lineno}' for w in got
+        if 'synchroniz' in str(w.message))
+    return sum(sites.values()), sites.most_common(4)
+
+
+def point_frame(label, model, inputs, card, frames, pin=None):
+    """One counted frame (no kernel launches, overflow 0, finite boxes),
+    syncs a frame, two forwards bit-equal, the CPU twin (``point_twin``),
+    then ``frames`` frames by CUDA events and one frame's stages (the FPS
+    loop's by CUDA events and by the host clock). Returns (ms/frame, stage
+    ms)."""
+    import torch
+    from msmdfusion_torch import kernels
+    from msmdfusion_torch.utils import overflow, timing
+    model.eval()
+    with torch.no_grad():
+        kernels.reset_launches()
+        with overflow.capture() as cap:
+            det = model.get_bboxes(model(*inputs))
+        launches = dict(kernels.launches)
+        torch.cuda.synchronize()
+    check_launches(label, launches, {})
+    total = sum(cap.counters().values())
+    check(total == 0, f'{label}: overflow {cap.counters()}')
+    valid = det['valid']
+    check(bool(torch.isfinite(det['bboxes']).all()) and int(valid.sum()) > 0,
+          f'{label}: {int(valid.sum())} valid boxes')
+    syncs, sites = sync_count(model, inputs)
+    print(f'{label}: launches {launches} (none of the six kernels); '
+          f'overflow_total {total}; {int(valid.sum())} of {valid.numel()} '
+          f'proposals valid, boxes {tuple(det["bboxes"].shape)}; {syncs} '
+          f'synchronisations a frame {sites}', flush=True)
+    zoo_same_bits(label, model, inputs)
+    point_twin(label, model, inputs, pin)
+    with torch.no_grad():
+        frame_ms = cuda_ms(lambda: model.get_bboxes(model(*inputs)), frames)
+        with timing.record('cuda') as tr:
+            model.get_bboxes(model(*inputs))
+    stages = {k: round(v, 3) for k, v in tr.ms().items()}
+    host = {k: round(v, 3) for k, v in tr.host_ms().items()}
+    fps = stages.get('fps', 0.0)
+    print(f'{label}: {frame_ms:.3f} ms/frame (CUDA events, '
+          f'{frames} frames after a warm-up); stages '
+          f'{json.dumps(stages)}; the FPS loop {fps:.3f} ms by CUDA events '
+          f'({fps / frame_ms:.3f} of the frame), {host.get("fps", 0):.3f} '
+          f'ms by the host clock [{card}]', flush=True)
+    return frame_ms, stages
+
+
+def point_step(label, model, inputs, gt, config, card):
+    """``zoo_step`` on the point zoo: one counted step of the config's
+    recipe (AdamW, its clip) with no launch of the six kernels and
+    ``overflow_total`` 0, then ``ZOO['steps']`` steps timed at their
+    seams. Returns ms/step."""
+    step_ms, dropped, _ = zoo_step(label, model, inputs, gt, config,
+                                   dict(train={}), card)
+    check(not dropped, f'{label}: overflow {dropped}')
+    return step_ms
+
+
+def write_scannet(root, rooms, counts):
+    """A ScanNet-layout set under ``root``: each room (``indoor_room``) as
+    ``points/scene{i}.bin`` (6 floats a point), its instance and semantic
+    masks (int64) and, per split of ``counts`` ({split: entries}), the
+    info file ``scannet_infos_<split>.pkl`` whose k-th entry is room k mod
+    len(rooms) (axis-aligned ``gt_boxes_upright_depth`` [K, 6], gravity
+    centres). Returns {split: info path}."""
+    import pickle
+    root = Path(root)
+    for sub in ('points', 'instance_mask', 'semantic_mask'):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    annos = []
+    for i, room in enumerate(rooms):
+        name = f'scene{i:04d}_00'
+        room['points'].astype('float32').tofile(root / 'points' /
+                                                f'{name}.bin')
+        room['instance'].astype('int64').tofile(root / 'instance_mask' /
+                                                f'{name}.bin')
+        room['semantic'].astype('int64').tofile(root / 'semantic_mask' /
+                                                f'{name}.bin')
+        annos.append((name, dict(
+            gt_num=len(room['labels']),
+            name=[str(k) for k in room['labels']],
+            location=room['boxes'][:, :3], dimensions=room['boxes'][:, 3:6],
+            gt_boxes_upright_depth=room['boxes'][:, :6],
+            index=list(range(len(room['labels']))),
+            **{'class': room['labels']})))
+    paths = {}
+    for split, count in counts.items():
+        infos = []
+        for k in range(count):
+            name, anno = annos[k % len(rooms)]
+            infos.append(dict(
+                point_cloud=dict(num_features=6, lidar_idx=name),
+                pts_path=f'points/{name}.bin',
+                pts_instance_mask_path=f'instance_mask/{name}.bin',
+                pts_semantic_mask_path=f'semantic_mask/{name}.bin',
+                annos=anno))
+        paths[split] = root / f'scannet_infos_{split}.pkl'
+        with open(paths[split], 'wb') as f:
+            pickle.dump(infos, f)
+    return paths
+
+
+def write_sunrgbd(root, room, bboxes, k_mat, rt):
+    """A SUN RGB-D-layout info file of one room: ``points/000001.bin``,
+    yawed ``gt_boxes_upright_depth`` [K, 7] (gravity centres), the 2-D
+    boxes, the image entry and the calibration (K, Rt). Returns its path."""
+    import pickle
+    root = Path(root)
+    (root / 'points').mkdir(parents=True, exist_ok=True)
+    room['points'].astype('float32').tofile(root / 'points' / '000001.bin')
+    info = dict(
+        point_cloud=dict(num_features=6, lidar_idx=1),
+        pts_path='points/000001.bin',
+        image=dict(image_idx=1, image_shape=list(POINT_ZOO['img_hw']),
+                   image_path='image/000001.jpg'),
+        calib=dict(K=k_mat[:3, :3], Rt=rt),
+        annos=dict(gt_num=len(room['labels']),
+                   name=[str(k) for k in room['labels']],
+                   bbox=bboxes, location=room['boxes'][:, :3],
+                   dimensions=room['boxes'][:, 3:6],
+                   rotation_y=room['boxes'][:, 6],
+                   gt_boxes_upright_depth=room['boxes'],
+                   index=list(range(len(room['labels']))),
+                   **{'class': room['labels']}))
+    path = root / 'sunrgbd_infos_val.pkl'
+    with open(path, 'wb') as f:
+        pickle.dump([info], f)
+    return path
+
+
+def point_files(card, dev):
+    """Phase 24 (e): VoteNet through the train CLI (``files_steps`` steps
+    of the config's batch of 8 over a ScanNet-layout set of two rooms,
+    (a)'s first) and the eval CLI (``files_val`` rooms, the indoor mAP at
+    0.25 and 0.5), then a SUN RGB-D-layout info file of (d)'s room read
+    through ``SUNRGBDDataset`` and the config's test pipeline."""
+    import tempfile
+    import numpy as np
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.registry import DATASETS
+    label = 'point zoo (e) VoteNet from files'
+    config = str(POINT_ZOO['votenet']['config'])
+    cfg = load_config(config)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        rooms = [room_frame(config, SEED + i)[1] for i in range(2)]
+        n_train = POINT_ZOO['files_steps'] * cfg.data.samples_per_gpu
+        paths = write_scannet(cfg.data_root, rooms, dict(
+            train=n_train, val=POINT_ZOO['files_val']))
+        check(paths['train'] == Path(cfg.data.train.ann_file)
+              and paths['val'] == Path(cfg.data.test.ann_file),
+              f'{label}: wrote {paths}, the config reads '
+              f'{cfg.data.train.ann_file} and {cfg.data.test.ann_file}')
+        print(f'{label}: two {POINT_ZOO["room_points"]}-point rooms as a '
+              f'ScanNet-layout set under {cfg.data_root} ({n_train} train, '
+              f'{POINT_ZOO["files_val"]} val infos)', flush=True)
+        zoo_train_cli(label, config, str(Path('work_votenet').resolve()), [],
+                      POINT_ZOO['files_steps'], {}, card, dev)
+        ckpt, inputs = zoo_checkpoint(config, [], dev, 'ckpt_votenet')
+        zoo_eval_cli(label, config, ckpt, [], 'bbox', inputs, {}, card, dev,
+                     7, keys=('mAP_0.25', 'mAP_0.50', 'mAR_0.25',
+                              'mAR_0.50'))
+
+        sun = str(POINT_ZOO['imvotenet']['config'])
+        scfg = load_config(sun)
+        _, room, _ = room_frame(sun, SEED, yawed=True)
+        k_mat, rt, l2i = pinhole()
+        bboxes = np.zeros((len(room['labels']), 4), np.float32)
+        path = write_sunrgbd(scfg.data_root, room, bboxes, k_mat, rt)
+        ds = DATASETS.build(dict(scfg.data.test, ann_file=str(path)))
+        sample = ds.sample(0, np.random.RandomState(SEED))
+        ann = ds.get_ann_info(0)
+        bottom = room['boxes'].copy()
+        bottom[:, 2] -= bottom[:, 5] / 2
+        check(sample['points'].shape == (scfg.num_points, 4)
+              and np.array_equal(ann['gt_bboxes_3d'], bottom)
+              and np.array_equal(ann['gt_labels_3d'], room['labels']),
+              f'{label}: SUNRGBDDataset read {sample["points"].shape}, '
+              f'boxes {ann["gt_bboxes_3d"][:2]}')
+        print(f'point zoo (e) SUN RGB-D layout: {path.name} read through '
+              f'SUNRGBDDataset: points {sample["points"].shape}, '
+              f'{len(ann["gt_labels_3d"])} yawed boxes equal to the room\'s '
+              '(bottom centres)', flush=True)
+
+
+def point_zoo(card, dev):
+    """Phase 24 (see ``POINT_ZOO``): (a)-(e). Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from msmdfusion_torch.config import load_config
+    from msmdfusion_torch.models.fusion_layers import project_points_to_image
+    from msmdfusion_torch.utils.calibrate import calibrate_norms
+    from msmdfusion_torch.utils.synth_scene import lidar_scene, scene_gt
+    paths, summary = {}, {}
+
+    def setup(name, inputs):
+        t0 = time.perf_counter()
+        model = zoo_model(POINT_ZOO[name]['config'], dev)
+        with torch.no_grad():
+            calibrate_norms(model, *inputs)
+        print(f'point zoo {name}: {POINT_ZOO[name]["config"].name} built, '
+              f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M '
+              f'parameters, norms calibrated in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        return model
+
+    def rooms(name, seeds):
+        return batch_of([(p, b, r['labels']) for p, r, b in (
+            room_frame(POINT_ZOO[name]['config'], s) for s in seeds)], dev)
+
+    # (a) VoteNet, (b) H3DNet on the same ScanNet-like room
+    one, one_gt = rooms('votenet', (SEED,))
+    two, two_gt = rooms('votenet', (SEED, SEED + 1))
+    for key, name in (('a', 'votenet'), ('b', 'h3dnet')):
+        label = f'point zoo ({key}) {name}'
+        model = setup(name, one)
+        frame = point_frame(label, model, one, card, POINT_ZOO[
+            'frames' if key == 'a' else 'other_frames'])
+        step = point_step(f'{label} train', model, two, two_gt,
+                          POINT_ZOO[name]['config'], card)
+        summary[name] = dict(ms_frame=round(frame[0], 3),
+                             ms_step=round(step, 3), stages=frame[1])
+        paths[name] = {}
+        del model
+        torch.cuda.empty_cache()
+    del one, two
+
+    # (c) SSD3DNet on phase 22's KITTI frame, 16,384 points
+    cfg = load_config(str(POINT_ZOO['ssd3d']['config']))
+    pts, objects = lidar_scene(np.random.RandomState(SEED),
+                               ZOO['kitti_points'], cfg.point_cloud_range)
+    boxes, labels, valid = scene_gt(objects)
+    take = np.random.RandomState(SEED).choice(len(pts), cfg.num_points,
+                                              replace=len(pts) <
+                                              cfg.num_points)
+    frame_c = (pts[take, :4], boxes[valid][:, :7], labels[valid] * 0)
+    kitti, kitti_gt = batch_of([frame_c], dev)
+    kitti2, kitti2_gt = batch_of([frame_c, frame_c], dev)
+    label = 'point zoo (c) ssd3d'
+    model = setup('ssd3d', kitti)
+    frame = point_frame(label, model, kitti, card, POINT_ZOO['other_frames'])
+    step = point_step(f'{label} train', model, kitti2, kitti2_gt,
+                      POINT_ZOO['ssd3d']['config'], card)
+    summary['ssd3d'] = dict(ms_frame=round(frame[0], 3),
+                            ms_step=round(step, 3), stages=frame[1])
+    paths['ssd3d'] = {}
+    del model, kitti, kitti2
+    torch.cuda.empty_cache()
+
+    # (d) ImVoteNet: the cue path (frame and step), the image path (frame)
+    config = POINT_ZOO['imvotenet']['config']
+    cues, views, gt = imvote_frame(config, (SEED,), dev)
+    cues2, _, gt2 = imvote_frame(config, (SEED, SEED + 1), dev)
+    label = 'point zoo (d) imvotenet'
+    model = setup('imvotenet', cues)
+    width = model.backbone.out_channels + 128        # 384 at full width
+    check(tuple(model.bbox_head.vote_out.weight.shape) == (3 + width, width),
+          f'{label}: vote_out {tuple(model.bbox_head.vote_out.weight.shape)}')
+    with torch.no_grad():
+        seeds = model.backbone(*cues[:2])['fp_xyz'][0]
+        _, ok = project_points_to_image(seeds, views[3]['lidar2img'][0, 0],
+                                        POINT_ZOO['img_hw'])
+    print(f'{label}: the head {width} wide (vote_out {3 + width}); '
+          f'{int(ok.sum())} of {len(ok)} seeds on the '
+          f'{POINT_ZOO["img_hw"]} image; '
+          f'{int(cues[3]["bbox_valid"].sum())} valid 2-D boxes of '
+          f'{POINT_ZOO["boxes_2d"]}', flush=True)
+    frame = point_frame(f'{label} cues', model, cues, card,
+                        POINT_ZOO['other_frames'])
+    step = point_step(f'{label} cues train', model, cues2, gt2, config, card)
+    # the dense image branch's own rounding (cuDNN off in fp32 against the
+    # CPU's convs) moves the head by ~2e-3 of max: the CPU run takes the
+    # card's FPN maps, their difference printed
+    image = point_frame(f'{label} image backbone', model, views, card,
+                        POINT_ZOO['other_frames'], pin='img_neck')
+    summary['imvotenet'] = dict(ms_frame=round(frame[0], 3),
+                                ms_step=round(step, 3), stages=frame[1],
+                                image_ms_frame=round(image[0], 3),
+                                image_stages=image[1])
+    paths['imvotenet'] = {}
+    del model, cues, cues2, views
+    torch.cuda.empty_cache()
+
+    # (e) from files
+    point_files(card, dev)
+    print(f'point zoo: {json.dumps(summary)} [{card}]', flush=True)
+    print('point zoo: launches of the six kernels on every path '
+          + json.dumps(paths), flush=True)
+    return paths
+
+
 def report(phases, card, paths=None):
     """The rows kernels' sums lines and the ``kernels`` line of the
     flagship's phases (``flagship_phases``); each entry also carries
@@ -6882,7 +7549,8 @@ CARD_TESTS = ('tests/test_torch_rows_card.py',
               'tests/test_torch_conv_dw_card.py',
               'tests/test_torch_nn_argmin_card.py',
               'tests/test_torch_conv_ffma_card.py',
-              'tests/test_torch_zoo_card.py')
+              'tests/test_torch_zoo_card.py',
+              'tests/test_torch_indoor_card.py')
 
 
 def card_tests():
@@ -7016,6 +7684,9 @@ def main():
     paths = two_stage(card, dev, tl_kept)
     del tl_kept
     lap('23 (Part-A2, MVXNet, test-time augmentation)')
+    point_zoo(card, dev)
+    lap('24 (the point-based zoo: VoteNet, H3DNet, SSD3DNet, ImVoteNet; '
+        'VoteNet through the CLIs from files)')
 
     report(phases, card, paths)
     print(json.dumps({'ok': True, 'device': {

@@ -41,10 +41,16 @@ def unpack_detections(res: Dict[str, torch.Tensor]) -> List[Dict]:
 
 def refuse_cli_model(model_type: str, model=None) -> None:
     """Raise for a model the CLIs cannot run, gaps the JAX package's tools
-    share: ``PartA2``, whose decode gives no labels, and an
+    share: ``PartA2``, whose decode gives no labels, an
     ``MVXFasterRCNN`` with a fusion layer, whose middle encoder reads the
     image fusion's channels while the CLIs pass points alone (as the JAX
-    tools do for every model but the flagship)."""
+    tools do for every model but the flagship), and ``ImVoteNet``, whose
+    head reads the image cues' channels for the same reason."""
+    if model_type == 'ImVoteNet':
+        raise NotImplementedError(
+            'ImVoteNet through the CLIs: they pass points alone, and its '
+            'VoteHead reads the image cues\' 128 channels beside the seed '
+            'features (the JAX tools cannot run it from files either)')
     if model_type == 'PartA2':
         raise NotImplementedError(
             'PartA2 through the CLIs: its get_bboxes returns bboxes, scores '

@@ -6,7 +6,10 @@ coord_3d_mode.py:12-281}), in numpy: boxes stay plain ``[N, 7+]`` arrays
 ``(x, y, z, dx, dy, dz, yaw[, ...])`` and the frame is an explicit mode
 argument. Only the conversions and the camera-frame corners that the
 KITTI reader uses are ported. Arrays keep their dtype (float32 boxes give
-float32 results, as the JAX package's computes them).
+float32 results, as the JAX package's computes them). ``convert_points``
+also takes torch tensors (ImVoteNet's ``VoteFusion`` on the card): the
+same matrices, applied on the tensor's device, with no copy to the host;
+each frame's constant matrices are copied to a device once and kept.
 
 Frame conventions (identical to the reference):
 
@@ -19,6 +22,7 @@ Frame conventions (identical to the reference):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 LIDAR = 0
 CAM = 1
@@ -50,7 +54,26 @@ _CORNER_ORDER = np.stack(np.unravel_index(np.arange(8), [2] * 3),
                          axis=1)[[0, 1, 3, 2, 4, 5, 7, 6]].astype(np.float32)
 
 
+_ON_DEVICE = {}
+
+
+def _constant(pair, like):
+    """The default change of basis of ``pair`` as a tensor on ``like``'s
+    device and dtype (copied there once)."""
+    key = (pair, like.device, like.dtype)
+    if key not in _ON_DEVICE:
+        _ON_DEVICE[key] = torch.as_tensor(_DEFAULT_RT[pair], dtype=like.dtype,
+                                          device=like.device)
+    return _ON_DEVICE[key]
+
+
 def _apply_rt(xyz, rt_mat):
+    if torch.is_tensor(xyz):
+        rt_mat = torch.as_tensor(rt_mat, dtype=xyz.dtype, device=xyz.device)
+        if rt_mat.shape[-1] == 4:
+            xyz = torch.cat([xyz, torch.ones_like(xyz[..., :1])], -1)
+            return (xyz @ rt_mat.T)[..., :3]
+        return xyz @ rt_mat.T
     rt_mat = np.asarray(rt_mat, xyz.dtype)
     if rt_mat.shape[-1] == 4:
         ones = np.ones(xyz.shape[:-1] + (1,), xyz.dtype)
@@ -92,6 +115,15 @@ def convert_points(points, src: int, dst: int, rt_mat=None):
         return points
     if (src, dst) not in _DEFAULT_RT:
         raise NotImplementedError(f'Coord3DMode {src} -> {dst}')
+    if torch.is_tensor(points):
+        if rt_mat is None:
+            rt_mat = _constant((src, dst), points)
+        elif (src, dst) == (DEPTH, CAM):
+            rt_mat = _constant((DEPTH, CAM), points) @ rt_mat.T
+        elif (src, dst) == (CAM, DEPTH):
+            rt_mat = rt_mat @ _constant((CAM, DEPTH), points)
+        xyz = _apply_rt(points[..., :3], rt_mat)
+        return torch.cat([xyz, points[..., 3:]], -1)
     points = np.asarray(points)
     if rt_mat is None:
         rt_mat = _DEFAULT_RT[(src, dst)]

@@ -5,7 +5,8 @@ from .custom_3d import CBGSDataset, Custom3DDataset
 from .kitti import KittiDataset
 from .loader import DataLoader, collate
 from .nuscenes import NuScenesDataset
-from .other_datasets import WaymoDataset
+from .other_datasets import ScanNetDataset, SUNRGBDDataset, WaymoDataset
 
 __all__ = ['CBGSDataset', 'Custom3DDataset', 'DataLoader', 'KittiDataset',
-           'NuScenesDataset', 'WaymoDataset', 'collate']
+           'NuScenesDataset', 'ScanNetDataset', 'SUNRGBDDataset',
+           'WaymoDataset', 'collate']

@@ -3,10 +3,14 @@
 Counterpart of the JAX package's ``datasets/pipelines/loading.py``
 (reference mmdet3d/datasets/pipelines/loading.py):
 
-- ``LoadPointsFromFile`` (:728): .bin float32 readers with a use_dim select;
+- ``LoadPointsFromFile`` (:728): .bin float32 (or .npy) readers with a
+  use_dim select and, for the indoor sets, ``shift_height``'s height
+  channel (z over the 0.99th percentile of z, :810-814);
 - ``LoadPointsFromMultiSweeps`` (:503): per-sweep sensor2lidar transform,
   timestamp channel, concat (loading.py:604-637);
-- ``LoadAnnotations3D`` (:834): GT boxes and labels from the info dict;
+- ``LoadAnnotations3D`` (:834): GT boxes and labels from the info dict,
+  and the indoor sets' per-point instance and semantic masks
+  (``with_mask_3d``, ``with_seg_3d``: int64 files, :916-939);
 - ``LoadMultiViewImageFromFiles`` (:429): the camera image stack. ``.npy``
   views are read with numpy; any other file is decoded by PIL, and without
   PIL reading it raises an error that names the file;
@@ -43,16 +47,24 @@ def require_rng(rng, who: str) -> np.random.RandomState:
 @PIPELINES.register('LoadPointsFromFile')
 class LoadPointsFromFile:
     def __init__(self, coord_type='LIDAR', load_dim=5, use_dim=(0, 1, 2, 3),
-                 file_client_args=None):
+                 shift_height=False, file_client_args=None):
         self.coord_type = coord_type
         self.load_dim = load_dim
         self.use_dim = list(use_dim) if not isinstance(use_dim, int) \
             else list(range(use_dim))
+        self.shift_height = shift_height
 
     def __call__(self, results):
-        points = np.fromfile(results['pts_filename'], dtype=np.float32)
+        path = results['pts_filename']
+        points = (np.load(path) if path.endswith('.npy') else
+                  np.fromfile(path, dtype=np.float32))
         points = points.reshape(-1, self.load_dim)[:, self.use_dim]
-        results['points'] = points.astype(np.float32)
+        points = points.astype(np.float32)
+        if self.shift_height:
+            floor = np.percentile(points[:, 2], 0.99)
+            points = np.concatenate(
+                [points, (points[:, 2] - floor)[:, None]], axis=1)
+        results['points'] = points
         return results
 
 
@@ -112,9 +124,14 @@ class LoadPointsFromMultiSweeps:
 
 @PIPELINES.register('LoadAnnotations3D')
 class LoadAnnotations3D:
-    def __init__(self, with_bbox_3d=True, with_label_3d=True, **kwargs):
+    def __init__(self, with_bbox_3d=True, with_label_3d=True,
+                 with_mask_3d=False, with_seg_3d=False,
+                 seg_3d_dtype=np.int64, **kwargs):
         self.with_bbox_3d = with_bbox_3d
         self.with_label_3d = with_label_3d
+        self.with_mask_3d = with_mask_3d
+        self.with_seg_3d = with_seg_3d
+        self.seg_3d_dtype = seg_3d_dtype
 
     def __call__(self, results):
         ann = results['ann_info']
@@ -122,6 +139,13 @@ class LoadAnnotations3D:
             results['gt_bboxes_3d'] = ann['gt_bboxes_3d'].astype(np.float32)
         if self.with_label_3d:
             results['gt_labels_3d'] = ann['gt_labels_3d'].astype(np.int64)
+        if self.with_mask_3d:
+            results['pts_instance_mask'] = np.fromfile(
+                ann['pts_instance_mask_path'], dtype=np.int64)
+        if self.with_seg_3d:
+            results['pts_semantic_mask'] = np.fromfile(
+                ann['pts_semantic_mask_path'],
+                dtype=self.seg_3d_dtype).astype(np.int64)
         return results
 
 

@@ -38,10 +38,11 @@ class GlobalRotScaleTrans:
 
     def __init__(self, rot_range=(-0.78539816, 0.78539816),
                  scale_ratio_range=(0.95, 1.05),
-                 translation_std=(0, 0, 0)):
+                 translation_std=(0, 0, 0), shift_height=False):
         self.rot_range = rot_range
         self.scale_ratio_range = scale_ratio_range
         self.translation_std = translation_std
+        self.shift_height = shift_height
 
     def __call__(self, results, rng=None):
         rng = require_rng(rng, type(self).__name__)
@@ -52,6 +53,10 @@ class GlobalRotScaleTrans:
 
         points = results['points']
         points[:, :3] = _rot_z(points[:, :3], angle) * scale + trans
+        if self.shift_height and points.shape[1] > 3:
+            # the indoor height channel is a z offset: it scales, and
+            # neither turns nor moves
+            points[:, 3] *= scale
         results['points'] = points
 
         if 'gt_bboxes_3d' in results and len(results['gt_bboxes_3d']):

@@ -19,7 +19,12 @@ mmdet3d/models/fusion_layers/coord_transform.py and point_fusion.py:306):
   ``fuse_conv``: mmdet3d's names; the JAX layer has no norms there, and
   neither has the port).
 
-``VoteFusion`` (ImVoteNet's) comes with the indoor models.
+- ``VoteFusion`` (ImVoteNet's) lifts 2-D detections into per-seed vote
+  cues on the device: the seeds go DEPTH -> CAM through
+  ``core/box_modes.convert_points``' tensor path (the same matrices as
+  its numpy one), pixel coordinates round half to even as ``jnp.round``,
+  and the top seed-box pairs are taken by ``topk_lower_index`` (padded
+  boxes score 0: ties, taken lower index first as ``jax.lax.top_k``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Any, Dict, Sequence
 import torch
 from torch import nn
 
+from ..core import box_modes
+from ..core.coders import topk_lower_index
 from ..registry import FUSION_LAYERS
 from .layers import Linear
 
@@ -219,3 +226,104 @@ class PointFusion(nn.Module):
         if self.fuse_out:
             fused = torch.relu(self.fuse_conv(fused))
         return fused
+
+
+@FUSION_LAYERS.register('VoteFusion')
+class VoteFusion(nn.Module):
+    """2-D detections lifted into per-seed image-vote cues (ImVoteNet;
+    reference fusion_layers/vote_fusion.py:12-212, the JAX layer's
+    redesign): each seed's projection is tested against every (padded,
+    masked) 2-D box; the ``max_imvote_per_pixel`` seed-box pairs of
+    highest in-box + confidence give a cue of 5 + ``num_classes``
+    (the lifted image vote (2), the ray (3), the class confidence) and the
+    3 texture values of the pixel under the seed. One sample; no
+    parameters. An empty ``aug_state`` or ``img_meta`` is the identity
+    and is not replayed (the replays would copy constants to the card)."""
+
+    def __init__(self, num_classes: int = 10, max_imvote_per_pixel: int = 3):
+        super().__init__()
+        self.num_classes = num_classes
+        self.max_imvote_per_pixel = max_imvote_per_pixel
+
+    def forward(self, img, bboxes_2d, bbox_valid, seeds_3d, depth2img,
+                img_hw, aug_state=None, img_meta=None):
+        """img [H, W, 3] (0-255); bboxes_2d [nb, 6] (l, t, r, b, conf,
+        cls); bbox_valid [nb]; seeds_3d [S, 3] in the DEPTH frame;
+        depth2img [4, 4] or dict(K=[4, 4], Rt=[3, 3]) -> (cues [feat,
+        K*S], mask [K*S]), vote-major (column k*S + s: seed s's k-th
+        vote)."""
+        eps = 1e-6
+        s, nb = seeds_3d.shape[0], bboxes_2d.shape[0]
+        kmax = self.max_imvote_per_pixel
+        rt = depth2img.get('Rt') if isinstance(depth2img, dict) else None
+        k_mat = depth2img['K'] if isinstance(depth2img, dict) else depth2img
+        xyz_depth = (apply_3d_transformation(seeds_3d, aug_state, True)
+                     if aug_state else seeds_3d)
+        xyz_cam = box_modes.convert_points(xyz_depth, box_modes.DEPTH,
+                                           box_modes.CAM, rt_mat=rt)
+        hom = torch.cat([xyz_cam, xyz_cam.new_ones(s, 1)], -1)
+        proj = hom @ k_mat.t()
+        uv_origin = torch.round(
+            proj[:, :2] / torch.clamp(proj[:, 2:3], min=eps) - 1)
+        uv_rescaled = (coord_2d_transform(img_meta, uv_origin, True)
+                       if img_meta else uv_origin)
+
+        # seed-in-box tests on the original-frame boxes
+        l, t, r, bo = (bboxes_2d[:, i] for i in range(4))
+        conf = torch.where(bbox_valid, bboxes_2d[:, 4], 0.0)
+        cls = bboxes_2d[:, 5].to(torch.int32)
+        u, v = uv_origin[:, None, 0], uv_origin[:, None, 1]
+        in_box = (u > l) & (u < r) & (v > t) & (v < bo) & bbox_valid[None]
+        # one-hot as jax.nn.one_hot: a class outside the range gives zeros
+        onehot = (cls[:, None] == torch.arange(
+            self.num_classes, device=cls.device)).to(conf.dtype)
+        sem_cue = (onehot * conf[:, None])[None].expand(s, nb, -1)
+
+        # the geometric cue: the pixel offset to the box centre lifted to 3D
+        z_cam = xyz_cam[:, 2:3]
+        delta_u = ((l + r)[None] / 2 - uv_origin[:, 0:1]) * z_cam \
+            / k_mat[0, 0]
+        delta_v = ((t + bo)[None] / 2 - uv_origin[:, 1:2]) * z_cam \
+            / k_mat[0, 0]
+        imvote = torch.stack([delta_u, delta_v, torch.zeros_like(delta_u)],
+                             -1).reshape(-1, 3)
+        imvote = box_modes.convert_points(imvote, box_modes.CAM,
+                                          box_modes.DEPTH, rt_mat=rt)
+        if aug_state:
+            imvote = apply_3d_transformation(imvote, aug_state, False)
+        seed_exp = seeds_3d[:, None].expand(s, nb, 3).reshape(-1, 3)
+        ray = seed_exp + imvote
+        ray = ray / torch.sqrt((ray ** 2).sum(-1, keepdim=True) + eps)
+        # columns 0 and 2 by a strided slice (a list index is copied to
+        # the card, a synchronisation)
+        xz = ray[:, ::2] / (ray[:, 1:2] + eps) * seed_exp[:, 1:2] \
+            - seed_exp[:, ::2]
+        geo_cue = torch.cat([xz, ray], -1).reshape(s, nb, 5)
+        two_cues = torch.cat([geo_cue, sem_cue], -1) * \
+            in_box[..., None].to(conf.dtype)
+        feat_dim = 5 + self.num_classes
+
+        # the top-k seed-box pairs by in-box + confidence
+        pair_score = in_box.to(conf.dtype) + conf[None]
+        if nb < kmax:
+            pad = kmax - nb
+            pair_score = torch.cat([pair_score, pair_score.new_zeros(
+                s, pad)], 1)
+            two_cues = torch.cat([two_cues, two_cues.new_zeros(
+                s, pad, feat_dim)], 1)
+        score, idx = topk_lower_index(pair_score, kmax)
+        two_cues = torch.gather(two_cues, 1,
+                                idx[..., None].expand(-1, -1, feat_dim))
+        mask = torch.floor(score).to(torch.bool)              # [S, K]
+
+        # the texture cue: the normalised pixel under each seed
+        h, w = img_hw
+        ui = torch.clamp(torch.round(uv_rescaled[:, 0]).to(torch.int64), 0,
+                         w - 1)
+        vi = torch.clamp(torch.round(uv_rescaled[:, 1]).to(torch.int64), 0,
+                         h - 1)
+        txt = (img[vi, ui].to(torch.float32) / 255.0)[:, None] \
+            .expand(s, kmax, 3)
+        cues = torch.cat([two_cues, txt], -1)                 # [S, K, 18]
+        cues = cues.transpose(0, 1).reshape(kmax * s, feat_dim + 3).t()
+        return cues, mask.t().reshape(-1)

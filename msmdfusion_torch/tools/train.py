@@ -215,8 +215,10 @@ def _train(args, cfg, work_dir, device, logger) -> Dict[str, Any]:
                     gt_bboxes=batch['gt_bboxes_3d'],
                     gt_labels=batch['gt_labels_3d'].to(torch.int32),
                     gt_valid=batch['gt_valid']), step)
-                batches.append([int(m['sample_idx'])
-                                for m in batch['metas']])
+                # the indoor sets' sample ids are scene names
+                batches.append([m['sample_idx'] if isinstance(
+                    m['sample_idx'], str) else int(m['sample_idx'])
+                    for m in batch['metas']])
                 step += 1
                 if step % log_interval == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}

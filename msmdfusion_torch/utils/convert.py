@@ -8,9 +8,9 @@ private copy of that converter's TransFusion-L and MSMDFusion tables
 adds TransFusion-LC's (``transfusion_lc_rules``: the head's image fusion
 under the reference TransFusion head's keys, which the JAX converter's
 view-order contract names), the code-size-8 Waymo head's and the
-zoo's (``zoo_rules``: the single-stage detectors, PartA2 and MVXNet,
-with mmdet3d's module names where the reference has the module; the JAX
-converter has none), and reads
+zoo's (``zoo_rules``: the single-stage detectors, PartA2, MVXNet and
+the point-based indoor zoo, with mmdet3d's module names where the
+reference has the module; the JAX converter has none), and reads
 them backwards: a flax variable tree (as numpy arrays) becomes a state
 dict the port loads with ``load_state_dict``.
 
@@ -21,6 +21,7 @@ dict the port loads with ``load_state_dict``.
 | Conv kernel [kx, ky, kz, I, O]     | Conv3d weight [O, I, kx, ky, kz]    |
 | ConvTranspose [kh, kw, I, O]       | ConvTranspose2d [I, O, kh, kw], taps flipped |
 | Dense kernel [I, O]                | Conv1d [O, I, 1] or Linear [O, I]   |
+| Dense kernel [I, O] (shared MLP)   | Conv2d [O, I, 1, 1] (``pointwise``) |
 | scale/bias + batch_stats mean/var  | BN weight/bias/running_mean/var     |
 | q/k/v/out Dense kernels [E, E]     | MHA in_proj_weight [3E, E], out_proj |
 """
@@ -543,13 +544,108 @@ def _voxel_trunk_rules(add, model_cfg) -> None:
         anchor_head_rules(add, head)
 
 
+def mlp_rules(add, t: str, f: str, layers: int) -> None:
+    """The JAX ``MLP``'s ``Dense_{k}`` -> the port ``MLP``'s Linear
+    ``{2k}`` (a ReLU between)."""
+    for k in range(layers):
+        add(f'{t}.{2 * k}', f'{f}/Dense_{k}', 'linear')
+
+
+def shared_mlp_rules(add, t: str, f: str, layers: int,
+                     scale: Optional[int] = None) -> None:
+    """An SA/FP module's shared MLP: mmdet3d's ``layer{j}.{conv,bn}``
+    from the JAX module's ``mlp_[{scale}_]{j}``/``bn_[...]``."""
+    tag = '' if scale is None else f'{scale}_'
+    for j in range(layers):
+        add(f'{t}.layer{j}.conv', f'{f}/mlp_{tag}{j}', 'pointwise')
+        add(f'{t}.layer{j}.bn', f'{f}/bn_{tag}{j}', 'bn')
+
+
+def pointnet2_rules(add, cfg, t: str = 'backbone',
+                    f: str = 'backbone_net') -> None:
+    """``PointNet2SASSG``/``PointNet2SAMSG``: ``SA_modules.{i}.mlps.{s}``
+    and ``FP_modules.{i}.mlps`` (the JAX ``sa_{i}``, ``fp_{i}``)."""
+    msg = cfg['type'] == 'PointNet2SAMSG'
+    for i, channels in enumerate(cfg['sa_channels']):
+        if msg:
+            for sc, mlp in enumerate(channels):
+                shared_mlp_rules(add, f'{t}.SA_modules.{i}.mlps.{sc}',
+                                 f'{f}/sa_{i}', len(mlp), sc)
+        else:
+            shared_mlp_rules(add, f'{t}.SA_modules.{i}.mlps.0',
+                             f'{f}/sa_{i}', len(channels))
+    for i, mlp in enumerate(() if msg else cfg['fp_channels']):
+        shared_mlp_rules(add, f'{t}.FP_modules.{i}.mlps', f'{f}/fp_{i}',
+                         len(mlp))
+
+
+def vote_head_rules(add, t: str, f: str, ssd3d: bool = False) -> None:
+    """``VoteHead`` (or ``SSD3DHead``): the JAX names under the head's
+    prefix, the aggregation SA as mmdet3d's ``vote_aggregation``."""
+    mlp_rules(add, f'{t}.vote_mlp', f'{f}/vote_mlp', 1 if ssd3d else 2)
+    add(f'{t}.vote_out', f'{f}/vote_out', 'linear')
+    shared_mlp_rules(add, f'{t}.vote_aggregation.mlps.0', f'{f}/' + (
+        'candidate_aggregation' if ssd3d else 'vote_aggregation'), 3)
+    mlp_rules(add, f'{t}.pred_mlp', f'{f}/pred_mlp', 2)
+    add(f'{t}.pred_out', f'{f}/pred_out', 'linear')
+
+
+def indoor_rules(model_cfg) -> List[Rule]:
+    """The point-based zoo: ``VoteNet``, ``SSD3DNet``, ``H3DNet`` and
+    ``ImVoteNet``. mmdet3d's keys where the JAX module has the
+    reference's structure (``backbone.SA_modules``/``FP_modules``, the
+    heads' ``vote_aggregation``); the JAX names under mmdet3d's prefixes
+    where it departs (the heads' norm-free linear stacks; H3DNet's
+    ``rpn_head``, ``roi_head.primitive_{z,xy,line}`` from the JAX
+    ``head``, ``primitive_heads_{i}``; ``roi_head.bbox_head`` from
+    ``refine``; ImVoteNet's ``cue_proj``/``img_proj``, its image branch
+    from ``backbone_img``/``neck_img``). ImVoteNet's JAX variables are
+    those of both image paths (each init creates one path's projection;
+    their union loads)."""
+    rules, add = new_rules()
+    kind = model_cfg['type']
+    pointnet2_rules(add, model_cfg['backbone'])
+    if kind == 'H3DNet':
+        vote_head_rules(add, 'rpn_head', 'head')
+        prims = model_cfg.get('primitive_list') or [
+            dict(primitive_mode=m) for m in ('z', 'xy', 'line')]
+        for i, cfg in enumerate(prims):
+            t = f'roi_head.primitive_{cfg["primitive_mode"]}'
+            f = f'primitive_heads_{i}'
+            mlp_rules(add, f'{t}.flag_mlp', f'{f}/flag_mlp', 2)
+            mlp_rules(add, f'{t}.vote_mlp', f'{f}/vote_mlp', 1)
+            for name in ('flag_out', 'vote_out', 'feat_res'):
+                add(f'{t}.{name}', f'{f}/{name}', 'linear')
+        mlp_rules(add, 'roi_head.bbox_head.refine_mlp', 'refine/refine_mlp',
+                  2)
+        add('roi_head.bbox_head.refine_out', 'refine/refine_out', 'linear')
+        return rules
+    vote_head_rules(add, 'bbox_head', 'head', kind == 'SSD3DNet')
+    if kind == 'ImVoteNet':
+        mlp_rules(add, 'cue_proj', 'cue_proj', 1)
+        if model_cfg.get('img_backbone'):
+            resnet_rules(add, 'img_backbone', 'backbone_img',
+                         model_cfg['img_backbone'].get('depth', 50))
+            if model_cfg.get('img_neck'):
+                fpn_rules(add, 'img_neck', 'neck_img',
+                          len(model_cfg['img_neck']['in_channels']))
+            mlp_rules(add, 'img_proj', 'img_proj', 1)
+    return rules
+
+
+INDOOR = ('VoteNet', 'SSD3DNet', 'H3DNet', 'ImVoteNet')
+
+
 def zoo_rules(model_cfg) -> List[Rule]:
     """The mapping of a zoo detector, read from its config's ``model``:
-    ``PartA2`` (``parta2_rules``), ``MVXFasterRCNN`` (``mvx_rules``; its
-    JAX variables initialised with images) or a single-stage detector
+    the point-based zoo (``indoor_rules``), ``PartA2``
+    (``parta2_rules``), ``MVXFasterRCNN`` (``mvx_rules``; its JAX
+    variables initialised with images) or a single-stage detector
     (``VoxelNet``, ``CenterPoint``, ``DynamicVoxelNet``: the voxel encoder,
     none for ``DynamicVoxelNet``, whose JAX detector calls none, the
     middle encoder, SECOND, SECONDFPN and the head)."""
+    if model_cfg['type'] in INDOOR:
+        return indoor_rules(model_cfg)
     if model_cfg['type'] == 'PartA2':
         return parta2_rules(model_cfg)
     if model_cfg['type'] == 'MVXFasterRCNN':
@@ -624,6 +720,8 @@ def from_jax_variables(variables, rules: Optional[List[Rule]] = None
                 p(f + '/kernel')[::-1, ::-1].transpose(2, 3, 0, 1))
         elif kind in ('conv1d', 'linear'):
             dense(t, f, kind == 'conv1d')
+        elif kind == 'pointwise':
+            put(t + '.weight', p(f + '/kernel').T[:, :, None, None])
         elif kind == 'ln_init':
             put(t + '.weight', np.ones_like(params[f + '/scale']))
             put(t + '.bias', np.zeros_like(params[f + '/bias']))

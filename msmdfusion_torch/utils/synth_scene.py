@@ -12,7 +12,8 @@ virtual points on the objects' surfaces. The same seed gives the same
 arrays as the JAX package's copies: the flagship's capacities were
 measured on that scene. ``lc_batch`` (the port's own) draws TransFusion-LC
 inputs: the LiDAR frame, camera images and a rig per dataset
-(``LC_YAWS``).
+(``LC_YAWS``). ``indoor_room`` (the port's own) draws a ScanNet-like room
+for the point-based zoo.
 """
 from __future__ import annotations
 
@@ -440,3 +441,68 @@ def lc_batch(shape: Dict, b: int = 1, seed: int = 0,
         batch['gt'] = dict(gt_bboxes=gt_bboxes, gt_labels=gt_labels,
                            gt_valid=gt_valid)
     return batch
+
+
+# ScanNet's raw label ids of the walls and the floor
+SCANNET_WALL, SCANNET_FLOOR = 1, 2
+
+
+def indoor_room(rng: np.random.RandomState, n_points: int, mean_sizes,
+                cat_ids: Sequence[int], num_objects: int = 12,
+                yawed: bool = False) -> Dict[str, np.ndarray]:
+    """A room of 5-8 x 5-8 x 2.8 m in the DEPTH frame (x right, y front, z
+    up, the floor at z = 0): a floor (30% of the points), four walls (25%)
+    and ``num_objects`` pieces of furniture (the rest), each of a random
+    class, its size the class's ``mean_sizes`` entry times 0.8-1.2, on the
+    floor, its five visible faces sampled with 1 cm noise; axis-aligned,
+    or turned about z where ``yawed`` (SUN RGB-D). Returns points [N, 6]
+    (xyz, rgb 0-255), boxes [K, 7] (gravity centre, dx, dy, dz, yaw),
+    labels [K], the per-point instance ids (0 for the room, k + 1 for
+    object k) and raw semantic ids (``cat_ids[label]``; wall 1, floor 2,
+    ScanNet's), int64."""
+    mean_sizes = np.asarray(mean_sizes, np.float64)
+    wx, wy, wz = rng.uniform(5, 8), rng.uniform(5, 8), 2.8
+    n_floor, n_wall = int(0.3 * n_points), int(0.25 * n_points)
+    per_obj = np.full(num_objects, (n_points - n_floor - n_wall)
+                      // num_objects)
+    per_obj[:(n_points - n_floor - n_wall) % num_objects] += 1
+    floor = np.stack([rng.uniform(0, wx, n_floor), rng.uniform(0, wy, n_floor),
+                      rng.normal(0, 0.01, n_floor)], 1)
+    side = rng.randint(0, 4, n_wall)
+    t = rng.uniform(0, 1, n_wall)
+    wall = np.stack([np.where(side < 2, t * wx, np.where(side == 2, 0, wx)),
+                     np.where(side < 2, np.where(side == 0, 0, wy), t * wy),
+                     rng.uniform(0, wz, n_wall)], 1)
+    parts = [floor, wall]
+    colours = [np.full((n_floor, 3), 120.0), np.full((n_wall, 3), 200.0)]
+    inst = [np.zeros(n_floor + n_wall, np.int64)]
+    sem = [np.full(n_floor, SCANNET_FLOOR), np.full(n_wall, SCANNET_WALL)]
+    labels = rng.randint(0, len(mean_sizes), num_objects)
+    boxes = np.zeros((num_objects, 7))
+    for k, (label, count) in enumerate(zip(labels, per_obj)):
+        dims = mean_sizes[label] * rng.uniform(0.8, 1.2, 3)
+        yaw = rng.uniform(-np.pi, np.pi) if yawed else 0.0
+        half = dims[:2].max() / 2 + 0.1
+        ctr = np.array([rng.uniform(half, wx - half),
+                        rng.uniform(half, wy - half), dims[2] / 2])
+        boxes[k] = [*ctr, *dims, yaw]
+        dx, dy, dz = dims
+        areas = np.array([dy * dz, dy * dz, dx * dz, dx * dz, dx * dy])
+        face = rng.choice(5, size=count, p=areas / areas.sum())
+        u, v = rng.uniform(-0.5, 0.5, count), rng.uniform(-0.5, 0.5, count)
+        sign = np.where(face % 2 == 0, 0.5, -0.5)
+        x = np.where(face < 2, sign * dx, u * dx)
+        y = np.where(face < 2, u * dy, np.where(face < 4, sign * dy, v * dy))
+        z = np.where(face < 4, v * dz, 0.5 * dz)
+        c, s = np.cos(yaw), np.sin(yaw)
+        local = np.stack([c * x - s * y, s * x + c * y, z], 1)
+        parts.append(ctr + local + rng.normal(0, 0.01, (count, 3)))
+        colours.append(np.tile(rng.uniform(0, 255, 3), (count, 1)))
+        inst.append(np.full(count, k + 1, np.int64))
+        sem.append(np.full(count, cat_ids[label], np.int64))
+    points = np.concatenate([np.concatenate(parts),
+                             np.concatenate(colours)], 1).astype(np.float32)
+    return dict(points=points, boxes=boxes.astype(np.float32),
+                labels=labels.astype(np.int64),
+                instance=np.concatenate(inst),
+                semantic=np.concatenate(sem).astype(np.int64))
