@@ -686,10 +686,10 @@ KERNEL_INFO = {
         route='cuda', source='msmdfusion_torch/csrc/conv_dw_bf16.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
     'gather_gemm_conv_x3': dict(
-        route='cuda', source='msmdfusion_torch/csrc/gather_gemm_conv_bf16.cu',
+        route='cuda', source='msmdfusion_torch/csrc/gather_gemm_conv_x3.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
     'conv_dw_x3': dict(
-        route='cuda', source='msmdfusion_torch/csrc/conv_dw_bf16.cu',
+        route='cuda', source='msmdfusion_torch/csrc/conv_dw_x3.cu',
         replaces='msmdfusion_tpu/ops/sparse/matchconv.py:924'),
     'match_conv': dict(
         route='cuda', source='msmdfusion_torch/csrc/match_conv.cu',
@@ -1319,6 +1319,11 @@ def dw_record(name, i, args, kwargs, reps, plain_reps):
         rec['sgemm_ms'] = cuda_ms(
             lambda: [torch.bmm(x, y) for x, y in products], reps)
         del products
+    if name == 'conv_dw_x3':
+        products = [(*bf16_parts(x[0]), *bf16_parts(y[0]))
+                    for x, y in sgemm_operands(feats, rows, g)]
+        rec['bf16mm_ms'] = cuda_ms(lambda: bf16_x3_mms(products), reps)
+        del products
     return rec
 
 
@@ -1393,6 +1398,8 @@ def dw_calls(calls, reps, card, plain_reps=3, fp32=None):
             rec['staged'] = dw_staged_pairs(kwargs['order'], rec['cin'],
                                             rec['cout'])
             extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+        if name == 'conv_dw_x3':
+            extra += f"bf16mm_ms={rec['bf16mm_ms']:.4f} "
         if name == 'conv_dw':
             extra += exact_extra(rec)
         if mc.x3():
@@ -1464,20 +1471,26 @@ def ffma_ratio(rec):
             f"ffma_worst_|err|/|sum| {f['elem']:.3g} ")
 
 
-def conv_staged_row_taps(order, ta):
-    """Row-taps the packed conv multiplies: 16 rows for each tap of each
-    16-row slice's mask (the useful share is the hits over these)."""
-    from msmdfusion_torch.ops.sparse import matchconv as mc
-    m = order.slice_masks()
-    return mc.SLICE_ROWS * sum(int(((m >> t) & 1).sum()) for t in range(ta))
+def conv_staged_row_taps(order, ta, rows=16):
+    """Row-taps the tensor-core conv multiplies: ``rows`` rows for each tap
+    of each slice's mask, 16-row slices in the packed conv (mma.sync
+    tiles), 64-row tiles in the x3 one (wgmma tiles); the useful share is
+    the hits over these."""
+    m = order.slice_masks(rows)
+    return rows * sum(int(((m >> t) & 1).sum()) for t in range(ta))
 
 
 def dw_staged_pairs(order, cin, cout):
-    """Pair slots conv_dw_bf16 stages: each chunk of each tap's pair
-    list in whole stages (the useful share is the hits over these)."""
+    """Pair slots the tensor-core dw kernel of the switches stages: each
+    chunk of each tap's pair list in whole stages (``conv_dw_bf16``'s 32 or
+    64 pairs, ``conv_dw_x3``'s ``DW_X3_PAIRS``); the useful share is the
+    hits over these."""
     from msmdfusion_torch.ops.sparse import matchconv as mc
-    tile, chunk, _ = mc.conv_dw_bf16_launch(order.tap_hits, cin, cout)
-    step = mc.dw_stage_pairs(tile)
+    if mc.packed():
+        tile, chunk, _ = mc.conv_dw_bf16_launch(order.tap_hits, cin, cout)
+        step = mc.dw_stage_pairs(tile)
+    else:
+        chunk, step = mc.dw_x3_chunk(order.tap_hits), mc.DW_X3_PAIRS
     return sum(n // chunk * chunk + -(-(n % chunk) // step) * step
                for n in order.tap_hits)
 
@@ -1640,7 +1653,28 @@ def conv_record(name, i, args, kwargs, order, reps, plain_reps):
         rec['sgemm_ms'] = cuda_ms(
             lambda: [torch.mm(x, w) for x, w in products], reps)
         del products
+    if name == 'gather_gemm_conv_x3':
+        products = [(*bf16_parts(x), *bf16_parts(w))
+                    for x, w in conv_sgemm_operands(feats, rows, weights)]
+        rec['bf16mm_ms'] = cuda_ms(lambda: bf16_x3_mms(products), reps)
+        del products
     return rec
+
+
+def bf16_parts(x):
+    """The x3 split of fp32 ``x`` as two bf16 tensors (hi, lo)."""
+    import torch
+    from msmdfusion_torch.ops.sparse import matchconv as mc
+    return tuple(p.to(torch.bfloat16) for p in mc.split_hi_lo(x))
+
+
+def bf16_x3_mms(products):
+    """The x3 kernels' cuBLAS yardstick (``bf16mm_ms``): per tap, the three
+    bf16 ``torch.mm`` hi.hi, hi.lo and lo.hi of operands gathered and split
+    beforehand (bf16 out; the sums not taken)."""
+    import torch
+    return [(torch.mm(xh, wh), torch.mm(xh, wl), torch.mm(xl, wh))
+            for xh, xl, wh, wl in products]
 
 
 def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
@@ -1673,8 +1707,14 @@ def conv_calls(calls, widths, reps, card, plain_reps=3, label=None,
         rec = conv_record(name, i, args, kwargs, order, reps, plain_reps)
         extra = ''
         if order is not None:
-            rec['staged'] = conv_staged_row_taps(order, rec['ta'])
+            tile = 64 if name == 'gather_gemm_conv_x3' else 16
+            rec['staged'] = conv_staged_row_taps(order, rec['ta'], tile)
             extra += f"useful={rec['hits'] / max(rec['staged'], 1):.3f} "
+            if tile == 64:
+                rec['staged16'] = conv_staged_row_taps(order, rec['ta'])
+                extra += (f"useful16="
+                          f"{rec['hits'] / max(rec['staged16'], 1):.3f} "
+                          f"bf16mm_ms={rec['bf16mm_ms']:.4f} ")
         if name == 'match_conv_x3':
             rec['staged'] = block_staged_row_taps(
                 mc.plan_rows_plain(args[1], args[2]))
@@ -1813,9 +1853,12 @@ def route_shares(recs):
     """Of the tensor-core kernels' records: hits over the row-taps or
     pairs they stage (``useful_share``), the packed ones' time over the
     fp32 engine's (x3) kernel's on the same calls (``fp32_ratio``) and the
-    x3 ones' over the exact (FFMA) kernel's (``ffma_ratio``); the exact
-    kernels' (``conv_dw``, ``gather_gemm_conv``, ``match_conv``) hits over
-    the row-taps they multiply and their cuBLAS yardstick (``sgemm_ms``);
+    x3 ones' over the exact (FFMA) kernel's (``ffma_ratio``), the
+    redesigned x3 ones' cuBLAS bf16 yardstick (``bf16mm_ms``) and the x3
+    conv's share at the packed conv's 16-row slices (``useful_share16``);
+    the exact kernels' (``conv_dw``, ``gather_gemm_conv``, ``match_conv``)
+    hits over the row-taps they multiply and their cuBLAS yardstick
+    (``sgemm_ms``);
     ``masked_nn``'s bound at the unfused fp32
     rate (``unfused_bound_ms``), where the records carry them."""
     out = {}
@@ -1830,6 +1873,11 @@ def route_shares(recs):
             r['ffma']['ms'] for r in recs)
     if recs and all('sgemm_ms' in r for r in recs):
         out['sgemm_ms'] = sum(r['sgemm_ms'] for r in recs)
+    if recs and all('bf16mm_ms' in r for r in recs):
+        out['bf16mm_ms'] = sum(r['bf16mm_ms'] for r in recs)
+    if recs and all('staged16' in r for r in recs):
+        out['useful_share16'] = sum(r['hits'] for r in recs) / max(
+            sum(r['staged16'] for r in recs), 1)
     if recs and all('unfused_ms' in r for r in recs):
         out['unfused_bound_ms'] = sum(max(r['bytes_ms'], r['unfused_ms'])
                                       for r in recs)

@@ -45,23 +45,9 @@
 // Shared-memory row strides (TILE + 4 words) keep the fragment loads free
 // of bank conflicts.
 //
-// The same kernel with PASSES = 3 is the fp32 rulebook engine's default
-// route (msmd_conv_dw_x3), replacing the with_dw accumulator of
-// _vgather_kernel's fp32 mode under its default gemm_mode() 'x3'
-// (matchconv.py:1151-1168): both operands split into bf16 hi + lo, three
-// tensor-core products with fp32 sums, lo.lo dropped:
-//
-//   dw[t] = sum_o hi(x)^T (x) hi(g) + hi(x)^T (x) lo(g) + lo(x)^T (x) hi(g)
-//   x = feats[rows[o, t]], g = g[o]; hi(v) = bf16_rn(v),
-//   lo(v) = bf16_rn(v - float(hi(v)))
-//
-// Each fragment is split twice from the same staged fp32 rows
-// (split_bf16) and issues the three products into a fresh accumulator,
-// added to the running sum by one fp32 add (the tensor cores round their
-// sums toward zero; see gather_gemm_conv_bf16.cu); the staging, walk,
-// chunking and fixed-order reduction are the packed ones.
-// Bound: the same bytes, against 3 x 2 * hits * Cin * Cout FLOP at the
-// dense bf16 tensor rate.
+// The packed engine's kernel alone: the fp32 rulebook engine's x3 route,
+// which instantiated this body with three passes (msmd_conv_dw_x3), has
+// its own Hopper kernel in conv_dw_x3.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,9 +95,8 @@ __device__ __forceinline__ void find_chunk(const int32_t* tap_start, int ta,
   *p0 = *p1 = 0;
 }
 
-// one TILE x TILE tile of (Cin, Cout) per block; PASSES 1 rounds both
-// operands to bf16, 3 splits them (x3)
-template <int TILE, int VEC, int PASSES>
+// one TILE x TILE tile of (Cin, Cout) per block
+template <int TILE, int VEC>
 __global__ void __launch_bounds__(DwTile<TILE>::WARPS * 32)
 conv_dw_bf16_kernel(const float* __restrict__ feats, int cin,
                     const float* __restrict__ g, int cout, int ta,
@@ -119,7 +104,6 @@ conv_dw_bf16_kernel(const float* __restrict__ feats, int cin,
                     const int32_t* __restrict__ pair_out,
                     const int32_t* __restrict__ tap_start, int chunk,
                     float* __restrict__ partials) {
-  static_assert(PASSES == 1 || PASSES == 3, "one pass or x3");
   using T = DwTile<TILE>;
   constexpr int WM = T::WM, WN = T::WN, MT = T::MT, NTL = T::NTL;
   constexpr int PC = T::PC, NT = T::WARPS * 32, TPP = NT / PC;
@@ -189,49 +173,25 @@ conv_dw_bf16_kernel(const float* __restrict__ feats, int cin,
     for (int ks = wk * 16; ks < PC; ks += 16 * WK) {
       const float* x0 = xs + (ks + 2 * c) * S + wm * 16 * MT + gq;
       const float* g0 = gs + (ks + 2 * c) * S + wn * 8 * NTL + gq;
-      uint32_t a[MT][4], b[NTL][2], a_lo[MT][4], b_lo[NTL][2];
-      // A = X^T: Cin rows g and g + 8, pairs 2c, 2c + 1 (and + 8)
+      uint32_t a[MT][4], b[NTL][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const float* x = x0 + i * 16;
-        const float v[4][2] = {{x[0], x[S]}, {x[8], x[S + 8]},
-                               {x[8 * S], x[9 * S]},
-                               {x[8 * S + 8], x[9 * S + 8]}};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if constexpr (PASSES == 3)
-            split_bf16(v[e][0], v[e][1], &a[i][e], &a_lo[i][e]);
-          else
-            a[i][e] = pack_bf16(v[e][0], v[e][1]);
-        }
+        a[i][0] = pack_bf16(x[0], x[S]);
+        a[i][1] = pack_bf16(x[8], x[S + 8]);
+        a[i][2] = pack_bf16(x[8 * S], x[9 * S]);
+        a[i][3] = pack_bf16(x[8 * S + 8], x[9 * S + 8]);
       }
 #pragma unroll
       for (int j = 0; j < NTL; ++j) {
         const float* y = g0 + j * 8;
-        const float v[2][2] = {{y[0], y[S]}, {y[8 * S], y[9 * S]}};
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if constexpr (PASSES == 3)
-            split_bf16(v[e][0], v[e][1], &b[j][e], &b_lo[j][e]);
-          else
-            b[j][e] = pack_bf16(v[e][0], v[e][1]);
-        }
+        b[j][0] = pack_bf16(y[0], y[S]);
+        b[j][1] = pack_bf16(y[8 * S], y[9 * S]);
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NTL; ++j) {
-          if constexpr (PASSES == 3) {
-            float part[4] = {0.f, 0.f, 0.f, 0.f};
-            mma(part, a[i], b[j]);
-            mma(part, a[i], b_lo[j]);
-            mma(part, a_lo[i], b[j]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
-          } else {
-            mma(acc[i][j], a[i], b[j]);
-          }
-        }
+        for (int j = 0; j < NTL; ++j) mma(acc[i][j], a[i], b[j]);
     }
   }
 
@@ -296,7 +256,7 @@ __global__ void conv_dw_bf16_reduce_kernel(const float* __restrict__ partials,
   dw[e] = s;
 }
 
-template <int TILE, int VEC, int PASSES>
+template <int TILE, int VEC>
 int launch(const float* feats, int cin, const float* g, int cout, int ta,
            const int32_t* pair_in, const int32_t* pair_out,
            const int32_t* tap_start, int chunk, int n_chunks,
@@ -306,7 +266,7 @@ int launch(const float* feats, int cin, const float* g, int cout, int ta,
   static_assert(T::WARPS / (T::WM * T::WN) * TILE * TILE <=
                     NS * 2 * T::PC * (TILE + 4),
                 "the warps' sums fit the ring");
-  auto kernel = conv_dw_bf16_kernel<TILE, VEC, PASSES>;
+  auto kernel = conv_dw_bf16_kernel<TILE, VEC>;
   if (BYTES > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
@@ -318,34 +278,39 @@ int launch(const float* feats, int cin, const float* g, int cout, int ta,
   return (int)cudaGetLastError();
 }
 
-template <int VEC, int PASSES>
+template <int VEC>
 int dispatch_tile(int tile, const float* f, int cin, const float* g, int cout,
                   int ta, const int32_t* pi, const int32_t* po,
                   const int32_t* ts, int chunk, int n_chunks, float* part,
                   cudaStream_t s) {
   switch (tile) {
     case 16:
-      return launch<16, VEC, PASSES>(f, cin, g, cout, ta, pi, po, ts, chunk,
-                                     n_chunks, part, s);
+      return launch<16, VEC>(f, cin, g, cout, ta, pi, po, ts, chunk,
+                             n_chunks, part, s);
     case 32:
-      return launch<32, VEC, PASSES>(f, cin, g, cout, ta, pi, po, ts, chunk,
-                                     n_chunks, part, s);
+      return launch<32, VEC>(f, cin, g, cout, ta, pi, po, ts, chunk,
+                             n_chunks, part, s);
     case 64:
-      return launch<64, VEC, PASSES>(f, cin, g, cout, ta, pi, po, ts, chunk,
-                                     n_chunks, part, s);
+      return launch<64, VEC>(f, cin, g, cout, ta, pi, po, ts, chunk,
+                             n_chunks, part, s);
     case 128:
-      return launch<128, VEC, PASSES>(f, cin, g, cout, ta, pi, po, ts,
-                                      chunk, n_chunks, part, s);
+      return launch<128, VEC>(f, cin, g, cout, ta, pi, po, ts, chunk,
+                              n_chunks, part, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int PASSES>
-int conv_dw(const void* feats, int cin, const void* g, int cout, int ta,
-            const void* pair_in, const void* pair_out, const void* tap_start,
-            int tile, int chunk, int n_chunks, void* partials, void* dw,
-            void* stream) {
+}  // namespace
+
+// pair_in, pair_out [hits] and tap_start [Ta + 1] from the plan's RowOrder;
+// tile 16, 32, 64 or 128; chunk a multiple of 64; n_chunks = sum over taps of ceil(hits_t / chunk);
+// partials: [max(n_chunks, 1), Cin, Cout] scratch.
+extern "C" int msmd_conv_dw_bf16(const void* feats, int cin, const void* g,
+                                 int cout, int ta, const void* pair_in,
+                                 const void* pair_out, const void* tap_start,
+                                 int tile, int chunk, int n_chunks,
+                                 void* partials, void* dw, void* stream) {
   if (chunk < 1 || n_chunks < 0 || partials == nullptr)
     return (int)cudaErrorInvalidValue;
   const int64_t tile_size = (int64_t)cin * cout;
@@ -360,12 +325,10 @@ int conv_dw(const void* feats, int cin, const void* g, int cout, int ta,
   if (n_chunks > 0) {
     const bool vec16 = cin % 4 == 0 && cout % 4 == 0 &&
                        (uintptr_t)feats % 16 == 0 && (uintptr_t)g % 16 == 0;
-    int err = vec16 ? dispatch_tile<16, PASSES>(tile, f, cin, gg, cout, ta,
-                                                pi, po, ts, chunk, n_chunks,
-                                                part, s)
-                    : dispatch_tile<4, PASSES>(tile, f, cin, gg, cout, ta, pi,
-                                               po, ts, chunk, n_chunks, part,
-                                               s);
+    int err = vec16 ? dispatch_tile<16>(tile, f, cin, gg, cout, ta, pi, po,
+                                        ts, chunk, n_chunks, part, s)
+                    : dispatch_tile<4>(tile, f, cin, gg, cout, ta, pi, po, ts,
+                                       chunk, n_chunks, part, s);
     if (err != 0) return err;
   }
   const int threads = 256;
@@ -373,28 +336,4 @@ int conv_dw(const void* feats, int cin, const void* g, int cout, int ta,
   conv_dw_bf16_reduce_kernel<<<(unsigned)blocks, threads, 0, s>>>(
       part, ts, ta, chunk, tile_size, (float*)dw);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// pair_in, pair_out [hits] and tap_start [Ta + 1] from the plan's RowOrder;
-// tile 16, 32, 64 or 128; chunk a multiple of 64; n_chunks = sum over taps
-// of ceil(hits_t / chunk); partials: [max(n_chunks, 1), Cin, Cout] scratch.
-extern "C" int msmd_conv_dw_bf16(const void* feats, int cin, const void* g,
-                                 int cout, int ta, const void* pair_in,
-                                 const void* pair_out, const void* tap_start,
-                                 int tile, int chunk, int n_chunks,
-                                 void* partials, void* dw, void* stream) {
-  return conv_dw<1>(feats, cin, g, cout, ta, pair_in, pair_out, tap_start,
-                    tile, chunk, n_chunks, partials, dw, stream);
-}
-
-// The x3 route: the same arguments.
-extern "C" int msmd_conv_dw_x3(const void* feats, int cin, const void* g,
-                               int cout, int ta, const void* pair_in,
-                               const void* pair_out, const void* tap_start,
-                               int tile, int chunk, int n_chunks,
-                               void* partials, void* dw, void* stream) {
-  return conv_dw<3>(feats, cin, g, cout, ta, pair_in, pair_out, tap_start,
-                    tile, chunk, n_chunks, partials, dw, stream);
 }

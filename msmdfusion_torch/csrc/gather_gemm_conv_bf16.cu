@@ -50,28 +50,10 @@
 // Shared-memory row strides (KC + 8 words for A, KC + 8 halves for B)
 // keep both fragment loads free of bank conflicts.
 //
-// The same kernel with PASSES = 3 is the fp32 rulebook engine's default
-// route (msmd_gather_gemm_conv_x3), replacing _vgather_kernel's fp32 mode
-// under its default gemm_mode() 'x3' (matchconv.py:1115-1134): both
-// operands split into bf16 hi + lo, three tensor-core products with fp32
-// sums, lo.lo dropped:
-//
-//   out[r] = epi( sum_t hi(f) @ hi(W[t]) + hi(f) @ lo(W[t])
-//                       + lo(f) @ hi(W[t]) )       f = feats[rows[r, t]]
-//   hi(x) = bf16_rn(x), lo(x) = bf16_rn(x - float(hi(x)))
-//
-// about 2^-17 of each sum's magnitude from the exact fp32 product. Each A
-// fragment is split twice from the same staged fp32 rows (split_bf16); the
-// wrapper splits the weights once per call into two arrays of the packed
-// layout, and a stage holds both chunks (the B stage doubles). Each
-// fragment issues hi.hi, hi.lo and lo.hi into a fresh accumulator, added
-// to the running sum by one fp32 add (round to nearest): the tensor cores
-// round their sums toward zero, and a long chain of them in one
-// accumulator drifts from the sum (on an H100 at the flagship's shapes,
-// several times farther from the x3 plain version than the FFMA kernel
-// lies from the exact one).
-// Bound: the same bytes, against 3 x 2 * hits * Cin * Cout FLOP at the
-// dense bf16 tensor rate.
+// The packed engine's kernel alone: the fp32 rulebook engine's x3 route,
+// which instantiated this body with three passes
+// (msmd_gather_gemm_conv_x3), has its own Hopper kernel in
+// gather_gemm_conv_x3.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,31 +70,27 @@ constexpr int NT = WARPS * 32;     // threads; two per staged row
 constexpr int MAX_TAPS = 62;       // the tap-hit mask is an int64
 static_assert(NT == 2 * BM, "two threads stage each row");
 
-// PASSES 1: the weights' bf16 chunk; 3: their hi chunk, then their lo one
-template <int NP, int KC, int NS, int PASSES>
+template <int NP, int KC, int NS>
 struct Layout {
   static constexpr int SA = KC + 8;              // fp32 per staged row
   static constexpr int SB = KC + 8;              // bf16 per weight column
   static constexpr int A_BYTES = BM * SA * 4;
-  static constexpr int B_ELEMS = NP * SB;        // bf16 of one weight chunk
-  static constexpr int STAGE = A_BYTES + (PASSES == 3 ? 2 : 1) * B_ELEMS * 2;
+  static constexpr int STAGE = A_BYTES + NP * SB * 2;
   static constexpr int BYTES = NS * STAGE;
 };
 
-template <int NP, int KC, int VEC, int NS, int PASSES>
+template <int NP, int KC, int VEC, int NS>
 __global__ void __launch_bounds__(NT)
 gather_conv_bf16_kernel(const float* __restrict__ feats, int cin,
                         const int32_t* __restrict__ rows, int k_out, int ta,
                         const int64_t* __restrict__ perm,
                         const int64_t* __restrict__ masks,
-                        const __nv_bfloat16* __restrict__ wt,
-                        const __nv_bfloat16* __restrict__ wt_lo, int n_pad,
+                        const __nv_bfloat16* __restrict__ wt, int n_pad,
                         int kp, int cout, const float* __restrict__ scale,
                         const float* __restrict__ shift, int relu,
                         const uint8_t* __restrict__ out_valid,
                         float* __restrict__ out) {
-  static_assert(PASSES == 1 || PASSES == 3, "one pass or x3");
-  using L = Layout<NP, KC, NS, PASSES>;
+  using L = Layout<NP, KC, NS>;
   constexpr int NN = NP / 8;                 // n8 tiles per warp
   constexpr int PER_ROW = KC * 4 / VEC;      // copies per staged row
   constexpr int B_PER_COL = KC * 2 / 16;     // copies per weight column
@@ -177,13 +155,10 @@ gather_conv_bf16_kernel(const float* __restrict__ feats, int cin,
         cp_async4(dst, ok ? src_row + col : feats, ok);
       }
     }
-    const int64_t w0 = ((int64_t)t * n_pad + n0) * kp + k0;
+    const __nv_bfloat16* w = wt + ((int64_t)t * n_pad + n0) * kp + k0;
     for (int e = tid; e < NP * B_PER_COL; e += NT) {
       const int n = e / B_PER_COL, j = e - n * B_PER_COL;
-      const int64_t src = w0 + (int64_t)n * kp + j * 8;
-      cp_async16(bs + n * L::SB + j * 8, wt + src, true);
-      if constexpr (PASSES == 3)
-        cp_async16(bs + L::B_ELEMS + n * L::SB + j * 8, wt_lo + src, true);
+      cp_async16(bs + n * L::SB + j * 8, w + (int64_t)n * kp + j * 8, true);
     }
   };
 
@@ -212,38 +187,21 @@ gather_conv_bf16_kernel(const float* __restrict__ feats, int cin,
                               g * L::SB + 2 * c;
 #pragma unroll
     for (int ks = 0; ks < KC; ks += 16) {
-      // A fragment: rows g and g + 8, columns 2c and 2c + 8 (and + 1)
-      const float2 v[4] = {
-          *reinterpret_cast<const float2*>(as + ks),
-          *reinterpret_cast<const float2*>(as + 8 * L::SA + ks),
-          *reinterpret_cast<const float2*>(as + ks + 8),
-          *reinterpret_cast<const float2*>(as + 8 * L::SA + ks + 8)};
-      uint32_t a[4], a_lo[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (PASSES == 3)
-          split_bf16(v[i].x, v[i].y, &a[i], &a_lo[i]);
-        else
-          a[i] = pack_bf16(v[i].x, v[i].y);
-      }
+      uint32_t a[4];
+      float2 v = *reinterpret_cast<const float2*>(as + ks);
+      a[0] = pack_bf16(v.x, v.y);
+      v = *reinterpret_cast<const float2*>(as + 8 * L::SA + ks);
+      a[1] = pack_bf16(v.x, v.y);
+      v = *reinterpret_cast<const float2*>(as + ks + 8);
+      a[2] = pack_bf16(v.x, v.y);
+      v = *reinterpret_cast<const float2*>(as + 8 * L::SA + ks + 8);
+      a[3] = pack_bf16(v.x, v.y);
 #pragma unroll
       for (int j = 0; j < NN; ++j) {
         const __nv_bfloat16* q = bs + j * 8 * L::SB + ks;
         uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(q),
                          *reinterpret_cast<const uint32_t*>(q + 8)};
-        if constexpr (PASSES == 3) {
-          const __nv_bfloat16* ql = q + L::B_ELEMS;
-          uint32_t b_lo[2] = {*reinterpret_cast<const uint32_t*>(ql),
-                              *reinterpret_cast<const uint32_t*>(ql + 8)};
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma(part, a, b);
-          mma(part, a, b_lo);
-          mma(part, a_lo, b);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] += part[e];
-        } else {
-          mma(acc[j], a, b);
-        }
+        mma(acc[j], a, b);
       }
     }
   }
@@ -270,15 +228,15 @@ gather_conv_bf16_kernel(const float* __restrict__ feats, int cin,
   }
 }
 
-template <int NP, int KC, int VEC, int PASSES>
+template <int NP, int KC, int VEC>
 int launch(const float* feats, int cin, const int32_t* rows, int k_out,
            int ta, const int64_t* perm, const int64_t* masks,
-           const __nv_bfloat16* wt, const __nv_bfloat16* wt_lo, int kp,
-           int cout, const float* scale, const float* shift, int relu,
-           const uint8_t* out_valid, float* out, cudaStream_t stream) {
+           const __nv_bfloat16* wt, int kp, int cout, const float* scale,
+           const float* shift, int relu, const uint8_t* out_valid,
+           float* out, cudaStream_t stream) {
   constexpr int NS = KC == 16 ? 4 : 3;
-  using L = Layout<NP, KC, NS, PASSES>;
-  auto kernel = gather_conv_bf16_kernel<NP, KC, VEC, NS, PASSES>;
+  using L = Layout<NP, KC, NS>;
+  auto kernel = gather_conv_bf16_kernel<NP, KC, VEC, NS>;
   if (L::BYTES > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -287,71 +245,29 @@ int launch(const float* feats, int cin, const int32_t* rows, int k_out,
   const int col_blocks = (cout + NP - 1) / NP;
   dim3 grid((k_out + BM - 1) / BM, col_blocks);
   kernel<<<grid, NT, L::BYTES, stream>>>(
-      feats, cin, rows, k_out, ta, perm, masks, wt, wt_lo, col_blocks * NP,
+      feats, cin, rows, k_out, ta, perm, masks, wt, col_blocks * NP,
       kp, cout, scale, shift, relu, out_valid, out);
   return (int)cudaGetLastError();
 }
 
 // kc 32 with 16-byte copies; otherwise 16-deep chunks (kp, a multiple of
 // 32 or 16, is a multiple of 16 either way)
-template <int NP, int PASSES>
+template <int NP>
 int dispatch_kc(int kc, bool vec16, const float* feats, int cin,
                 const int32_t* rows, int k_out, int ta, const int64_t* perm,
-                const int64_t* masks, const __nv_bfloat16* wt,
-                const __nv_bfloat16* wt_lo, int kp, int cout,
-                const float* scale, const float* shift, int relu,
+                const int64_t* masks, const __nv_bfloat16* wt, int kp,
+                int cout, const float* scale, const float* shift, int relu,
                 const uint8_t* out_valid, float* out, cudaStream_t s) {
   if (kc == 32 && vec16)
-    return launch<NP, 32, 16, PASSES>(feats, cin, rows, k_out, ta, perm,
-                                      masks, wt, wt_lo, kp, cout, scale,
-                                      shift, relu, out_valid, out, s);
+    return launch<NP, 32, 16>(feats, cin, rows, k_out, ta, perm, masks,
+                              wt, kp, cout, scale, shift, relu, out_valid,
+                              out, s);
   if (vec16)
-    return launch<NP, 16, 16, PASSES>(feats, cin, rows, k_out, ta, perm,
-                                      masks, wt, wt_lo, kp, cout, scale,
-                                      shift, relu, out_valid, out, s);
-  return launch<NP, 16, 4, PASSES>(feats, cin, rows, k_out, ta, perm, masks,
-                                   wt, wt_lo, kp, cout, scale, shift, relu,
-                                   out_valid, out, s);
-}
-
-template <int PASSES>
-int conv(const void* feats, int cin, const void* rows, int k_out, int ta,
-         const void* perm, const void* masks, const void* wt,
-         const void* wt_lo, int np, int kc, int kp, int cout,
-         const void* scale, const void* shift, int relu,
-         const void* out_valid, void* out, void* stream) {
-  if ((kc != 16 && kc != 32) || kp % kc != 0 || kp < cin || ta > MAX_TAPS ||
-      cin < 1 || (PASSES == 3 && wt_lo == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (k_out == 0 || cout == 0) return (int)cudaGetLastError();
-  const bool vec16 = cin % 4 == 0 && (uintptr_t)feats % 16 == 0;
-  auto f = (const float*)feats;
-  auto rw = (const int32_t*)rows;
-  auto pm = (const int64_t*)perm;
-  auto sm = (const int64_t*)masks;
-  auto w = (const __nv_bfloat16*)wt;
-  auto wl = (const __nv_bfloat16*)wt_lo;
-  auto sc = (const float*)scale;
-  auto sh = (const float*)shift;
-  auto ov = (const uint8_t*)out_valid;
-  auto o = (float*)out;
-  auto s = (cudaStream_t)stream;
-#define MSMD_NP(N)                                                         \
-  case N:                                                                  \
-    return dispatch_kc<N, PASSES>(kc, vec16, f, cin, rw, k_out, ta, pm, sm, \
-                                  w, wl, kp, cout, sc, sh, relu, ov, o, s);
-  switch (np) {
-    MSMD_NP(16)
-    MSMD_NP(32)
-    MSMD_NP(64)
-    MSMD_NP(80)
-    MSMD_NP(96)
-    MSMD_NP(128)
-    MSMD_NP(192)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef MSMD_NP
+    return launch<NP, 16, 16>(feats, cin, rows, k_out, ta, perm, masks,
+                              wt, kp, cout, scale, shift, relu, out_valid,
+                              out, s);
+  return launch<NP, 16, 4>(feats, cin, rows, k_out, ta, perm, masks, wt,
+                           kp, cout, scale, shift, relu, out_valid, out, s);
 }
 
 }  // namespace
@@ -364,18 +280,35 @@ extern "C" int msmd_gather_gemm_conv_bf16(
     const void* perm, const void* masks, const void* wt, int np,
     int kc, int kp, int cout, const void* scale, const void* shift, int relu,
     const void* out_valid, void* out, void* stream) {
-  return conv<1>(feats, cin, rows, k_out, ta, perm, masks, wt, nullptr, np,
-                 kc, kp, cout, scale, shift, relu, out_valid, out, stream);
-}
-
-// The x3 route: wt_hi and wt_lo, the weights' bf16 hi and lo parts in
-// msmd_gather_gemm_conv_bf16's layout of wt; the rest as there.
-extern "C" int msmd_gather_gemm_conv_x3(
-    const void* feats, int cin, const void* rows, int k_out, int ta,
-    const void* perm, const void* masks, const void* wt_hi,
-    const void* wt_lo, int np, int kc, int kp, int cout, const void* scale,
-    const void* shift, int relu, const void* out_valid, void* out,
-    void* stream) {
-  return conv<3>(feats, cin, rows, k_out, ta, perm, masks, wt_hi, wt_lo, np,
-                 kc, kp, cout, scale, shift, relu, out_valid, out, stream);
+  if ((kc != 16 && kc != 32) || kp % kc != 0 || kp < cin || ta > MAX_TAPS ||
+      cin < 1)
+    return (int)cudaErrorInvalidValue;
+  if (k_out == 0 || cout == 0) return (int)cudaGetLastError();
+  const bool vec16 = cin % 4 == 0 && (uintptr_t)feats % 16 == 0;
+  auto f = (const float*)feats;
+  auto rw = (const int32_t*)rows;
+  auto pm = (const int64_t*)perm;
+  auto sm = (const int64_t*)masks;
+  auto w = (const __nv_bfloat16*)wt;
+  auto sc = (const float*)scale;
+  auto sh = (const float*)shift;
+  auto ov = (const uint8_t*)out_valid;
+  auto o = (float*)out;
+  auto s = (cudaStream_t)stream;
+#define MSMD_NP(N)                                                          \
+  case N:                                                                   \
+    return dispatch_kc<N>(kc, vec16, f, cin, rw, k_out, ta, pm, sm, w, kp,  \
+                          cout, sc, sh, relu, ov, o, s);
+  switch (np) {
+    MSMD_NP(16)
+    MSMD_NP(32)
+    MSMD_NP(64)
+    MSMD_NP(80)
+    MSMD_NP(96)
+    MSMD_NP(128)
+    MSMD_NP(192)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MSMD_NP
 }

@@ -34,7 +34,7 @@
 //   FLOP at the fp32 rate, against the bytes below.
 //
 // - msmd_match_conv_x3 (fp32 in and out; the default route, replacing
-//   parts=2): the x3 product of gather_gemm_conv_bf16.cu's PASSES = 3,
+//   parts=2): the x3 product of gather_gemm_conv_x3.cu,
 //
 //     sum_t hi(f) @ hi(W[t]) + hi(f) @ lo(W[t]) + lo(f) @ hi(W[t])
 //     hi(x) = bf16_rn(x), lo(x) = bf16_rn(x - float(hi(x)))

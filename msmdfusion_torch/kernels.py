@@ -45,19 +45,19 @@ ENTRY_POINTS = {
                               'msmd_gather_gemm_conv_bf16',
                               (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                                _I, _P, _P, _I, _P, _P, _P)),
-    'gather_gemm_conv_x3': ('gather_gemm_conv_bf16',
+    'gather_gemm_conv_x3': ('gather_gemm_conv_x3',
                             'msmd_gather_gemm_conv_x3',
-                            (_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _P, _P, _I, _P, _P, _P)),
+                            (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P,
+                             _P, _I, _P, _P, _P)),
     'conv_dw': ('conv_dw', 'msmd_conv_dw',
                 (_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                  _P)),
     'conv_dw_bf16': ('conv_dw_bf16', 'msmd_conv_dw_bf16',
                      (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P)),
-    'conv_dw_x3': ('conv_dw_bf16', 'msmd_conv_dw_x3',
-                   (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
-                    _P)),
+    'conv_dw_x3': ('conv_dw_x3', 'msmd_conv_dw_x3',
+                   (_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                    _P, _P)),
     'match_conv': ('match_conv', 'msmd_match_conv',
                    (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
                     _I, _P, _P, _I, _P, _P, _P)),

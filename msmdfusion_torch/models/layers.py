@@ -165,13 +165,17 @@ def global_moments(xf, dims, weight=None):
 
 
 @torch.no_grad()
-def update_running(bn, mean, var, count):
+def update_running(bn, mean, var, count, unbiased: bool = True):
     """The running statistics' update with torch's momentum convention
-    (new = (1 - m) old + m batch, the unbiased variance)."""
+    (new = (1 - m) old + m batch): the unbiased variance, or with
+    ``unbiased=False`` the biased one ``var`` itself (flax's
+    ``BatchNorm``, whose ``momentum`` is 1 - m)."""
     m = bn.momentum
-    unbiased = var.reshape(-1) * count / torch.clamp(count - 1.0, min=1.0)
+    var = var.reshape(-1)
+    if unbiased:
+        var = var * count / torch.clamp(count - 1.0, min=1.0)
     bn.running_mean.mul_(1 - m).add_(m * mean.reshape(-1))
-    bn.running_var.mul_(1 - m).add_(m * unbiased)
+    bn.running_var.mul_(1 - m).add_(m * var)
     bn.num_batches_tracked.add_(1)
 
 
@@ -247,8 +251,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     (new = (1 - m) * old + m * batch); inside a process group the moments
     and the count are every rank's (``global_moments``). ``fold()`` (eval
     only) returns the affine as ``(scale, shift)`` for fusion into a conv
-    kernel's epilogue.
+    kernel's epilogue. A subclass with ``unbiased_running = False`` keeps
+    the biased variance instead, as flax's ``BatchNorm`` does.
     """
+    unbiased_running = True
 
     def forward(self, x, mask=None):
         xf = x.float()
@@ -260,7 +266,7 @@ class MaskedBatchNorm(nn.BatchNorm1d):
             w = (torch.ones_like(xf[:, :1]) if mask is None
                  else mask.to(xf.dtype)[:, None])
             mean, var, count = global_moments(xf, (0,), w)
-            update_running(self, mean, var, count)
+            update_running(self, mean, var, count, self.unbiased_running)
             y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight \
                 + self.bias
         if mask is not None:

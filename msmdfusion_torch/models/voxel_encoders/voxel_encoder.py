@@ -11,7 +11,8 @@ The norms are the port's ``MaskedBatchNorm`` (global moments inside a
 process group): a PFN layer's over the valid points only, as the JAX
 layer's; ``HardVFE``'s and ``DynamicVFE``'s over every row, the padding
 ones included, as the JAX package's flax ``BatchNorm`` on the flattened
-rows (the running variance keeps the torch convention, unbiased).
+rows, whose running variance is the biased one (``RowBatchNorm``); the PFN
+layers' JAX norm keeps the unbiased one, as the port's does.
 """
 from __future__ import annotations
 
@@ -144,6 +145,13 @@ class PillarFeatureNet(nn.Module):
         return x
 
 
+class RowBatchNorm(MaskedBatchNorm):
+    """``MaskedBatchNorm`` as flax's ``BatchNorm`` (``HardVFE``'s and
+    ``DynamicVFE``'s JAX norms, ``momentum=0.99``): the running variance
+    takes the batch's biased variance."""
+    unbiased_running = False
+
+
 def _all_rows_norm(norm, x):
     """``norm`` over every row of ``x`` [..., C] (no mask)."""
     return norm(x.reshape(-1, x.shape[-1])).reshape(x.shape)
@@ -156,8 +164,8 @@ class VFELayer(nn.Module):
                  norm_eps: float = 1e-3, norm_momentum: float = 0.01):
         super().__init__()
         self.linear = Linear(in_channels, out_channels, bias=False)
-        self.norm = MaskedBatchNorm(out_channels, eps=norm_eps,
-                                    momentum=norm_momentum)
+        self.norm = RowBatchNorm(out_channels, eps=norm_eps,
+                                 momentum=norm_momentum)
 
     def forward(self, x):
         return _all_rows_norm(self.norm, self.linear(x))
@@ -249,7 +257,7 @@ class DynamicVFE(nn.Module):
         for i, out in enumerate(feat_channels):
             layers.append(nn.Sequential(
                 Linear(c, out, bias=False),
-                MaskedBatchNorm(out, eps=1e-3, momentum=0.01), nn.ReLU()))
+                RowBatchNorm(out, eps=1e-3, momentum=0.01), nn.ReLU()))
             c = out * 2
         self.vfe_layers = nn.ModuleList(layers)
 

@@ -69,15 +69,18 @@ Hand-written CUDA kernels carry these paths (``csrc/``):
   highest``, exact fp32 FFMA); the training backward runs it again over
   the dual rows for the input gradient;
 - ``gather_gemm_conv_bf16`` and ``gather_gemm_conv_x3``: the same conv on
-  bf16 tensor cores, replacing ``_vgather_kernel``'s packed mode and its
-  fp32 mode's default ``x3`` product; they walk the rows in the plan's
-  ``RowOrder`` (rows sorted by tap-hit mask; each 16-row slice stages the
-  OR of its masks), built by ``attach_rows`` beside the rows for the
-  sparse conv layers where ``needs_order()``;
+  bf16 tensor cores, replacing ``_vgather_kernel``'s packed mode
+  (``mma.sync``, 16-row slices) and its fp32 mode's default ``x3``
+  product (``csrc/gather_gemm_conv_x3.cu``: ``wgmma`` on 64-row tiles,
+  weights by the TMA unit from ``x3_layout``); they walk the rows in the
+  plan's ``RowOrder`` (rows sorted by tap-hit mask; each slice or tile
+  stages the OR of its masks), built by ``attach_rows`` beside the rows
+  for the sparse conv layers where ``needs_order()``;
 - ``conv_dw``, ``conv_dw_bf16`` and ``conv_dw_x3``: the weight gradient,
   replacing ``_vgather_kernel``'s ``with_dw`` accumulator (fp32 exact,
-  packed and x3; the last two walk the ``RowOrder``'s per-tap hit
-  pairs);
+  packed and x3, ``csrc/conv_dw_x3.cu``: ``wgmma``, launch from
+  ``conv_dw_x3_launch``); the last two walk the ``RowOrder``'s per-tap
+  hit pairs;
 - ``match_conv_x3``, ``match_conv`` and ``match_conv_bf16``: the one-hot
   engine's conv, search and product fused, replacing ``_match_kernel``:
   fp32 features on the x3 product (default) or the exact one (FFMA,
@@ -504,11 +507,13 @@ class RowOrder:
     tap_start: Optional[torch.Tensor] = None    # [Ta + 1] int32
     tap_hits: Optional[tuple] = None            # Ta ints
 
-    def slice_masks(self) -> torch.Tensor:
-        """[ceil(K / 16)] int64: the OR of each 16-row slice's masks."""
+    def slice_masks(self, rows: int = SLICE_ROWS) -> torch.Tensor:
+        """[ceil(K / rows)] int64: the OR of the masks of each slice of
+        ``rows`` (a power of two) sorted rows: 16, an mma.sync tile, or 64,
+        a wgmma one."""
         sliced = torch.nn.functional.pad(
-            self.masks, (0, -self.masks.shape[0] % SLICE_ROWS))
-        sliced = sliced.view(-1, SLICE_ROWS)
+            self.masks, (0, -self.masks.shape[0] % rows))
+        sliced = sliced.view(-1, rows)
         while sliced.shape[1] > 1:
             half = sliced.shape[1] // 2
             sliced = sliced[:, :half] | sliced[:, half:]
@@ -678,12 +683,41 @@ def packed_weights(weights):
 
 def x3_weights(weights):
     """(hi, lo, np, kc): the weights' ``split_hi_lo`` parts as bf16, once
-    per call, each in ``packed_weights``' layout: what
-    ``gather_gemm_conv_x3`` stages (the same values in fewer launches: the
-    frame is host-bound)."""
+    per call, each in ``packed_weights``' layout: what the one-hot
+    tensor-core kernels (``match_conv_x3``, ``match_conv_bf16``) stage
+    (the same values in fewer launches: the frame is host-bound)."""
     wt, np_, kc = _weights_layout(weights)
     hi = _as_bf16(wt)
     return hi, _as_bf16(wt - hi.float()), np_, kc
+
+
+# output-channel widths the x3 conv keeps whole in one block (Cout is
+# padded to the next; wider convs take several column blocks of 192)
+X3_WIDTHS = (16, 32, 64, 80, 96, 128, 192, 208)
+X3_UNIT = 16            # Cin of one unit the x3 conv stages (one k16 step)
+
+
+def x3_layout(weights):
+    """(laid, np, col_blocks): the weights [Ta, Cin, Cout] split once per
+    call into their ``split_hi_lo`` parts as bf16, laid out for the bulk
+    copies of ``gather_gemm_conv_x3``: Cout padded to np (of
+    ``X3_WIDTHS``) times ``col_blocks``, Cin to whole ``X3_UNIT``-deep
+    units, zeros in the padding, as [col_blocks][Ta][units][hi, lo][np /
+    8][2][8][8]: each unit's columns in groups of 8, each group's two
+    8-deep halves of the unit, 8 columns by 8 of Cin each (wgmma's K-major
+    core matrices), so that a unit's hi and lo are one contiguous tile."""
+    ta, cin, cout = weights.shape
+    np_ = next((w for w in X3_WIDTHS if w >= cout), 192)
+    col_blocks = math.ceil(cout / np_)
+    units = math.ceil(cin / X3_UNIT)
+    w = torch.nn.functional.pad(weights, (0, col_blocks * np_ - cout, 0,
+                                          units * X3_UNIT - cin))
+    hi = w.to(torch.bfloat16)
+    parts = torch.stack([hi, (w - hi.float()).to(torch.bfloat16)])
+    # [part, Ta, unit, half, k, column block, group, column]
+    parts = parts.view(2, ta, units, 2, 8, col_blocks, np_ // 8, 8)
+    return (parts.permute(5, 1, 2, 0, 6, 3, 7, 4).contiguous(), np_,
+            col_blocks)
 
 
 def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
@@ -701,7 +735,8 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     are exact (their ``lo`` parts are 0) and the packed kernel's rounding
     of its operands changes nothing.
     On the card: the x3 product (kernel ``gather_gemm_conv_x3``, the
-    default), the exact fp32 one under ``MSMD_CONV_GEMM=highest`` (kernel
+    default; the weights laid out once per call by ``x3_layout``), the
+    exact fp32 one under ``MSMD_CONV_GEMM=highest`` (kernel
     ``gather_gemm_conv``, at most ``FFMA_MAX_TAPS`` taps; launch from
     ``ffma_launch``), or under ``packed()`` bf16 operands with fp32
     sums (kernel ``gather_gemm_conv_bf16``). The x3 and packed kernels
@@ -731,15 +766,16 @@ def gather_gemm_conv(feats, rows, weights, scale=None, shift=None,
     if packed() or x3():
         name = 'gather_gemm_conv_bf16' if packed() else 'gather_gemm_conv_x3'
         _check_order(name, order, rows, pairs=False)
+        plan_args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
+                     order.perm.data_ptr(), order.masks.data_ptr())
         if packed():
             wt, np_, kc = packed_weights(weights)
-            parts = (wt.data_ptr(),)
+            args = (*plan_args, wt.data_ptr(), np_, kc, wt.shape[2], cout,
+                    *epilogue)
         else:
-            wt, lo, np_, kc = x3_weights(weights)
-            parts = (wt.data_ptr(), lo.data_ptr())
-        args = (feats.data_ptr(), cin, rows.data_ptr(), k_out, ta,
-                order.perm.data_ptr(), order.masks.data_ptr(), *parts, np_,
-                kc, wt.shape[2], cout, *epilogue)
+            wt, np_, col_blocks = x3_layout(weights)
+            args = (*plan_args, wt.data_ptr(), np_, col_blocks, cout,
+                    *epilogue)
     else:
         name = 'gather_gemm_conv'
         _check_ffma_taps(ta)
@@ -1009,6 +1045,62 @@ def _check_ffma_taps(ta: int) -> None:
                          f'{FFMA_MAX_TAPS}')
 
 
+DW_X3_PAIRS = 64        # pairs of one stage of conv_dw_x3
+DW_X3_SLAB = 64         # Cin rows of one of its consumer warpgroups
+DW_X3_WIDTHS = (16, 32, 48, 64, 80, 96, 128)    # its column blocks
+DW_X3_MIN_CHUNK = 256
+
+
+class DwX3Launch(NamedTuple):
+    """A ``conv_dw_x3`` launch: blocks of ``slabs`` ``DW_X3_SLAB``-row
+    slabs of Cin (one consumer warpgroup each) by ``nb`` columns of Cout
+    (``col_blocks`` of them), each over ``chunk`` pairs of one tap
+    (``n_chunks`` chunks in all, tap by tap: ``dw_x3_chunks``)."""
+    slabs: int
+    nb: int
+    col_blocks: int
+    chunk: int
+    n_chunks: int
+
+
+def dw_x3_chunk(tap_hits) -> int:
+    """Pairs of a ``conv_dw_x3`` chunk: whole ``DW_X3_PAIRS``-pair stages,
+    at least ``DW_X3_MIN_CHUNK``, ~4 chunks per SM of an H100 over all
+    taps. A function of the plan only."""
+    chunk = math.ceil(sum(tap_hits) / (4 * H100_SMS) / DW_X3_PAIRS)
+    return max(DW_X3_MIN_CHUNK, chunk * DW_X3_PAIRS)
+
+
+def conv_dw_x3_launch(tap_hits, cin: int, cout: int) -> DwX3Launch:
+    """The ``conv_dw_x3`` launch at these widths and per-tap hit counts:
+    all of Cin in one block up to 3 slabs (192 rows), Cout in the fewest
+    column blocks of at most 96 columns beside 3 slabs and 128 beside
+    fewer (a consumer's running and fresh accumulators must fit its
+    registers), each padded to the next of ``DW_X3_WIDTHS``;
+    ``dw_x3_chunk`` chunks. A function of the shapes and the plan only, so
+    the order of the sums, and the bits of dw, are the same on every
+    run."""
+    slabs = min(3, math.ceil(cin / DW_X3_SLAB))
+    col_blocks = math.ceil(cout / (96 if slabs == 3 else 128))
+    nb = next(w for w in DW_X3_WIDTHS if w >= math.ceil(cout / col_blocks))
+    chunk = dw_x3_chunk(tap_hits)
+    return DwX3Launch(slabs, nb, col_blocks, chunk,
+                      sum(math.ceil(n / chunk) for n in tap_hits))
+
+
+def dw_x3_chunks(tap_hits, chunk: int):
+    """[(tap, p0, p1)]: the pairs ``p0 .. p1`` (indices into the order's
+    pair lists) of each chunk of a ``conv_dw_x3`` launch, in block order:
+    each tap's pairs cut in pieces of ``chunk``, taps ascending (the
+    kernel's ``find_chunk``)."""
+    out, start = [], 0
+    for t, n in enumerate(tap_hits):
+        out += [(t, p0, min(p0 + chunk, start + n))
+                for p0 in range(start, start + n, chunk)]
+        start += n
+    return out
+
+
 DW_CHUNK_STEP = 64      # chunks of conv_dw_bf16 are whole 64-pair stages
 
 
@@ -1072,14 +1164,14 @@ def conv_dw(feats, rows, g, order: Optional[RowOrder] = None) -> torch.Tensor:
     if packed() or x3():
         name = 'conv_dw_bf16' if packed() else 'conv_dw_x3'
         _check_order(name, order, rows, pairs=True)
-        tile, chunk, n_chunks = conv_dw_bf16_launch(order.tap_hits, cin,
-                                                    cout)
-        partials = torch.empty((max(n_chunks, 1), cin, cout),
+        launch = (conv_dw_bf16_launch(order.tap_hits, cin, cout) if packed()
+                  else conv_dw_x3_launch(order.tap_hits, cin, cout))
+        partials = torch.empty((max(launch[-1], 1), cin, cout),
                                dtype=torch.float32, device=dev)
         args = (feats.data_ptr(), cin, g.data_ptr(), cout, ta,
                 order.pair_in.data_ptr(), order.pair_out.data_ptr(),
-                order.tap_start.data_ptr(), tile, chunk, n_chunks,
-                partials.data_ptr(), dw.data_ptr())
+                order.tap_start.data_ptr(), *launch, partials.data_ptr(),
+                dw.data_ptr())
     else:
         name = 'conv_dw'
         launch = conv_dw_launch(k_out, ta, cin, cout)

@@ -312,12 +312,19 @@ def test_wrappers_launch_the_routes_kernel(env, conv, dw, fake_card,
     for name, args in fake_card:
         assert len(args) == len(kernels.ENTRY_POINTS[name][2])
     if conv == 'gather_gemm_conv_x3':
-        # the weights split once per call, hi and lo in the packed layout
-        hi, lo, np_, kc = tmc.x3_weights(w)
-        assert (np_, kc) == (32, 16) and hi.shape == lo.shape == (27, 32, 16)
-        assert torch.equal(hi[:, :24].float() + lo[:, :24].float(),
-                           sum(tmc.split_hi_lo(w.transpose(1, 2))))
-        assert not hi[:, 24:].any() and not lo[:, 24:].any()
+        # the weights split once per call, hi and lo laid out for the
+        # kernel's bulk copies (np 32, one column block)
+        laid, np_, col_blocks = tmc.x3_layout(w)
+        assert (np_, col_blocks) == (32, 1)
+        assert laid.shape == (1, 27, 1, 2, 4, 2, 8, 8)
+        assert fake_card[0][1][8:11] == (32, 1, 24)
+        # [Ta, group, half, column, k] -> [Ta, Cin, Cout]
+        parts = [laid[0, :, 0, i].permute(0, 2, 4, 1, 3).reshape(27, 16, 32)
+                 for i in (0, 1)]
+        assert torch.equal(parts[0][..., :24].float() +
+                           parts[1][..., :24].float(),
+                           sum(tmc.split_hi_lo(w)))
+        assert not parts[0][..., 24:].any() and not parts[1][..., 24:].any()
     if conv != 'gather_gemm_conv':
         # the tensor-core kernels walk the plan's order: never built per
         # call

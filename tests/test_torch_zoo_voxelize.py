@@ -11,9 +11,9 @@ JAX package, on the CPU.
   and the ``conv_module`` ``SparseEncoder`` (``sparse_shape`` (21, 32, 32),
   widths 4/8) on the same seeded weights (the converter's rules), in eval
   and train mode, within ``TOL`` of the largest value; the train-mode
-  running statistics of the masked norms too (``HardVFE``'s JAX norm is
-  flax's ``BatchNorm``, which keeps a biased running variance: its outputs
-  are held, not its statistics).
+  running statistics of every norm too: the PFN layers' and the sparse
+  encoder's masked norms keep the unbiased variance, ``HardVFE``'s and
+  ``DynamicVFE``'s flax ``BatchNorm`` the biased one.
 """
 import numpy as np
 import pytest
@@ -183,15 +183,28 @@ def jax_apply(module, variables, train, *args, **kw):
     return out, mut.get('batch_stats', {})
 
 
-def check_stats(port, mutated, rules):
-    if not mutated:
-        return
+def check_stats(port, mutated, rules, before=None):
+    """The port's running statistics after a train call against the JAX
+    ``batch_stats``; with ``before`` (the state the call began from) each
+    as its step from there: a running variance that took the unbiased
+    batch variance where flax's ``BatchNorm`` takes the biased one steps
+    ~1/rows too far, well inside a tolerance on the statistics
+    themselves."""
     sd = from_jax_variables({'params': jax.tree_util.tree_map(
         np.asarray, dict(port['params'])), 'batch_stats': mutated}, rules)
     mine = port['module'].state_dict()
-    for k, v in sd.items():
-        if k.endswith(('running_mean', 'running_var')):
-            close(mine[k], v.numpy(), 1e-5)
+    keys = [k for k in sd if k.endswith(('running_mean', 'running_var'))]
+    assert any(k.endswith('running_var') for k in keys), sorted(sd)
+    for k in keys:
+        if before is None:
+            close(mine[k], sd[k].numpy(), 1e-5)
+        else:
+            close(mine[k] - before[k], sd[k].numpy() - before[k].numpy(),
+                  1e-5)
+
+
+def state(module):
+    return {k: v.clone() for k, v in module.state_dict().items()}
 
 
 def pillar_inputs(rng, f=5):
@@ -228,11 +241,12 @@ def test_hard_voxel_encoders_match_jax(name, train):
     port = load(getattr(tenc, kind)(**cfg), variables, rules)
     port.train(train)
     want, mutated = jax_apply(jmod, variables, train, *args)
+    before = state(port)
     got = port(voxels, num_points, coors)
     close(got, want)
-    if train and name == 'PillarFeatureNet':    # HardVFE's flax BatchNorm
+    if train:
         check_stats(dict(module=port, params=variables['params']), mutated,
-                    rules)
+                    rules, before)
 
 
 @pytest.mark.parametrize('train', [False, True])
@@ -254,13 +268,17 @@ def test_dynamic_vfe_matches_jax(train):
     voxel_encoder_rules(add, dict(cfg, type='DynamicVFE'), t='', f='')
     rules = [(t[1:], f[1:], k, ks) for t, f, k, ks in rules]
     port = load(tenc.DynamicVFE(**cfg), variables, rules).train(train)
-    want, _ = jax.jit(lambda v, *a: jmod.apply(
+    want, mutated = jax.jit(lambda v, *a: jmod.apply(
         v, *a, max_voxels=300, train=train, mutable=['batch_stats']))(
         variables, *args)
+    before = state(port)
     got = port(torch.from_numpy(pts), coords, valid, 300)
     close(got[0], want[0])
     assert_same(got[1], want[1])
     assert_same(got[2], want[2])
+    if train:
+        check_stats(dict(module=port, params=variables['params']),
+                    mutated['batch_stats'], rules, before)
 
 
 def test_pillar_scatter_matches_jax():
@@ -307,4 +325,4 @@ def test_conv_module_sparse_encoder_matches_jax(train):
     close(got.permute(0, 2, 3, 1), want, 1e-5)
     if train:
         check_stats(dict(module=port, params=variables['params']),
-                    mutated.get('batch_stats', {}), rules)
+                    mutated['batch_stats'], rules)
